@@ -1,0 +1,85 @@
+"""Model API (port of ``repro/models/model.py``, dense decoders).
+
+``build_model(cfg)`` returns a ``Model`` bundle whose ``loss_fn(params,
+batch) -> (loss, aux)`` matches the JAX package's teacher-forced LM loss on a
+params dict of the same tree. ``DecoderLM`` wraps the same function as an
+``nn.Module`` for callers that want parameters registered on a module.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.pytree import tree_flatten_with_path
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+
+@dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    specs: Any
+    loss_fn: Callable
+
+    def init(self, seed: int = 0, *, device=None, dtype=None):
+        return L.init_params(self.specs, seed=seed,
+                             dtype=dtype or self.cfg.dtype, device=device)
+
+
+def _decoder_embed_inputs(params, batch, cfg):
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    h = L.embed_apply(params["embed"], tokens)
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    return h, positions
+
+
+def _build_decoder_model(cfg: ModelConfig) -> Model:
+    specs = T.decoder_specs(cfg)
+
+    def loss_fn(params, batch):
+        h, positions = _decoder_embed_inputs(params, batch, cfg)
+        h, aux, _ = T.decoder_forward(params, h, cfg, positions=positions)
+        h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+        logits = L.unembed_apply(params["embed"], h, cfg.tie_embeddings)
+        ce = L.cross_entropy(logits, batch["labels"])
+        loss = ce + cfg.router_aux_weight * aux
+        return loss, {"ce": ce, "aux": aux}
+
+    return Model(cfg, specs, loss_fn)
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    return _build_decoder_model(cfg)
+
+
+class DecoderLM(nn.Module):
+    """``nn.Module`` over a params dict: ``forward(batch)`` returns the
+    loss. Parameters are registered under their tree paths with ``/`` as
+    the separator; ``params()`` rebuilds the nested dict of (shared)
+    tensors that ``loss_fn`` takes."""
+
+    def __init__(self, model: Model, params: Dict[str, Any]):
+        super().__init__()
+        self.model = model
+        flat, _ = tree_flatten_with_path(params)
+        self._paths = [tuple(e.key for e in path) for path, _ in flat]
+        self.weights = nn.ParameterDict(
+            {"/".join(p): nn.Parameter(leaf)
+             for p, (_, leaf) in zip(self._paths, flat)})
+
+    def params(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {}
+        for path in self._paths:
+            node = out
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = self.weights["/".join(path)]
+        return out
+
+    def forward(self, batch) -> torch.Tensor:
+        return self.model.loss_fn(self.params(), batch)[0]
