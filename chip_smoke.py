@@ -4,7 +4,7 @@
 Run from the root of a checkout on a machine with a CUDA card:
 
     python3 chip_smoke.py            # what CI runs
-    python3 chip_smoke.py --profile  # also profiles two training steps
+    python3 chip_smoke.py --profile  # also profiles the step on each route
 
 Phases, one JSON line each; any failed check raises and the exit code is
 not 0:
@@ -14,17 +14,29 @@ not 0:
    PyTorch version on the same CUDA tensors, at the training step's real
    layer-group shapes (GPT-2 Medium, M=4, float32), at odd sizes and in
    bfloat16; max error against the stated tolerance; kernel and plain
-   times (CUDA events, median of 20) beside the bound from bytes.
-3. train: the port's main path through its user entry points,
+   device times (CUDA events, median of 20, queued behind a spin kernel
+   so that the host's dispatch is not timed) beside the bound from bytes.
+3. build + flash: ``nvcc`` builds the CUDA C++ flash attention kernels
+   (build time on its own line); the forward (o, lse), the backward (dq,
+   dk, dv) and the autograd Function are held against their plain PyTorch
+   versions on the same CUDA tensors, at the training step's attention
+   shape (B=2, H=16, S=256, D=64, float32, causal; (B,S,H,D) tensors passed
+   as (B,H,S,D) views) and over a sweep (GQA, MQA, windows, bidirectional,
+   bfloat16, D=128, S not a multiple of the tile); kernel, plain and
+   ``scaled_dot_product_attention`` times (the last as a yardstick only:
+   the port never calls it) beside each bound.
+4. train: the port's main path through its user entry points,
    ``make_backend("prod", "layup", M=4, fb_ratio=2, update_delay=1,
    use_pallas=True)`` + ``drive``, GPT-2 Medium at full width and depth
    (random weights from a seed), 6 steps. Kernel launch counts are zeroed
    just before and read just after: ``gossip_mix`` must run once per layer
-   group per step.
-4. route: the same step at 2 layers, full width, M=4, 3 steps, through the
-   kernel and through the plain ``gossip_mix_ref`` called directly on the
-   same CUDA tensors; losses and planes must agree to 1e-5 relative.
-5. the kernels line, the card's ``nvidia-smi`` line, and last the result.
+   group per step, the flash forward once per layer, forward slice and
+   worker, and each backward kernel once per layer and worker.
+5. route: the same step at 2 layers, full width, M=4, 3 steps, through the
+   kernels and through the plain route (``USE_PALLAS=False`` attention and
+   ``gossip_mix_ref``) on the same CUDA tensors; losses and planes must
+   agree to 1e-5 relative (the attention kernels sum in another order).
+6. the kernels line, the card's ``nvidia-smi`` line, and last the result.
 
 TF32 is off for matrix products and cuDNN (both set below), so float32 is
 float32 throughout.
@@ -44,12 +56,34 @@ HERE = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
 TOL = {"float32": 1e-6, "bfloat16": 2e-2}  # relative to max |ref|
 M = 4
 TRAIN_STEPS = 6
 SEQ, BATCH_PER_WORKER = 256, 4
 LR = 3e-3
 ROUTE_LAYERS, ROUTE_STEPS, ROUTE_RTOL = 2, 3, 1e-5
+PROFILE_AB_ROUNDS = 3  # --profile: 4 steps a round, 2 on each route
+R = 2  # forward slices per step (fb_ratio)
+# the training step's attention call: per worker and forward slice, B =
+# BATCH_PER_WORKER / R sequences, GPT-2 Medium's 16 heads of 64, causal
+FLASH_MAIN = (BATCH_PER_WORKER // R, 16, 16, SEQ, 64, True, 0, "float32")
+FLASH_SWEEP = [  # (B, Hq, Hkv, S, D, causal, window, dtype)
+    (2, 8, 2, 256, 64, True, 0, "float32"),      # GQA
+    (2, 8, 1, 256, 64, True, 0, "float32"),      # MQA
+    (2, 16, 16, 256, 64, True, 64, "float32"),   # sliding window
+    (2, 16, 16, 256, 64, False, 0, "float32"),   # bidirectional
+    (2, 16, 16, 256, 64, True, 0, "bfloat16"),
+    (2, 8, 8, 256, 128, True, 0, "float32"),     # D=128
+    (2, 8, 4, 200, 64, True, 0, "float32"),      # S not a multiple of 64
+    (1, 4, 2, 77, 128, False, 20, "bfloat16"),
+]
+# |kernel − plain| ≤ tol × max |plain| in float32, which sums in another
+# order than cuBLAS (tol 1e-5 forward; 1e-4 backward, which sums over S).
+# bfloat16, element by element: + 2^-7 × |plain|, one bf16 ulp, since each
+# side is one rounding of a float32 result within that tolerance
+FLASH_TOL = (1e-5, 1e-4)  # forward, backward
+ULP = {"float32": 0.0, "bfloat16": 2.0 ** -7}
 
 
 def emit(phase: str, **kw) -> None:
@@ -62,20 +96,22 @@ def check(cond: bool, msg: str) -> None:
 
 
 def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of ``fn`` over ``reps`` runs (CUDA events)."""
+    """Median device time of ``fn`` over ``reps`` runs (CUDA events, one
+    pair per run). The runs are queued behind a ~50 ms spin kernel, so work
+    shorter than its host dispatch is timed on the device alone, without
+    the host's launches."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(100_000_000)
+    for start, end in events:
         start.record()
         fn()
         end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
 def mix_bound_ms(numels, itemsize: int, with_upd: bool, rows: int):
@@ -186,6 +222,162 @@ def phase_kernels(torch):
     return results
 
 
+def attention_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask leaves visible in one head."""
+    import numpy as np
+    q, k = np.arange(Sq)[:, None], np.arange(Sk)[None, :]
+    mask = np.ones((Sq, Sk), bool)
+    if causal:
+        mask &= k <= q
+    if window > 0:
+        mask &= (q - k) < window
+    return int(mask.sum())
+
+
+def attention_bound_ms(B, Hq, Hkv, S, D, causal, window, itemsize, kind):
+    """Least time for flash attention's work on these inputs, the larger of
+    operations and bytes. Operations: the matrix products over the visible
+    pairs only, 2 flops a multiply-add: forward QKᵀ and PV (4·D a pair);
+    backward S, dP, dV, dK and dQ (10·D a pair) plus delta = rowsum(do·o);
+    ``trainable`` both. Rate: float32 outside the tensor cores for f32
+    operands (the kernels take no TF32 path), bf16 tensor cores for bf16.
+    Bytes: each input read once, each output written once: forward q, k, v
+    in, o and the f32 lse out; backward q, k, v, o, do and lse in, dq, dk,
+    dv out; trainable q, k, v and do in, o, dq, dk and dv out. Returns
+    (ms, bound_by)."""
+    pairs = B * Hq * attention_pairs(S, S, causal, window)
+    nq, nkv = B * Hq * S * D * itemsize, B * Hkv * S * D * itemsize
+    nlse, delta = B * Hq * S * 4, 2 * B * Hq * S * D
+    flops, nbytes = {
+        "fwd": (4 * D * pairs, 2 * nq + 2 * nkv + nlse),
+        "bwd": (10 * D * pairs + delta, 4 * nq + 4 * nkv + nlse),
+        "trainable": (14 * D * pairs + delta, 4 * nq + 4 * nkv),
+    }[kind]
+    rate = F32_FLOPS_PER_S if itemsize == 4 else BF16_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_flash(torch):
+    """Build the CUDA C++ flash kernels, hold each against its plain
+    version, and time kernel, plain and library at the main path's shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                         flash_attention_ref)
+
+    t0 = time.perf_counter()
+    lib = _build.load("flash_attention", fa.SIGNATURES)
+    emit("build", kernel="flash_attention",
+         source="src/repro_torch/csrc/flash_attention.cu",
+         library=os.path.relpath(lib._name, HERE),
+         seconds=time.perf_counter() - t0)
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(4321)
+
+    def operands(B, Hq, Hkv, S, D, dtype):
+        """q, k, v, do as (B, H, S, D) views of (B, S, H, D) tensors, as the
+        decoder passes them."""
+        dt = getattr(torch, dtype)
+        return [torch.randn((B, S, H, D), generator=gen, device=dev).to(dt)
+                .transpose(1, 2) for H in (Hq, Hkv, Hkv, Hq)]
+
+    def max_err(name, got, want, tol, dtype="float32"):
+        diff, ref = (got.float() - want.float()).abs(), want.float().abs()
+        excess = (diff - ULP[dtype] * ref - tol * ref.max()).max().item()
+        check(excess <= 0, f"flash {name} ({dtype}): error exceeds "
+              f"{ULP[dtype]} x |plain| + {tol} x max |plain| by {excess}")
+        return diff.max().item()
+
+    def check_case(B, Hq, Hkv, S, D, causal, window, dtype):
+        q, k, v, do = operands(B, Hq, Hkv, S, D, dtype)
+        kw = dict(causal=causal, window=window)
+        tol_f, tol_b = FLASH_TOL
+        o, lse = fa.flash_attention(q, k, v, **kw)
+        o_r, lse_r = flash_attention_ref(q, k, v, **kw)
+        grads = fa.flash_attention_bwd(q, k, v, o_r, lse_r, do, **kw)
+        want = flash_attention_bwd_ref(q, k, v, o_r, lse_r, do, **kw)
+        torch.cuda.synchronize()
+        errs = {"o": max_err("o", o, o_r, tol_f, dtype),
+                "lse": max_err("lse", lse, lse_r, 1e-5)}
+        for n, g, w in zip(("dq", "dk", "dv"), grads, want):
+            errs[n] = max_err(n, g, w, tol_b, dtype)
+        return {"shape": [B, Hq, Hkv, S, D], "causal": causal,
+                "window": window, "dtype": dtype, "tol": [tol_f, tol_b],
+                "ulp": ULP[dtype],
+                "max_abs_err": errs, "max_abs_plain": {
+                    n: w.float().abs().max().item() for n, w in zip(
+                        ("o", "lse", "dq", "dk", "dv"),
+                        (o_r, lse_r) + tuple(want))}}
+
+    cases = [check_case(*c) for c in [FLASH_MAIN] + FLASH_SWEEP]
+    main = cases[0]["max_abs_err"]
+
+    B, Hq, Hkv, S, D, causal, window, dtype = FLASH_MAIN
+    q, k, v, do = operands(B, Hq, Hkv, S, D, dtype)
+    kw = dict(causal=causal, window=window)
+    o, lse = fa.flash_attention(q, k, v, **kw)
+    args = [t.detach().requires_grad_(True) for t in (q, k, v)]
+
+    def trainable():
+        out = ops.flash_attention_trainable(*args, **kw)
+        return out, torch.autograd.grad(out, args, do)
+
+    def trainable_plain():
+        o_r, lse_r = flash_attention_ref(q, k, v, **kw)
+        return o_r, flash_attention_bwd_ref(q, k, v, o_r, lse_r, do, **kw)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+    def sdpa_trainable():
+        out = F.scaled_dot_product_attention(*args, is_causal=causal)
+        return torch.autograd.grad(out, args, do)
+
+    # the library's backward alone: its graph, from one forward, kept
+    sdpa_out = F.scaled_dot_product_attention(*args, is_causal=causal)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, args, do, retain_graph=True)
+
+    (t_o, t_g), (p_o, p_g) = trainable(), trainable_plain()
+    tol_f, tol_b = FLASH_TOL
+    train_err = max([max_err("trainable o", t_o, p_o, tol_f, dtype)]
+                    + [max_err(f"trainable d{n}", g, w, tol_b, dtype)
+                       for n, g, w in zip("qkv", t_g, p_g)])
+    rows = {
+        "flash_attention": {
+            "max_abs_err": max(main["o"], main["lse"]),
+            "ms": time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw)),
+            "plain_ms": time_ms(torch, lambda: flash_attention_ref(
+                q, k, v, **kw)),
+            "library_ms": time_ms(torch, sdpa)},
+        "flash_attention_bwd": {
+            "max_abs_err": max(main["dq"], main["dk"], main["dv"]),
+            "ms": time_ms(torch, lambda: fa.flash_attention_bwd(
+                q, k, v, o, lse, do, **kw)),
+            "plain_ms": time_ms(torch, lambda: flash_attention_bwd_ref(
+                q, k, v, o, lse, do, **kw)),
+            "library_ms": time_ms(torch, sdpa_bwd)},
+        "flash_attention_trainable": {
+            "max_abs_err": train_err,
+            "ms": time_ms(torch, trainable),
+            "plain_ms": time_ms(torch, trainable_plain),
+            "library_ms": time_ms(torch, sdpa_trainable)},
+    }
+    itemsize = 4 if dtype == "float32" else 2
+    for kind, row in zip(("fwd", "bwd", "trainable"), rows.values()):
+        row["bound_ms"], row["bound_by"] = attention_bound_ms(
+            B, Hq, Hkv, S, D, causal, window, itemsize, kind)
+    emit("flash", main_shape=list(FLASH_MAIN), cases=cases, rows=rows)
+    del q, k, v, do, o, lse, args, sdpa_out
+    torch.cuda.empty_cache()
+    return rows
+
+
 def lm_batches(torch, vocab, steps, seed):
     """Seeded random tokens, labels = next token; on the card."""
     import numpy as np
@@ -202,6 +394,7 @@ def lm_batches(torch, vocab, steps, seed):
 def phase_train(torch, profile: bool):
     from repro_torch.configs import get_config
     from repro_torch.core.backend import drive, make_backend
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gossip_mix as gm_kernel
     from repro_torch.models import build_model
     from repro_torch.optim import constant, momentum
@@ -211,7 +404,7 @@ def phase_train(torch, profile: bool):
     params = model.init(seed=0, device="cuda")
     backend = make_backend("prod", "layup", M=M, loss_fn=model.loss_fn,
                            optimizer=momentum(0.9), schedule=constant(LR),
-                           fb_ratio=2, update_delay=1, use_pallas=True,
+                           fb_ratio=R, update_delay=1, use_pallas=True,
                            device="cuda")
     batches = lm_batches(torch, cfg.vocab_size, TRAIN_STEPS, seed=0)
     stamps = []
@@ -227,9 +420,12 @@ def phase_train(torch, profile: bool):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     gm_kernel.reset_launches()                      # main path starts
+    fa.reset_launches()
     out = drive(backend, timed(batches), None, params, history_keys=keys)
     torch.cuda.synchronize()
     launches = gm_kernel.launches                   # main path ends
+    flash = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
+             "dkv": fa.dkv_launches}
     stamps.append(time.perf_counter())
     peak = torch.cuda.max_memory_allocated()
     step_s = [b - a for a, b in zip(stamps, stamps[1:])]
@@ -237,6 +433,9 @@ def phase_train(torch, profile: bool):
     n_groups = len(backend.part.group_sizes)
     check(launches == TRAIN_STEPS * n_groups,
           f"gossip_mix launches {launches} != {TRAIN_STEPS} x {n_groups}")
+    per_pass = TRAIN_STEPS * M * cfg.num_layers
+    want = {"fwd": per_pass * R, "dq": per_pass, "dkv": per_pass}
+    check(flash == want, f"flash launches {flash} != {want}")
     check(all(math.isfinite(v) for v in hist["loss"]), f"loss {hist}")
     check(all(abs(v - 1.0) <= 1e-5 for v in hist["weight_sum"]),
           f"weight_sum {hist['weight_sum']}")
@@ -251,11 +450,12 @@ def phase_train(torch, profile: bool):
     res = {"model": cfg.name, "layers": cfg.num_layers,
            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
            "params": sum(backend.part.group_sizes.values()), "M": M,
-           "fb_ratio": 2, "update_delay": 1, "seq": SEQ,
+           "fb_ratio": R, "update_delay": 1, "seq": SEQ,
            "batch_per_worker": BATCH_PER_WORKER, "steps": TRAIN_STEPS,
            "history": hist, "step_s": step_s, "median_step_s": med,
            "tokens_per_step": tokens, "tokens_per_s": tokens / med,
            "peak_bytes": peak, "gossip_mix_launches": launches,
+           "flash_launches": flash,
            "groups": dict(backend.part.group_sizes)}
     emit("train", **res)
     if profile:
@@ -266,44 +466,77 @@ def phase_train(torch, profile: bool):
 
 
 def phase_profile(torch, backend, state, batches):
-    """Two more steps under torch.profiler: device time by kernel and the
-    device's idle share over the window."""
+    """Two more steps under torch.profiler for each attention route (the
+    kernels, then plain attention with ``USE_PALLAS=False``): device time by
+    kernel, device events and the device's idle share over the window. Then
+    the two routes' step times, alternated on the same state (plain,
+    kernels, kernels, plain, ...; host clock around synchronised steps)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import layers
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for b in batches[:2]:
-            state, _ = backend.step(state, b)
+    def run(use, batch):
+        nonlocal state
+        layers.USE_PALLAS = use
+        try:
+            state, _ = backend.step(state, batch)
+        finally:
+            layers.USE_PALLAS = True
+
+    for use in (True, False):
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    rows = []  # device-side events only (kernels, copies, fills)
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA:
-            rows.append((ev.self_device_time_total, ev.key, ev.count))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows) / 1e6
-    emit("profile", steps=2, wall_s=wall, device_busy_s=busy,
-         idle_share=max(0.0, 1.0 - busy / wall),
-         top=[{"kernel": k[:120], "device_ms": us / 1e3, "count": c}
-              for us, k, c in rows[:25]])
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for b in batches[:2]:
+                run(use, b)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rows = []  # device-side events only (kernels, copies, fills)
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA:
+                rows.append((ev.self_device_time_total, ev.key, ev.count))
+        rows.sort(reverse=True)
+        busy = sum(r[0] for r in rows) / 1e6
+        emit("profile", attention="kernels" if use else "plain", steps=2,
+             wall_s=wall, device_busy_s=busy,
+             idle_share=max(0.0, 1.0 - busy / wall),
+             device_events=sum(r[2] for r in rows),
+             top=[{"kernel": k[:120], "device_ms": us / 1e3, "count": c}
+                  for us, k, c in rows[:25]])
+    step_s = {True: [], False: []}
+    for i in range(PROFILE_AB_ROUNDS):
+        for use in (False, True, True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(use, batches[i % len(batches)])
+            torch.cuda.synchronize()
+            step_s[use].append(time.perf_counter() - t0)
+    emit("route_step_time", order="plain, kernels, kernels, plain",
+         kernels_step_s=step_s[True], plain_step_s=step_s[False],
+         kernels_median_s=statistics.median(step_s[True]),
+         plain_median_s=statistics.median(step_s[False]),
+         kernels_faster_pairs=sum(a < b for a, b in zip(step_s[True],
+                                                         step_s[False])))
 
 
 def phase_route(torch):
-    """Kernel route vs plain route on the same tensors, 2 layers."""
+    """Kernel route vs plain route on the same tensors, 2 layers: the
+    plain route runs attention with ``USE_PALLAS=False`` and the mix with
+    ``gossip_mix_ref``."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core.backend import make_backend
     from repro_torch.core.layerview import FlatPartition
     from repro_torch.core.pytree import tree_map
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gossip_mix as gm_kernel
     from repro_torch.launch.train import (_decoupled_worker_fn,
                                           backward_update_lane, forward_lane,
                                           gossip_fused_lane,
                                           make_decoupled_state)
     from repro_torch.models import build_model
+    from repro_torch.models import layers
     from repro_torch.optim import constant, momentum
 
     cfg = get_config("gpt2-medium").with_(num_layers=ROUTE_LAYERS)
@@ -313,13 +546,13 @@ def phase_route(torch):
     batches = lm_batches(torch, cfg.vocab_size, ROUTE_STEPS, seed=1)
 
     kernel = make_backend("prod", "layup", M=M, loss_fn=model.loss_fn,
-                          optimizer=opt, schedule=sched, fb_ratio=2,
+                          optimizer=opt, schedule=sched, fb_ratio=R,
                           update_delay=1, use_pallas=True, device="cuda",
                           measure_drift=False)
     part = FlatPartition(params)
     shifts = tuple(s % M for s in (1, 2, 4, 8) if s % M) or (1,)
     plain_step = _decoupled_worker_fn(
-        part, forward_lane(model.loss_fn, fb_ratio=2),
+        part, forward_lane(model.loss_fn, fb_ratio=R),
         backward_update_lane(opt, sched, update_delay=1, apply=False),
         None, M, 1,
         fused_mix=gossip_fused_lane(part, M, shifts, use_pallas=False))
@@ -330,12 +563,17 @@ def phase_route(torch):
         tree_map(lambda p: p[None].expand((M,) + tuple(p.shape)), params),
         opt, update_delay=1, part=part)
     before = gm_kernel.launches
+    fa.reset_launches()
     losses = []
     for t, b in enumerate(batches):
         ks, km = kernel.step(ks, b)
-        with torch.no_grad():
-            ps, pm = plain_step(ps, b, t, int(shift_rng.integers(
-                0, len(shifts))))
+        layers.USE_PALLAS = False
+        try:
+            with torch.no_grad():
+                ps, pm = plain_step(ps, b, t, int(shift_rng.integers(
+                    0, len(shifts))))
+        finally:
+            layers.USE_PALLAS = True
         kl, pl = float(km["loss"]), float(pm["loss"])
         losses.append((kl, pl))
         check(abs(kl - pl) <= ROUTE_RTOL * abs(pl),
@@ -348,9 +586,15 @@ def phase_route(torch):
     route_launches = gm_kernel.launches - before
     check(route_launches == ROUTE_STEPS * len(part.group_sizes),
           f"route launches {route_launches}")
+    per_pass = ROUTE_STEPS * M * ROUTE_LAYERS
+    flash = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
+             "dkv": fa.dkv_launches}
+    want = {"fwd": per_pass * R, "dq": per_pass, "dkv": per_pass}
+    check(flash == want, f"route flash launches {flash} != {want}")
     emit("route", layers=ROUTE_LAYERS, M=M, steps=ROUTE_STEPS,
          losses=losses, plane_max_rel_diff=plane_rel,
-         kernel_route_launches=route_launches, rtol=ROUTE_RTOL)
+         kernel_route_launches=route_launches,
+         kernel_route_flash_launches=flash, rtol=ROUTE_RTOL)
     del ks, ps, params
     torch.cuda.empty_cache()
 
@@ -389,10 +633,12 @@ def main(argv) -> int:
          allow_tf32_cudnn=torch.backends.cudnn.allow_tf32)
     t0 = time.perf_counter()
     kern = phase_kernels(torch)
+    flash = phase_flash(torch)
     train = phase_train(torch, profile="--profile" in argv)
     phase_route(torch)
     fused = kern["timing"]["fused"]
-    print(json.dumps({"kernels": [{
+    launches = train["flash_launches"]
+    rows = [{
         "name": "gossip_mix", "route": "triton",
         "source": "src/repro_torch/kernels/gossip_mix.py",
         "replaces": "src/repro/kernels/gossip_mix.py:49",
@@ -400,7 +646,20 @@ def main(argv) -> int:
         "max_abs_err": kern["main_max_abs_err"],
         "ms": fused["ms"], "plain_ms": fused["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}]
+    # the trainable Function launches the forward and both backward kernels
+    for name, replaces, n in (
+            ("flash_attention", "src/repro/kernels/flash_attention.py:85",
+             launches["fwd"]),
+            ("flash_attention_bwd", "src/repro/kernels/flash_attention.py:232",
+             launches["dq"] + launches["dkv"]),
+            ("flash_attention_trainable",
+             "src/repro/kernels/flash_attention.py:322",
+             sum(launches.values()))):
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/csrc/flash_attention.cu",
+                     "replaces": replaces, "launches": n, **flash[name]})
+    print(json.dumps({"kernels": rows}), flush=True)
     emit("done", wall_s=time.perf_counter() - t0)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,77 @@
+"""Build the port's CUDA C++ kernels at first use and load them with ctypes.
+
+A source ``src/repro_torch/csrc/<name>.cu`` with a plain C interface is
+compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
+``<repo>/build/kernels``, named by a hash of the source and the flags, so
+an edited source is rebuilt and an unchanged one is loaded as it is. Each
+source is one ``nvcc`` call of a few seconds (no PyTorch headers). A
+missing ``nvcc`` or a failed build raises with the compiler's output:
+there is no fall back to the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_LIBS: dict = {}
+_LOCK = threading.Lock()
+
+
+def nvcc() -> str:
+    """The CUDA compiler: ``nvcc`` on the PATH, else under ``CUDA_HOME``
+    (default ``/usr/local/cuda``)."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): the CUDA "
+                       "kernels are built from source at first use")
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless a library of the same hash exists;
+    returns the library's path."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"{name}-{digest}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed (exit {res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent build writes the same bytes
+    return out
+
+
+def load(name: str, signatures: dict) -> ctypes.CDLL:
+    """Build (once per process) and load ``csrc/<name>.cu``. ``signatures``
+    maps each exported function to its ``argtypes``; every function returns
+    a C ``int`` (a ``cudaError_t``, 0 on success)."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(name)))
+            for fn, argtypes in signatures.items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            _LIBS[name] = lib
+        return lib

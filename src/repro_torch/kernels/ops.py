@@ -9,8 +9,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _flash_kernel
 from repro_torch.kernels import gossip_mix as _gossip_mix_kernel
-from repro_torch.kernels.ref import gossip_mix_ref
+from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                     flash_attention_ref, gossip_mix_ref)
 
 
 def gossip_mix(x: torch.Tensor, x_recv: torch.Tensor, upd, alpha, beta,
@@ -25,4 +27,60 @@ def gossip_mix(x: torch.Tensor, x_recv: torch.Tensor, upd, alpha, beta,
     raise ValueError(f"gossip_mix: no kernel for device {x.device}")
 
 
-__all__ = ["gossip_mix"]
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Flash forward ``(o, lse)``; see
+    :func:`repro_torch.kernels.flash_attention.flash_attention`."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    if q.device.type == "cuda":
+        return _flash_kernel.flash_attention(q, k, v, causal=causal,
+                                             window=window)
+    raise ValueError(f"flash_attention: no kernel for device {q.device}")
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0):
+    """Flash backward ``(dq, dk, dv)``; see
+    :func:`repro_torch.kernels.flash_attention.flash_attention_bwd`."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       window=window)
+    if q.device.type == "cuda":
+        return _flash_kernel.flash_attention_bwd(q, k, v, o, lse, do,
+                                                 causal=causal, window=window)
+    raise ValueError(f"flash_attention_bwd: no kernel for device {q.device}")
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention, the counterpart of the reference's
+    ``custom_vjp`` ``flash_attention_trainable``: the forward saves q, k, v,
+    o and the log-sum-exp, the backward recomputes P from them. Both go
+    through the dispatch above (kernels on CUDA, plain versions on the
+    CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o, lse = flash_attention(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
+                                         causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_trainable(q, k, v, *, causal: bool = True,
+                              window: int = 0) -> torch.Tensor:
+    """Attention with a flash backward; q ``(B, Hq, Sq, D)``, k and v
+    ``(B, Hkv, Sk, D)`` → o ``(B, Hq, Sq, D)``."""
+    return FlashAttention.apply(q, k, v, causal, window)
+
+
+__all__ = ["gossip_mix", "flash_attention", "flash_attention_bwd",
+           "flash_attention_trainable"]

@@ -37,3 +37,77 @@ def gossip_mix_ref(x, x_recv, upd, alpha, beta, out=None):
     if out is None:
         return res.to(x.dtype)
     return out.copy_(res)
+
+
+NEG_INF = -1e30
+
+
+def _mask(Sq: int, Sk: int, causal: bool, window: int, device):
+    """(Sq, Sk) bool: key k is visible to query q. Positions are the row
+    indices, as the flash kernels derive them from their tile offsets."""
+    qp = torch.arange(Sq, device=device)[:, None]
+    kp = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (kp <= qp)
+    if window > 0:
+        mask = mask & ((qp - kp) < window)
+    return mask
+
+
+def _scores(q, k, causal, window):
+    """Masked f32 scores ``(B, Hkv, G, Sq, Sk)`` of ``q·scale`` against k."""
+    B, Hq, Sq, d = q.shape
+    _, Hkv, Sk, _ = k.shape
+    qh = q.reshape(B, Hkv, Hq // Hkv, Sq, d).to(torch.float32) * d ** -0.5
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qh, k.to(torch.float32))
+    return torch.where(_mask(Sq, Sk, causal, window, q.device), s,
+                       torch.full((), NEG_INF, dtype=s.dtype, device=s.device))
+
+
+def attention_ref(q, k, v, *, causal=True, window=0):
+    """q: (B, Hq, Sq, d); k, v: (B, Hkv, Sk, d). Naive softmax attention,
+    the counterpart of ``repro/kernels/ref.py::attention_ref``."""
+    B, Hq, Sq, d = q.shape
+    p = torch.softmax(_scores(q, k, causal, window), dim=-1)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(torch.float32))
+    return o.reshape(B, Hq, Sq, d).to(q.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0):
+    """The flash forward's function, plainly: ``(o, lse)`` with o in
+    ``q.dtype`` and the f32 log-sum-exp ``(B, Hq, Sq)`` the backward
+    recomputes P from. Layouts as :func:`attention_ref`."""
+    B, Hq, Sq, d = q.shape
+    s = _scores(q, k, causal, window)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(torch.float32))
+    return (o.reshape(B, Hq, Sq, d).to(q.dtype),
+            lse.reshape(B, Hq, Sq))
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=0):
+    """The flash backward's function, with the Pallas bodies' formulas:
+    ``P = exp(s − lse)``, ``delta = rowsum(do·o)``, ``dS = P·(dP − delta)``,
+    ``dq = scale·dS·k``, ``dk = dSᵀ·(q·scale)`` and ``dv = Pᵀ·do``, each
+    summed over the q heads of a kv group in f32. Returns (dq, dk, dv) in
+    the dtypes of q, k and v."""
+    B, Hq, Sq, d = q.shape
+    _, Hkv, Sk, _ = k.shape
+    G = Hq // Hkv
+    scale = d ** -0.5
+
+    def grouped(x):
+        return x.reshape(B, Hkv, G, Sq, -1).to(torch.float32)
+
+    p = torch.exp(_scores(q, k, causal, window) - grouped(lse))
+    do_f = grouped(do)
+    delta = (do_f * grouped(o)).sum(-1, keepdim=True)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", do_f, v.to(torch.float32))
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.to(torch.float32)) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, grouped(q) * scale)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, do_f)
+    return (dq.reshape(B, Hq, Sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

@@ -17,6 +17,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.pytree import tree_flatten_with_path, tree_unflatten
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import attention_ref
 
 # ---------------------------------------------------------------------------
 # Parameter specs
@@ -44,7 +47,8 @@ def _path_str(path) -> str:
 
 
 def init_params(specs, *, seed: int = 0, dtype=torch.float32, device=None):
-    """Instantiate a ParamSpec tree into tensors on ``device``.
+    """Instantiate a ParamSpec tree into tensors on ``device`` (``None`` →
+    CUDA, raising without it, as every entry point of the port).
 
     Each leaf draws from its own ``torch.Generator``, seeded from ``seed``
     and a CRC32 of the leaf's path, so a leaf's values do not depend on the
@@ -52,7 +56,7 @@ def init_params(specs, *, seed: int = 0, dtype=torch.float32, device=None):
     Python's salted ``hash``; the two inits share distributions, not
     numbers)."""
     flat, treedef = tree_flatten_with_path(specs)
-    device = torch.device(device if device is not None else "cpu")
+    device = resolve_device(device)
     leaves = []
     for path, spec in flat:
         dt = spec.dtype or dtype
@@ -119,10 +123,17 @@ def apply_rope(x, positions, *, theta=1e4, fraction=1.0):
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA, full sequence, plain torch)
+# Attention (GQA, full sequence)
 # ---------------------------------------------------------------------------
 
-NEG_INF = -1e30
+# When True (the default), full-sequence attention goes through the flash
+# kernels (``ops.flash_attention_trainable``: the CUDA C++ forward and
+# backward on a CUDA tensor, their plain versions on the CPU); when False,
+# through the plain ``ref.attention_ref`` with an autograd backward, on any
+# device. The reference's selector of the same name. Only the tests and
+# chip_smoke.py (its route phase, and --profile's comparison) set it False,
+# to hold the two routes against each other.
+USE_PALLAS = True
 
 
 def attention_specs(cfg, prefix_layers: Tuple[int, ...] = ()):
@@ -144,36 +155,22 @@ def attention_specs(cfg, prefix_layers: Tuple[int, ...] = ()):
     }
 
 
-def attention(q, k, v, *, q_positions, k_positions, causal=True, window=0):
+def attention(q, k, v, *, causal=True, window=0):
     """Full-sequence attention: the function ``flash_attention_jnp``
-    computes, written plainly (f32 scores, one softmax; autograd supplies
-    the backward).
+    computes, with positions derived from indices as the reference's kernel
+    route derives them (every caller's positions are ``arange(S)``).
 
-    q: (B, Sq, Hq, D);  k, v: (B, Sk, Hkv, D).
-    positions: (B, Sq) / (B, Sk) absolute token indices (negative = invalid).
+    q: (B, Sq, Hq, D);  k, v: (B, Sk, Hkv, D), passed on as (B, H, S, D)
+    views (the kernel route reads them through their strides, no copies).
+    ``USE_PALLAS`` selects the route.
     """
-    B, Sq, Hq, D = q.shape
-    _, Sk, Hkv, _ = k.shape
-    G = Hq // Hkv
-    scale = D ** -0.5
-    qh = (q * scale).reshape(B, Sq, Hkv, G, D).permute(0, 2, 3, 1, 4)
-    kh = k.permute(0, 2, 1, 3)  # (B, Hkv, Sk, D)
-    vh = v.permute(0, 2, 1, 3)
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qh.to(torch.float32),
-                     kh.to(torch.float32))
-    kp = k_positions[:, None, None, None, :]
-    qp = q_positions[:, None, None, :, None]
-    mask = kp >= 0
-    if causal:
-        mask = mask & (kp <= qp)
-    if window > 0:
-        mask = mask & ((qp - kp) < window)
-    s = torch.where(mask, s, torch.full((), NEG_INF, dtype=s.dtype,
-                                         device=s.device))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype), vh)
-    return (out.to(torch.float32).permute(0, 3, 1, 2, 4)
-            .reshape(B, Sq, Hq, D).to(q.dtype))
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    if USE_PALLAS:
+        out = ops.flash_attention_trainable(qh, kh, vh, causal=causal,
+                                            window=window)
+    else:
+        out = attention_ref(qh, kh, vh, causal=causal, window=window)
+    return out.transpose(1, 2)
 
 
 # ---------------------------------------------------------------------------

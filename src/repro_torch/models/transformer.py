@@ -50,8 +50,7 @@ def attn_sublayer(p, h, cfg, *, positions, window=0, causal=True):
                      fraction=cfg.rope_fraction)
     k = L.apply_rope(k, positions, theta=cfg.rope_theta,
                      fraction=cfg.rope_fraction)
-    out = L.attention(q, k, v, q_positions=positions, k_positions=positions,
-                      causal=causal, window=window)
+    out = L.attention(q, k, v, causal=causal, window=window)
     o = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return h + o, (k, v)
 

@@ -53,3 +53,119 @@ def test_fused_m1_is_exact_apply(cuda_device):
     want = x + u
     assert ops.gossip_mix(x, x, u, one, zero, out=x) is x  # in place
     assert torch.equal(x, want)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (CUDA C++)
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import flash_attention as fa_kernel  # noqa: E402
+from repro_torch.kernels.ref import (flash_attention_bwd_ref,  # noqa: E402
+                                     flash_attention_ref)
+
+# (B, Hq, Hkv, S, D, causal, window, dtype): the training step's shape,
+# GQA, MQA, windows, bidirectional, D=32/128, S not a multiple of the tile
+FLASH_CASES = [
+    (2, 16, 16, 256, 64, True, 0, torch.float32),
+    (1, 8, 2, 200, 64, True, 0, torch.float32),
+    (1, 8, 1, 130, 32, True, 48, torch.float32),
+    (2, 4, 4, 96, 128, False, 0, torch.float32),
+    (1, 4, 2, 77, 64, False, 20, torch.float32),
+    (2, 8, 2, 256, 64, True, 0, torch.bfloat16),
+    (1, 4, 4, 100, 128, True, 32, torch.bfloat16),
+]
+
+
+def _flash_tol(dtype, bwd):
+    """float32: the kernels sum in another order than cuBLAS (1e-5 of the
+    largest value forward, 1e-4 backward); bfloat16 adds one bf16 ulp of
+    each element (2^-7 x |plain|), since each side is one rounding of a
+    float32 result within that tolerance."""
+    return dict(tol=1e-4 if bwd else 1e-5,
+                ulp=2.0 ** -7 if dtype == torch.bfloat16 else 0.0)
+
+
+def _close(got, want, name, *, tol, ulp=0.0):
+    """|got − want| ≤ ulp × |want| + tol × max |want|, element by element."""
+    diff, ref = (got.float() - want.float()).abs(), want.float().abs()
+    excess = (diff - ulp * ref - tol * ref.max()).max().item()
+    assert excess <= 0, (f"{name}: error exceeds {ulp} x |want| + {tol} x "
+                         f"max |want| by {excess}")
+
+
+def _decoder_layout(gen, B, H, S, D, dtype, dev):
+    """(B, H, S, D) views of (B, S, H, D) tensors, as the decoder passes."""
+    return torch.randn((B, S, H, D), generator=gen, device=dev).to(
+        dtype).transpose(1, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_kernels_match_plain_version(cuda_device, case):
+    B, Hq, Hkv, S, D, causal, window, dtype = case
+    gen = torch.Generator(device=cuda_device).manual_seed(S + D)
+    q = _decoder_layout(gen, B, Hq, S, D, dtype, cuda_device)
+    k, v = (_decoder_layout(gen, B, Hkv, S, D, dtype, cuda_device)
+            for _ in range(2))
+    do = _decoder_layout(gen, B, Hq, S, D, dtype, cuda_device)
+    kw = dict(causal=causal, window=window)
+    before = (fa_kernel.fwd_launches, fa_kernel.dq_launches,
+              fa_kernel.dkv_launches)
+    o, lse = fa_kernel.flash_attention(q, k, v, **kw)
+    o_ref, lse_ref = flash_attention_ref(q, k, v, **kw)
+    _close(o, o_ref, "o", **_flash_tol(dtype, False))
+    _close(lse, lse_ref, "lse", tol=1e-5)
+    assert o.stride() == q.stride() and lse.is_contiguous()
+    grads = fa_kernel.flash_attention_bwd(q, k, v, o_ref, lse_ref, do, **kw)
+    want = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
+    for g, w, n in zip(grads, want, ("dq", "dk", "dv")):
+        assert g.shape == w.shape and g.dtype == w.dtype, n
+        _close(g, w, n, **_flash_tol(dtype, True))
+    torch.cuda.synchronize()
+    assert (fa_kernel.fwd_launches, fa_kernel.dq_launches,
+            fa_kernel.dkv_launches) == tuple(n + 1 for n in before)
+
+
+@pytest.mark.gpu
+def test_flash_trainable_and_decoder_routes_agree(cuda_device):
+    """The autograd Function on the card against the plain forward and
+    backward; then a 2-layer decoder's loss and grads through the kernel
+    route against the plain route (``USE_PALLAS=False``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pytree import tree_flatten, tree_unflatten
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as TLy
+
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q = _decoder_layout(gen, 2, 8, 96, 64, torch.float32, cuda_device)
+    k, v = (_decoder_layout(gen, 2, 2, 96, 64, torch.float32, cuda_device)
+            for _ in range(2))
+    w = torch.randn(q.shape, generator=gen, device=cuda_device)
+    args = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = ops.flash_attention_trainable(*args, window=40)
+    grads = torch.autograd.grad((out * w).sum(), args)
+    o_ref, lse_ref = flash_attention_ref(q, k, v, window=40)
+    _close(out, o_ref, "o", tol=1e-5)
+    for g, r, n in zip(grads, flash_attention_bwd_ref(
+            q, k, v, o_ref, lse_ref, w, window=40), "qkv"):
+        _close(g, r, f"d{n}", tol=1e-4)
+
+    cfg = get_config("gpt2-medium").with_(num_layers=2, vocab_size=512)
+    model = build_model(cfg)
+    params = model.init(seed=0, device=cuda_device)
+    toks = torch.randint(0, 512, (2, 129), generator=gen, device=cuda_device)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    results = []
+    for use in (True, False):
+        TLy.USE_PALLAS = use
+        try:
+            flat, treedef = tree_flatten(params)
+            leaves = [p.detach().requires_grad_(True) for p in flat]
+            loss, _ = model.loss_fn(tree_unflatten(treedef, leaves), batch)
+            results.append((loss.detach(), torch.autograd.grad(loss, leaves)))
+        finally:
+            TLy.USE_PALLAS = True
+    (kl, kg), (pl, pg) = results
+    _close(kl, pl, "loss", tol=1e-5)
+    for a, b in zip(kg, pg):  # f32 sums in another order, through 2 layers
+        _close(a, b, "grad", tol=1e-3)

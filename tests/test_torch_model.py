@@ -44,7 +44,7 @@ def problem():
     return jcfg, jmodel, jparams, batch
 
 
-def test_decoder_loss_and_grads_match(problem):
+def _check_decoder_against_jax(problem):
     jcfg, jmodel, jparams, batch = problem
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     (jloss, _), jgrads = jax.jit(jax.value_and_grad(
@@ -68,6 +68,20 @@ def test_decoder_loss_and_grads_match(problem):
                                    atol=1e-4 * np.abs(jg).max())
 
 
+def test_decoder_loss_and_grads_match(problem):
+    """The default route: attention through the flash autograd Function
+    (its plain fwd/bwd formulas on the CPU)."""
+    assert TLy.USE_PALLAS
+    _check_decoder_against_jax(problem)
+
+
+def test_decoder_plain_attention_route_matches(problem, monkeypatch):
+    """``USE_PALLAS=False``: ``ref.attention_ref`` with an autograd
+    backward."""
+    monkeypatch.setattr(TLy, "USE_PALLAS", False)
+    _check_decoder_against_jax(problem)
+
+
 def test_module_wrapper_matches_functional_loss(problem):
     jcfg, _, jparams, batch = problem
     model = build_model(_torch_cfg(jcfg))
@@ -84,8 +98,19 @@ def test_module_wrapper_matches_functional_loss(problem):
 
 @pytest.mark.parametrize("hq,hkv,window", [(4, 4, 0), (4, 2, 0), (4, 1, 5)])
 def test_attention_matches_flash_jnp(hq, hkv, window):
-    """GQA/MQA and a sliding window: the plain attention against the
-    reference's chunked online-softmax (forward and input grads)."""
+    """GQA/MQA and a sliding window: the decoder's attention (the flash
+    route by default) against the reference's chunked online-softmax
+    (forward and input grads)."""
+    _check_attention_against_jnp(hq, hkv, window)
+
+
+@pytest.mark.parametrize("hq,hkv,window", [(4, 2, 0), (4, 1, 5)])
+def test_plain_attention_matches_flash_jnp(hq, hkv, window, monkeypatch):
+    monkeypatch.setattr(TLy, "USE_PALLAS", False)
+    _check_attention_against_jnp(hq, hkv, window)
+
+
+def _check_attention_against_jnp(hq, hkv, window):
     rng = np.random.default_rng(hq * 10 + hkv + window)
     B, S, D = 2, 16, 8
     q = rng.standard_normal((B, S, hq, D)).astype(np.float32)
@@ -104,9 +129,7 @@ def test_attention_matches_flash_jnp(hq, hkv, window):
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
 
     tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
-    tpos = torch.from_numpy(pos)
-    tout = TLy.attention(tq, tk, tv, q_positions=tpos, k_positions=tpos,
-                         window=window)
+    tout = TLy.attention(tq, tk, tv, window=window)
     tg = torch.autograd.grad((tout * torch.from_numpy(do)).sum(),
                              (tq, tk, tv))
     np.testing.assert_allclose(tout.detach().numpy(), np.asarray(jout),
@@ -154,6 +177,19 @@ def test_decoder_specs_match_reference_tree():
             assert (ts.shape, ts.axes, ts.init) == (js.shape, js.axes,
                                                     js.init)
             np.testing.assert_allclose(ts.scale, js.scale, rtol=1e-12)
+
+
+def test_init_default_device_needs_cuda():
+    """``Model.init()`` / ``init_params`` with no device go to CUDA and
+    raise without it, as every entry point of the port does."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None resolves to it")
+    model = build_model(get_config("gpt2-medium").with_(num_layers=1,
+                                                        vocab_size=64))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init(seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TLy.init_params(model.specs)
 
 
 def test_init_params_shapes_and_statistics():
