@@ -9,22 +9,29 @@ Run from the root of a checkout on a machine with a CUDA card:
 Phases, one JSON line each; any failed check raises and the exit code is
 not 0:
 
-1. device: ``nvidia-smi`` name and power limit, torch and Triton versions.
+1. device: ``nvidia-smi`` name and power limit, torch and Triton versions;
+   then build: ``nvcc`` builds every CUDA C++ source of the port at once,
+   one process each (a line per source with its build time).
 2. kernels: the Triton ``gossip_mix`` (both variants) against its plain
    PyTorch version on the same CUDA tensors, at the training step's real
    layer-group shapes (GPT-2 Medium, M=4, float32), at odd sizes and in
    bfloat16; max error against the stated tolerance; kernel and plain
    device times (CUDA events, median of 20, queued behind a spin kernel
    so that the host's dispatch is not timed) beside the bound from bytes.
-3. build + flash: ``nvcc`` builds the CUDA C++ flash attention kernels
-   (build time on its own line); the forward (o, lse), the backward (dq,
-   dk, dv) and the autograd Function are held against their plain PyTorch
-   versions on the same CUDA tensors, at the training step's attention
-   shape (B=2, H=16, S=256, D=64, float32, causal; (B,S,H,D) tensors passed
-   as (B,H,S,D) views) and over a sweep (GQA, MQA, windows, bidirectional,
+3. flash: the CUDA C++ flash attention kernels, the forward (o, lse), the
+   backward (dq, dk, dv) and the autograd Function, are held against their
+   plain PyTorch versions on the same CUDA tensors, at the training step's
+   attention shape (B=2, H=16, S=256, D=64, float32, causal; (B,S,H,D)
+   tensors passed as (B,H,S,D) views) and over a sweep (GQA, MQA, windows, bidirectional,
    bfloat16, D=128, S not a multiple of the tile); kernel, plain and
    ``scaled_dot_product_attention`` times (the last as a yardstick only:
    the port never calls it) beside each bound.
+3b. quantize: the CUDA C++ ``quantize_plane`` and both ``dequant_mix``
+   variants against their plain PyTorch versions on the same CUDA tensors,
+   required BIT-IDENTICAL (q, scales, residual, output): at the int8 step's
+   stacked group shapes (GPT-2 Medium, M=4, float32), at odd sizes (n in
+   {1, 127, 129, 1029}, M in {1, 3}), in bfloat16, with all-zero rows and
+   with the residual written over itself; kernel, plain and bound times.
 4. train: the port's main path through its user entry points,
    ``make_backend("prod", "layup", M=4, fb_ratio=2, update_delay=1,
    use_pallas=True)`` + ``drive``, GPT-2 Medium at full width and depth
@@ -32,10 +39,23 @@ not 0:
    just before and read just after: ``gossip_mix`` must run once per layer
    group per step, the flash forward once per layer, forward slice and
    worker, and each backward kernel once per layer and worker.
+4b. train_int8: the int8 wire's main path, ``make_backend("prod",
+   "layup", M=4, fb_ratio=2, update_delay=1, use_pallas=True,
+   wire="int8", compensate=0.5)`` + ``drive``, GPT-2 Medium at full width
+   and depth, 6 steps on the train phase's batches. ``quantize_plane`` and
+   ``dequant_mix`` must run once per layer group per step, ``gossip_mix``
+   never, flash as in train; Σw, losses, skips and the wire bytes checked;
+   then one more step, outside the counted window, whose new residual must
+   keep |r'| <= s/2 of its row (s computed plainly from the plane and
+   residual it quantizes).
 5. route: the same step at 2 layers, full width, M=4, 3 steps, through the
    kernels and through the plain route (``USE_PALLAS=False`` attention and
    ``gossip_mix_ref``) on the same CUDA tensors; losses and planes must
    agree to 1e-5 relative (the attention kernels sum in another order).
+5b. route_int8: the int8 step (λ=0.5) at 2 layers, M=4, 3 steps, through
+   the quantize kernels and through their plain versions
+   (``gossip_fused_lane(use_pallas=False, wire="int8")``), attention on the
+   flash kernels on both: losses, planes, residuals and θ bit-identical.
 6. the kernels line, the card's ``nvidia-smi`` line, and last the result.
 
 TF32 is off for matrix products and cuDNN (both set below), so float32 is
@@ -84,6 +104,13 @@ FLASH_SWEEP = [  # (B, Hq, Hkv, S, D, causal, window, dtype)
 # side is one rounding of a float32 result within that tolerance
 FLASH_TOL = (1e-5, 1e-4)  # forward, backward
 ULP = {"float32": 0.0, "bfloat16": 2.0 ** -7}
+CUDA_SOURCES = ("flash_attention", "quantize")  # src/repro_torch/csrc/*.cu
+LAMBDA = 0.5  # delay compensation of the int8 phases
+# the int8 wire of GPT-2 Medium: its groups' int8 bytes plus 4 B a scale row
+INT8_WIRE_BYTES = 468_360_320
+# |r'| <= s/2 of its row, up to the two roundings (v/s and q·s, each at
+# most 127·2^-24·s) that float32 adds
+RESID_SLACK = 2.0 ** -15
 
 
 def emit(phase: str, **kw) -> None:
@@ -127,6 +154,28 @@ def mix_bound_ms(numels, itemsize: int, with_upd: bool, rows: int):
                                        else "operations")
 
 
+def quant_bound_ms(numels, rows, itemsize: int, kind: str):
+    """Least time for the int8 wire's kernels over stacked buffers of
+    ``numels`` elements with ``rows`` scale rows each (all workers), the
+    larger of bytes and operations. Bytes, each operand read once and each
+    output written once: ``quantize`` reads x and r and writes q (1 B) and
+    r' plus a 4 B scale a row; ``dequant`` reads x, q and u and writes o,
+    and reads the scales and M α/β pairs a buffer (``M`` = its workers);
+    ``pure`` the same without u. Operations per element, over the float32
+    rate: quantize 9 (add, abs, max, divide, round, two clips, multiply,
+    subtract), dequant 5, pure 4. Returns (ms, bound_by)."""
+    n, r = sum(numels), sum(rows)
+    nbytes = {
+        "quantize": n * (3 * itemsize + 1) + 4 * r,
+        "dequant": n * (3 * itemsize + 1) + 4 * r + 8 * M * len(numels),
+        "pure": n * (2 * itemsize + 1) + 4 * r + 8 * M * len(numels),
+    }[kind]
+    flops = n * {"quantize": 9, "dequant": 5, "pure": 4}[kind]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def gpt2_medium_groups():
     """Layer-group sizes of GPT-2 Medium's flat plane (no allocation)."""
     import torch
@@ -139,6 +188,20 @@ def gpt2_medium_groups():
     part = FlatPartition(tree_map(
         lambda s: torch.empty(s.shape, device="meta"), specs))
     return dict(part.group_sizes)
+
+
+def phase_build():
+    """Build every CUDA C++ source of the port at once, one ``nvcc`` each."""
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    built = _build.build_all(CUDA_SOURCES)
+    for name, (lib, seconds) in built.items():
+        emit("build", kernel=name,
+             source=f"src/repro_torch/csrc/{name}.cu",
+             library=os.path.relpath(lib, HERE), seconds=seconds)
+    emit("build_all", sources=list(CUDA_SOURCES),
+         seconds=time.perf_counter() - t0)
 
 
 def phase_kernels(torch):
@@ -222,6 +285,160 @@ def phase_kernels(torch):
     return results
 
 
+def phase_quantize(torch):
+    """``quantize_plane`` and both ``dequant_mix`` variants against their
+    plain versions, bit for bit, over a sweep and at the int8 step's group
+    shapes; kernel, plain and bound times at those shapes."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.quantize import quant_layout
+    from repro_torch.kernels.ref import dequant_mix_ref, quantize_plane_ref
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(2468)
+
+    def randn(shape, dtype, scale):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(
+            dtype)
+
+    def same(name, got, want, case):
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"{name} ({case}): {got.dtype} {tuple(got.shape)} vs plain "
+              f"{want.dtype} {tuple(want.shape)}")
+        if not torch.equal(got, want):
+            diff = (got.float() - want.float()).abs()
+            raise AssertionError(
+                f"{name} ({case}) is not bit-identical to its plain version:"
+                f" {int((diff != 0).sum())} elements differ, max "
+                f"{diff.max().item()} (NaN: {bool(diff.isnan().any())})")
+
+    def check_case(x, r, u, alpha, beta, case, out_of_place=True):
+        """Both kernels against their plain versions on one buffer; the
+        residual is also written over itself, as the step does."""
+        want = quantize_plane_ref(x, r)
+        if out_of_place:
+            for n, g, w in zip(("q", "scales", "resid"),
+                               ops.quantize_plane(x, r), want):
+                same(f"quantize_plane {n}", g, w, case)
+        r_k = r.clone()
+        got = ops.quantize_plane(x, r_k, out_resid=r_k)
+        check(got[2] is r_k, "out_resid was not written in place")
+        for n, g, w in zip(("q", "scales", "resid"), got, want):
+            same(f"quantize_plane {n} (in place)", g, w, case)
+        del want, r_k
+        q, sc = got[0], got[1]
+        if x.dim() == 2:
+            q, sc = torch.roll(q, 1, 0), torch.roll(sc, 1, 0)
+        del got
+        for upd in (u, None):
+            same("dequant_mix" + ("" if upd is not None else " pure"),
+                 ops.dequant_mix(x, q, sc, upd, alpha, beta),
+                 dequant_mix_ref(x, q, sc, upd, alpha, beta), case)
+        o = x.clone()
+        same("dequant_mix (out=x)",
+             ops.dequant_mix(o, q, sc, u, alpha, beta, out=o),
+             dequant_mix_ref(x, q, sc, u, alpha, beta), case)
+
+    def coefficients(m):
+        if m is None:
+            return (torch.tensor(0.6, device=dev),
+                    torch.tensor(0.4, device=dev))
+        w = torch.rand(m, generator=gen, device=dev) + 0.5
+        rw = torch.roll(w, 1)
+        return w / (w + rw), rw / (w + rw)
+
+    cases = []
+    for n in (1, 127, 129, 1029):
+        for m in (None, 3):          # a 1-D buffer (M=1) or stacked M=3
+            for dtype in (torch.float32, torch.bfloat16):
+                shape = (n,) if m is None else (m, n)
+                x, r, u = (randn(shape, dtype, sc) for sc in (3.0, 0.01,
+                                                              0.01))
+                if n > 256:          # an all-zero row
+                    x[..., 128:256] = 0
+                    r[..., 128:256] = 0
+                case = f"n={n} M={m or 1} {str(dtype)[6:]}"
+                check_case(x, r, u, *coefficients(m), case)
+                cases.append(case)
+    zero = torch.zeros((3, 1029), device=dev)
+    check_case(zero, zero, zero, *coefficients(3), "all zeros")
+    cases.append("all zeros")
+
+    # the int8 step's stacked groups, float32 at M=4, one group at a time
+    groups = gpt2_medium_groups()
+    alpha, beta = coefficients(M)
+    for g, n in groups.items():
+        x, r, u = (randn((M, n), torch.float32, sc)
+                   for sc in (1.0, 0.004, 0.001))
+        check_case(x, r, u, alpha, beta, f"{g} M={M} float32",
+                   out_of_place=False)
+        cases.append(f"{g} M={M} float32")
+        del x, r, u
+        torch.cuda.empty_cache()
+    n = groups["embed"]
+    x, r, u = (randn((M, n), torch.bfloat16, sc) for sc in (1.0, 0.004,
+                                                             0.001))
+    check_case(x, r, u, alpha, beta, f"embed M={M} bfloat16",
+               out_of_place=False)
+    cases.append(f"embed M={M} bfloat16")
+    del x, r, u
+    torch.cuda.empty_cache()
+
+    # times of one step's work: every group once
+    bufs = {}
+    for g, n in groups.items():
+        rows = quant_layout(n)[0]
+        bufs[g] = {"x": randn((M, n), torch.float32, 1.0),
+                   "r": randn((M, n), torch.float32, 0.004),
+                   "u": randn((M, n), torch.float32, 0.001),
+                   "q": torch.empty((M, n), dtype=torch.int8, device=dev),
+                   "s": torch.empty((M, rows), device=dev),
+                   "o": torch.empty((M, n), device=dev)}
+    for b in bufs.values():
+        ops.quantize_plane(b["x"], b["r"], out_q=b["q"], out_s=b["s"],
+                           out_resid=b["r"])
+
+    def quant(fn):
+        def run():
+            for b in bufs.values():
+                fn(b["x"], b["r"], out_q=b["q"], out_s=b["s"],
+                   out_resid=b["r"])
+        return run
+
+    def mix(fn, pure=False):
+        def run():
+            for b in bufs.values():
+                fn(b["x"], b["q"], b["s"], None if pure else b["u"], alpha,
+                   beta, out=b["o"])
+        return run
+
+    numels = [M * n for n in groups.values()]
+    rows = [M * quant_layout(n)[0] for n in groups.values()]
+    timing = {}
+    for key, kernel, plain in (
+            ("quantize", quant(ops.quantize_plane),
+             quant(quantize_plane_ref)),
+            ("dequant", mix(ops.dequant_mix), mix(dequant_mix_ref)),
+            ("pure", mix(ops.dequant_mix, True),
+             mix(dequant_mix_ref, True))):
+        bound, bound_by = quant_bound_ms(numels, rows, 4, key)
+        timing[key] = {"ms": time_ms(torch, kernel),
+                       "plain_ms": time_ms(torch, plain),
+                       "bound_ms": bound, "bound_by": bound_by}
+    per_group = {g: {
+        "quantize_ms": time_ms(torch, lambda b=b: ops.quantize_plane(
+            b["x"], b["r"], out_q=b["q"], out_s=b["s"], out_resid=b["r"])),
+        "dequant_ms": time_ms(torch, lambda b=b: ops.dequant_mix(
+            b["x"], b["q"], b["s"], b["u"], alpha, beta, out=b["o"]))}
+        for g, b in bufs.items()}
+    del bufs
+    torch.cuda.empty_cache()
+    res = {"cases": cases, "groups": groups, "M": M, "timing": timing,
+           "per_group": per_group, "max_abs_err": 0.0,
+           "scale_rows": rows}
+    emit("quantize", **res)
+    return res
+
+
 def attention_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
     """(query, key) pairs the mask leaves visible in one head."""
     import numpy as np
@@ -263,17 +480,10 @@ def phase_flash(torch):
     """Build the CUDA C++ flash kernels, hold each against its plain
     version, and time kernel, plain and library at the main path's shape."""
     import torch.nn.functional as F
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import ops
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                          flash_attention_ref)
-
-    t0 = time.perf_counter()
-    lib = _build.load("flash_attention", fa.SIGNATURES)
-    emit("build", kernel="flash_attention",
-         source="src/repro_torch/csrc/flash_attention.cu",
-         library=os.path.relpath(lib._name, HERE),
-         seconds=time.perf_counter() - t0)
 
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(4321)
@@ -465,14 +675,159 @@ def phase_train(torch, profile: bool):
     return res
 
 
+def profile_steps(torch, run, batches, **label):
+    """``run(batch)`` for each batch under torch.profiler: device time by
+    kernel, device events and the device's idle share over the window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for b in batches:
+            run(b)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = []  # device-side events only (kernels, copies, fills)
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            rows.append((ev.self_device_time_total, ev.key, ev.count))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    emit("profile", **label, steps=len(batches), wall_s=wall,
+         device_busy_s=busy, idle_share=max(0.0, 1.0 - busy / wall),
+         device_events=sum(r[2] for r in rows),
+         top=[{"kernel": k[:120], "device_ms": us / 1e3, "count": c}
+              for us, k, c in rows[:25]])
+
+
+def row_scales(torch, x, r, chunk_rows: int = 1 << 16):
+    """The scales ``quantize_plane`` must give the rows of ``x + r``
+    (stacked ``(M, n)``): absmax/127, 1.0 for a zero row, computed with the
+    plain version a chunk of whole rows at a time; ``(M, ceil(n/128))``."""
+    from repro_torch.kernels.ref import quantize_plane_ref
+
+    n, step, out = x.shape[1], chunk_rows * 128, []
+    for lo in range(0, n, step):
+        _, s, _ = quantize_plane_ref(x[:, lo:lo + step], r[:, lo:lo + step])
+        out.append(s[:, :-(-min(step, n - lo) // 128)])
+    return torch.cat(out, 1)
+
+
+def phase_train_int8(torch, train_res, profile: bool):
+    """The int8 wire's main path: the train phase's run with
+    ``wire="int8"`` and ``compensate=λ``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.backend import drive, make_backend
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gossip_mix as gm_kernel
+    from repro_torch.kernels import quantize as qk
+    from repro_torch.models import build_model
+    from repro_torch.optim import constant, momentum
+
+    cfg = get_config("gpt2-medium")
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    backend = make_backend("prod", "layup", M=M, loss_fn=model.loss_fn,
+                           optimizer=momentum(0.9), schedule=constant(LR),
+                           fb_ratio=R, update_delay=1, use_pallas=True,
+                           wire="int8", compensate=LAMBDA, device="cuda")
+    batches = lm_batches(torch, cfg.vocab_size, TRAIN_STEPS, seed=0)
+    stamps = []
+
+    def timed(batches):
+        for b in batches:
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            yield b
+
+    keys = ("loss", "weight_sum", "update_staleness", "staleness_mean",
+            "disagreement", "nonfinite_skips")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gm_kernel.reset_launches()                      # main path starts
+    fa.reset_launches()
+    qk.reset_launches()
+    out = drive(backend, timed(batches), None, params, history_keys=keys)
+    torch.cuda.synchronize()
+    launches = {"quantize_plane": qk.quantize_launches,  # main path ends
+                "dequant_mix": qk.dequant_mix_launches,
+                "gossip_mix": gm_kernel.launches}
+    flash = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
+             "dkv": fa.dkv_launches}
+    stamps.append(time.perf_counter())
+    peak = torch.cuda.max_memory_allocated()
+    step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    hist = {k: [float(v) for v in out["history"][k]] for k in keys}
+    n_groups = len(backend.part.group_sizes)
+    want = {"quantize_plane": TRAIN_STEPS * n_groups,
+            "dequant_mix": TRAIN_STEPS * n_groups, "gossip_mix": 0}
+    check(launches == want, f"int8 launches {launches} != {want}")
+    per_pass = TRAIN_STEPS * M * cfg.num_layers
+    want = {"fwd": per_pass * R, "dq": per_pass, "dkv": per_pass}
+    check(flash == want, f"int8 flash launches {flash} != {want}")
+    check(all(math.isfinite(v) for v in hist["loss"]), f"loss {hist}")
+    check(all(abs(v - 1.0) <= 1e-5 for v in hist["weight_sum"]),
+          f"weight_sum {hist['weight_sum']}")
+    check(abs(hist["loss"][0] - math.log(cfg.vocab_size)) < 0.5,
+          f"first loss {hist['loss'][0]} far from ln(V) at random init")
+    check(hist["nonfinite_skips"] == [0.0] * TRAIN_STEPS, "nonfinite skips")
+    wire = out["wire_bytes_per_round"]
+    f32_plane = backend.part.plane_nbytes()
+    check(out["wire_dtype"] == "int8" and wire == INT8_WIRE_BYTES
+          == backend.part.plane_nbytes("int8"),
+          f"wire {out['wire_dtype']} {wire} B != {INT8_WIRE_BYTES}")
+    state = out["state"]
+    del out
+    for name in ("write", "resid", "theta"):
+        check(all(bool(torch.isfinite(v).all())
+                  for v in state[name].values()), f"nonfinite {name}")
+
+    # |r'| <= s/2: one more step (outside the counted window), with the
+    # scales its quantization must use computed plainly beforehand from
+    # the plane and residual it quantizes
+    scales = {g: row_scales(torch, state["write"][g], state["resid"][g])
+              for g in state["write"]}
+    state, _ = backend.step(state, batches[0])
+    worst = 0.0
+    for g, r in state["resid"].items():
+        n, step = r.shape[1], (1 << 16) * 128
+        for lo in range(0, n, step):
+            rc = r[:, lo:lo + step].abs()
+            sc = scales[g][:, lo // 128:lo // 128 + -(-rc.shape[1] // 128)]
+            ratio = (rc / sc.repeat_interleave(128, 1)[:, :rc.shape[1]])
+            worst = max(worst, ratio.max().item())
+    check(math.isfinite(worst) and worst <= 0.5 + RESID_SLACK,
+          f"residual exceeds s/2: max |r'|/s = {worst}")
+    if profile:
+        def run(b):
+            nonlocal state
+            state, _ = backend.step(state, b)
+        profile_steps(torch, run, batches[:2], wire="int8")
+    med = statistics.median(step_s[1:])
+    tokens = M * BATCH_PER_WORKER * SEQ
+    res = {"model": cfg.name, "M": M, "fb_ratio": R, "update_delay": 1,
+           "compensate": LAMBDA, "wire": "int8", "steps": TRAIN_STEPS,
+           "history": hist, "step_s": step_s, "median_step_s": med,
+           "tokens_per_s": tokens / med,
+           "median_step_vs_train": med / train_res["median_step_s"],
+           "peak_bytes": peak, "launches": launches, "flash_launches": flash,
+           "wire_bytes_per_round": wire, "f32_plane_bytes": f32_plane,
+           "wire_vs_f32_plane": wire / f32_plane,
+           "resid_max_over_scale": worst}
+    emit("train_int8", **res)
+    del state, params
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_profile(torch, backend, state, batches):
     """Two more steps under torch.profiler for each attention route (the
     kernels, then plain attention with ``USE_PALLAS=False``): device time by
     kernel, device events and the device's idle share over the window. Then
     the two routes' step times, alternated on the same state (plain,
     kernels, kernels, plain, ...; host clock around synchronised steps)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import layers
 
     def run(use, batch):
@@ -484,26 +839,8 @@ def phase_profile(torch, backend, state, batches):
             layers.USE_PALLAS = True
 
     for use in (True, False):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for b in batches[:2]:
-                run(use, b)
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        rows = []  # device-side events only (kernels, copies, fills)
-        for ev in prof.key_averages():
-            if ev.device_type == DeviceType.CUDA:
-                rows.append((ev.self_device_time_total, ev.key, ev.count))
-        rows.sort(reverse=True)
-        busy = sum(r[0] for r in rows) / 1e6
-        emit("profile", attention="kernels" if use else "plain", steps=2,
-             wall_s=wall, device_busy_s=busy,
-             idle_share=max(0.0, 1.0 - busy / wall),
-             device_events=sum(r[2] for r in rows),
-             top=[{"kernel": k[:120], "device_ms": us / 1e3, "count": c}
-                  for us, k, c in rows[:25]])
+        profile_steps(torch, lambda b, use=use: run(use, b), batches[:2],
+                      attention="kernels" if use else "plain")
     step_s = {True: [], False: []}
     for i in range(PROFILE_AB_ROUNDS):
         for use in (False, True, True, False):
@@ -599,6 +936,84 @@ def phase_route(torch):
     torch.cuda.empty_cache()
 
 
+def phase_route_int8(torch):
+    """The int8 step (λ=0.5) through the quantize kernels against the same
+    step through their plain versions (``gossip_fused_lane(use_pallas=
+    False, wire="int8")``), 2 layers; attention on the flash kernels on
+    both routes, so only the quantize kernels differ: bit for bit."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.backend import make_backend
+    from repro_torch.core.layerview import FlatPartition
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import quantize as qk
+    from repro_torch.launch.train import (_decoupled_worker_fn,
+                                          backward_update_lane, forward_lane,
+                                          gossip_fused_lane,
+                                          make_decoupled_state)
+    from repro_torch.models import build_model
+    from repro_torch.optim import constant, momentum
+
+    cfg = get_config("gpt2-medium").with_(num_layers=ROUTE_LAYERS)
+    model = build_model(cfg)
+    params = model.init(seed=2, device="cuda")
+    opt, sched = momentum(0.9), constant(LR)
+    batches = lm_batches(torch, cfg.vocab_size, ROUTE_STEPS, seed=2)
+    kernel = make_backend("prod", "layup", M=M, loss_fn=model.loss_fn,
+                          optimizer=opt, schedule=sched, fb_ratio=R,
+                          update_delay=1, use_pallas=True, device="cuda",
+                          measure_drift=False, wire="int8",
+                          compensate=LAMBDA)
+    part = FlatPartition(params)
+    shifts = tuple(s % M for s in (1, 2, 4, 8) if s % M) or (1,)
+    plain_step = _decoupled_worker_fn(
+        part, forward_lane(model.loss_fn, fb_ratio=R),
+        backward_update_lane(opt, sched, update_delay=1, apply=False,
+                             compensate=LAMBDA),
+        None, M, 1,
+        fused_mix=gossip_fused_lane(part, M, shifts, use_pallas=False,
+                                    wire="int8"))
+    shift_rng = np.random.default_rng(0xC0FFEE)  # the backend's draws
+    ks = kernel.init(None, params)
+    ps = make_decoupled_state(
+        tree_map(lambda p: p[None].expand((M,) + tuple(p.shape)), params),
+        opt, update_delay=1, part=part, wire="int8", compensate=LAMBDA)
+    qk.reset_launches()
+    fa.reset_launches()
+    losses = []
+    for t, b in enumerate(batches):
+        ks, km = kernel.step(ks, b)
+        with torch.no_grad():
+            ps, pm = plain_step(ps, b, t, int(shift_rng.integers(
+                0, len(shifts))))
+        kl, pl = float(km["loss"]), float(pm["loss"])
+        losses.append((kl, pl))
+        check(kl == pl, f"route_int8 loss step {t}: kernel {kl} vs plain "
+              f"{pl}")
+    for name in ("read", "write", "resid", "theta"):
+        for g in ps[name]:
+            check(torch.equal(ks[name][g], ps[name][g]),
+                  f"route_int8 {name} {g} not bit-identical")
+    check(torch.equal(ks["w"], ps["w"]), "route_int8 push-sum weights")
+    n_groups = len(part.group_sizes)
+    launches = {"quantize_plane": qk.quantize_launches,
+                "dequant_mix": qk.dequant_mix_launches}
+    check(launches == {"quantize_plane": ROUTE_STEPS * n_groups,
+                       "dequant_mix": ROUTE_STEPS * n_groups},
+          f"route_int8 launches {launches}")
+    per_pass = 2 * ROUTE_STEPS * M * ROUTE_LAYERS  # flash on both routes
+    flash = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
+             "dkv": fa.dkv_launches}
+    want = {"fwd": per_pass * R, "dq": per_pass, "dkv": per_pass}
+    check(flash == want, f"route_int8 flash launches {flash} != {want}")
+    emit("route_int8", layers=ROUTE_LAYERS, M=M, steps=ROUTE_STEPS,
+         compensate=LAMBDA, losses=losses, bit_identical=True,
+         kernel_route_launches=launches, flash_launches=flash)
+    del ks, ps, params
+    torch.cuda.empty_cache()
+
+
 def main(argv) -> int:
     # the step's transients are plane-sized (GBs): growable segments keep
     # the caching allocator from stranding them as fragments
@@ -632,10 +1047,14 @@ def main(argv) -> int:
          allow_tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
          allow_tf32_cudnn=torch.backends.cudnn.allow_tf32)
     t0 = time.perf_counter()
+    phase_build()
     kern = phase_kernels(torch)
     flash = phase_flash(torch)
+    quant = phase_quantize(torch)
     train = phase_train(torch, profile="--profile" in argv)
+    int8 = phase_train_int8(torch, train, profile="--profile" in argv)
     phase_route(torch)
+    phase_route_int8(torch)
     fused = kern["timing"]["fused"]
     launches = train["flash_launches"]
     rows = [{
@@ -659,6 +1078,17 @@ def main(argv) -> int:
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/csrc/flash_attention.cu",
                      "replaces": replaces, "launches": n, **flash[name]})
+    # the int8 wire's kernels, launched on train_int8 (dequant_mix with the
+    # update is the main path's variant)
+    for name, replaces, key in (
+            ("quantize_plane", "src/repro/kernels/quantize.py:76",
+             "quantize"),
+            ("dequant_mix", "src/repro/kernels/quantize.py:128", "dequant")):
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/csrc/quantize.cu",
+                     "replaces": replaces, "launches": int8["launches"][name],
+                     "max_abs_err": quant["max_abs_err"],
+                     **quant["timing"][key], "library_ms": None})
     print(json.dumps({"kernels": rows}), flush=True)
     emit("done", wall_s=time.perf_counter() - t0)
     print(smi, flush=True)

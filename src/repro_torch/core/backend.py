@@ -42,11 +42,17 @@ class ProdTrainerBackend:
     """The decoupled LayUp lane with M workers stacked on one device.
 
     Keyword arguments keep the reference's names so a call ports one to
-    one. ``use_pallas=True`` is the fused Alg. 1 route through the
-    ``gossip_mix`` kernel; the default applies each update and then mixes
-    in plain PyTorch. ``device`` (default ``"cuda"``, which must exist)
-    replaces the reference's ``mesh``. The options of later slices raise
-    ``NotImplementedError`` naming the ROADMAP item that ports them."""
+    one. ``use_pallas=True`` is the fused Alg. 1 route through the kernels
+    (``gossip_mix``; with ``wire="int8"`` at M > 1, ``quantize_plane`` and
+    ``dequant_mix``); the default applies each update and then mixes in
+    plain PyTorch. ``wire="int8"`` ships the gossip plane as int8 with
+    per-row f32 scales and error-feedback residuals; ``compensate=λ > 0``
+    applies the delay correction ``g + λ·g⊙g⊙(θ_now − θ_stale)`` in the
+    update lane (DESIGN.md §14); ``summary()`` reports ``wire_dtype`` and
+    ``wire_bytes_per_round``. ``device`` (default ``"cuda"``, which must
+    exist) replaces the reference's ``mesh``. The options of later slices
+    raise ``NotImplementedError`` naming the ROADMAP item that ports
+    them."""
 
     kind = "prod"
 
@@ -72,10 +78,6 @@ class ProdTrainerBackend:
             raise _not_ported("publisher (live serving)", 11)
         if tuning is not None:
             raise _not_ported("tuning (the stage autotuner)", 12)
-        if wire == "int8" or float(compensate) > 0.0:
-            raise _not_ported("wire='int8' and compensate > 0", 8)
-        if wire != "param":
-            raise ValueError(f"unknown wire dtype {wire!r}")
         if not flat:
             raise _not_ported("flat=False (the legacy per-leaf tree state)",
                               15)
@@ -86,13 +88,15 @@ class ProdTrainerBackend:
                 f"{algo_name!r} (the gossip ring is the algorithm)")
         self.name = f"prod:{algo_name}"
         self.M = M
+        self.wire = str(wire)
         self.device = resolve_device(device)
         self._init_fn, self._step_fn, self._shifts, self._engine_box = \
             make_decoupled_backend_trainer(
                 loss_fn, optimizer, schedule, M, device=self.device,
                 shifts=shifts, fb_ratio=fb_ratio, update_delay=update_delay,
                 straggler_delays=straggler_delays,
-                measure_drift=measure_drift, use_pallas=use_pallas)
+                measure_drift=measure_drift, use_pallas=use_pallas,
+                wire=wire, compensate=compensate)
         self._steps = 0
         self._last: Dict[str, Any] = {}
         self._shift_rng = np.random.default_rng(0xC0FFEE)
@@ -125,10 +129,12 @@ class ProdTrainerBackend:
 
     def summary(self) -> Dict[str, float]:
         out = _numeric_summary(self._steps, self._last)
-        out["wire_dtype"] = "param"
+        out["wire_dtype"] = self.wire
         part = self._engine_box.get("part")
         if part is not None:
-            out["wire_bytes_per_round"] = float(part.plane_nbytes())
+            # one full plane crosses the ring per gossip round per worker
+            out["wire_bytes_per_round"] = float(
+                part.plane_nbytes(wire=self.wire))
         return out
 
 

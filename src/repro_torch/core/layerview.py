@@ -27,6 +27,7 @@ import torch
 from repro_torch.core.pytree import (DictKey, SequenceKey,
                                      tree_flatten_with_path, tree_leaves,
                                      tree_unflatten)
+from repro_torch.kernels.quantize import quant_wire_nbytes
 
 
 # The port's pytree makes only dict and sequence keys; the JAX package's
@@ -123,14 +124,16 @@ class FlatPartition(LayerPartition):
 
     def plane_nbytes(self, wire: str = "param") -> int:
         """Bytes of ONE flat plane (single worker): the per-step gossip wire
-        cost per peer, each group priced at its param dtype."""
+        cost per peer. ``wire="param"`` prices each group at its param
+        dtype; ``wire="int8"`` at one int8 byte per element plus one f32
+        scale per 128-element row of the group's quantized layout."""
+        if wire == "param":
+            return sum(size * self.group_dtypes[n].itemsize
+                       for n, size in self.group_sizes.items())
         if wire == "int8":
-            raise NotImplementedError(
-                "wire='int8' is not ported yet (ROADMAP queue 1, item 8)")
-        if wire != "param":
-            raise ValueError(f"unknown wire dtype {wire!r}")
-        return sum(size * self.group_dtypes[n].itemsize
-                   for n, size in self.group_sizes.items())
+            return sum(quant_wire_nbytes(size)
+                       for size in self.group_sizes.values())
+        raise ValueError(f"unknown wire dtype {wire!r}")
 
     def pack(self, tree, out: Optional[Dict[str, torch.Tensor]] = None
              ) -> Dict[str, torch.Tensor]:

@@ -16,6 +16,8 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -59,6 +61,18 @@ def build(name: str) -> Path:
                            f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent build writes the same bytes
     return out
+
+
+def build_all(names) -> dict:
+    """Compile several sources at once, one ``nvcc`` process each, all
+    started together; returns ``{name: (library path, seconds)}``."""
+    def timed(name):
+        t0 = time.perf_counter()
+        return build(name), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        futures = {n: pool.submit(timed, n) for n in names}
+    return {n: f.result() for n, f in futures.items()}
 
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:

@@ -11,8 +11,10 @@ import torch
 
 from repro_torch.kernels import flash_attention as _flash_kernel
 from repro_torch.kernels import gossip_mix as _gossip_mix_kernel
-from repro_torch.kernels.ref import (flash_attention_bwd_ref,
-                                     flash_attention_ref, gossip_mix_ref)
+from repro_torch.kernels import quantize as _quant_kernel
+from repro_torch.kernels.ref import (dequant_mix_ref, flash_attention_bwd_ref,
+                                     flash_attention_ref, gossip_mix_ref,
+                                     quantize_plane_ref)
 
 
 def gossip_mix(x: torch.Tensor, x_recv: torch.Tensor, upd, alpha, beta,
@@ -25,6 +27,30 @@ def gossip_mix(x: torch.Tensor, x_recv: torch.Tensor, upd, alpha, beta,
         return _gossip_mix_kernel.gossip_mix(x, x_recv, upd, alpha, beta,
                                              out=out)
     raise ValueError(f"gossip_mix: no kernel for device {x.device}")
+
+
+def quantize_plane(x: torch.Tensor, resid=None, *, out_q=None, out_s=None,
+                   out_resid=None):
+    """int8 error-feedback quantization ``(q, scales, resid')``; see
+    :func:`repro_torch.kernels.quantize.quantize_plane`."""
+    kw = dict(out_q=out_q, out_s=out_s, out_resid=out_resid)
+    if x.device.type == "cpu":
+        return quantize_plane_ref(x, resid, **kw)
+    if x.device.type == "cuda":
+        return _quant_kernel.quantize_plane(x, resid, **kw)
+    raise ValueError(f"quantize_plane: no kernel for device {x.device}")
+
+
+def dequant_mix(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor, upd,
+                alpha, beta, out=None) -> torch.Tensor:
+    """``α·x + β·(q·s) (+ upd)`` in float32, stored in ``x.dtype``; see
+    :func:`repro_torch.kernels.quantize.dequant_mix`."""
+    if x.device.type == "cpu":
+        return dequant_mix_ref(x, q, scales, upd, alpha, beta, out=out)
+    if x.device.type == "cuda":
+        return _quant_kernel.dequant_mix(x, q, scales, upd, alpha, beta,
+                                         out=out)
+    raise ValueError(f"dequant_mix: no kernel for device {x.device}")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -82,5 +108,5 @@ def flash_attention_trainable(q, k, v, *, causal: bool = True,
     return FlashAttention.apply(q, k, v, causal, window)
 
 
-__all__ = ["gossip_mix", "flash_attention", "flash_attention_bwd",
-           "flash_attention_trainable"]
+__all__ = ["gossip_mix", "quantize_plane", "dequant_mix", "flash_attention",
+           "flash_attention_bwd", "flash_attention_trainable"]

@@ -111,3 +111,107 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=0):
     dv = torch.einsum("bhgqk,bhgqd->bhkd", p, do_f)
     return (dq.reshape(B, Hq, Sq, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+# ---------------------------------------------------------------------------
+# int8 error-feedback wire (counterparts of quantize_plane_ref and
+# dequant_mix_ref in the JAX package's ref.py)
+# ---------------------------------------------------------------------------
+
+
+def worker_rows(x: torch.Tensor, what: str = "buffer") -> torch.Tensor:
+    """A plane buffer as ``(M, n)``: a 1-D ``(n,)`` buffer is one worker, a
+    stacked ``(M, n)`` buffer is M. The quantized layout is per worker."""
+    if x.dim() == 1:
+        return x[None]
+    if x.dim() == 2:
+        return x
+    raise ValueError(f"{what} must be (n,) or stacked (M, n); got "
+                     f"{tuple(x.shape)}")
+
+
+def _padded_rows(a: torch.Tensor, rows: int) -> torch.Tensor:
+    """``(M, n)`` → ``(M, rows, 128)`` float32, zero padded past n."""
+    from repro_torch.kernels.quantize import LANE
+    a = a.to(torch.float32)
+    pad = rows * LANE - a.shape[-1]
+    if pad:
+        a = torch.nn.functional.pad(a, (0, pad))
+    return a.reshape(a.shape[0], rows, LANE)
+
+
+def _store(res: torch.Tensor, out):
+    return res if out is None else out.copy_(res)
+
+
+def quantize_plane_ref(x, resid=None, *, out_q=None, out_s=None,
+                       out_resid=None):
+    """int8 quantization with error feedback, per 128-element row of each
+    worker's ``quant_layout(n)`` rows::
+
+        v = x + resid                 (f32)
+        s = absmax_row(v) / 127       (1.0 where absmax is 0)
+        q = clip(round_half_even(v / s), ±127)
+        resid' = v − q·s              (in x's dtype)
+
+    ``x`` is ``(n,)`` or stacked ``(M, n)``; returns ``(q, scales,
+    resid')`` with q int8 in x's shape, scales ``(rows,)`` or ``(M,
+    rows)`` float32, resid' in x's shape and dtype. ``resid=None`` is a
+    zero residual. ``out_*`` receive the results (``out_resid`` may be
+    ``resid`` itself).
+
+    ``s`` is a division by a TENSOR of 127s: PyTorch's CUDA division by a
+    Python scalar multiplies by its reciprocal, which rounds differently
+    from the kernel's correctly rounded ``__fdiv_rn``."""
+    from repro_torch.kernels.quantize import quant_layout
+    x2 = worker_rows(x)
+    n = x2.shape[1]
+    rows = quant_layout(n)[0]
+    v = _padded_rows(x2, rows)
+    if resid is not None:
+        v = v + _padded_rows(worker_rows(resid, "resid"), rows)
+    absmax = torch.amax(v.abs(), dim=-1, keepdim=True)
+    scale = torch.where(absmax > 0.0,
+                        absmax / torch.full_like(absmax, 127.0),
+                        torch.ones_like(absmax))
+    q = torch.clamp(torch.round(v / scale), -127.0, 127.0)
+    res = v - q * scale
+    del v
+
+    def unpad(a, dt):
+        return a.reshape(a.shape[0], -1)[:, :n].to(dt).reshape(x.shape)
+
+    s_out = scale.reshape(x2.shape[0], rows)
+    if x.dim() == 1:
+        s_out = s_out[0]
+    return (_store(unpad(q, torch.int8), out_q), _store(s_out, out_s),
+            _store(unpad(res, x.dtype), out_resid))
+
+
+def dequant_mix_ref(x, q, scales, upd, alpha, beta, out=None):
+    """``α·x + β·(q·s) [+ upd]`` in float32, stored in x's dtype, in that
+    order of operations: ``((α·x) + (β·(q·s))) + upd``.
+
+    ``x`` (and ``q``, ``upd``) are ``(n,)`` with scalar α, β and scales
+    ``(rows,)``, or stacked ``(M, n)`` with scalar or ``(M,)`` per-worker
+    α, β and scales ``(M, rows)``, as :func:`quantize_plane_ref` makes
+    them. ``upd=None`` is the pure mix. ``out`` (may be ``x``) receives the
+    result."""
+    from repro_torch.kernels.quantize import quant_layout
+    x2 = worker_rows(x)
+    M, n = x2.shape
+    rows = quant_layout(n)[0]
+    want = (rows,) if x.dim() == 1 else (M, rows)
+    if tuple(scales.shape) != want:
+        raise ValueError(f"scales shape {tuple(scales.shape)} does not match "
+                         f"the quant layout {want} for n={n}")
+    a = row_scalars(alpha, x2)[:, None]
+    b = row_scalars(beta, x2)[:, None]
+    r = _padded_rows(worker_rows(q, "q"), rows) \
+        * scales.reshape(M, rows, 1).to(torch.float32)
+    r = r.reshape(M, -1)[:, :n]
+    res = a * x2.to(torch.float32) + b * r
+    del r
+    if upd is not None:
+        res = res + worker_rows(upd, "upd").to(torch.float32)
+    return _store(res.to(x.dtype).reshape(x.shape), out)

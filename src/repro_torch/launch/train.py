@@ -18,6 +18,14 @@ assembled from the same three lanes:
   ``use_pallas`` route) folds apply and mix into one pass per layer group
   through the ``gossip_mix`` kernel: ``α·x + β·recv + upd``.
 
+``wire="int8"`` ships each group as int8 with one f32 scale per 128-element
+row, quantizing ``x + resid`` and carrying the error forward in a residual
+plane (``state["resid"]``); the fused route runs ``quantize_plane`` and
+``dequant_mix`` per group. ``compensate=λ > 0`` corrects the delayed
+gradient by ``g + λ·g⊙g⊙(s·(θ − θ_prev))`` with ``θ_prev`` one more plane
+(``state["theta"]``, the previous step's pre-update write plane) and ``s``
+the measured staleness (DESIGN.md §14).
+
 Then the read plane adopts the mixed write plane and each group's clock is
 stamped ``t + φ_g``. Everything stays on the device: push-sum weights,
 α/β, FIFO stamps and metrics are device tensors, and a step makes no host
@@ -42,7 +50,8 @@ from repro_torch.core.layerview import (FlatPartition, send_fractions,
 from repro_torch.core.pytree import tree_flatten, tree_map, tree_unflatten
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import gossip_mix_ref
+from repro_torch.kernels.ref import (dequant_mix_ref, gossip_mix_ref,
+                                     quantize_plane_ref)
 from repro_torch.optim.optimizers import Optimizer, apply_updates
 
 
@@ -100,9 +109,37 @@ def forward_lane(loss_fn: Callable, *, fb_ratio: int = 1) -> Callable:
 # ---------------------------------------------------------------------------
 
 
+# elements of a worker row that the delay compensation corrects at a time:
+# its f32 temporaries stay at M × 64 MB instead of whole-group planes
+_COMPENSATE_CHUNK = 1 << 24
+
+
+def _compensate_(g, p, theta, drift, lam: float) -> None:
+    """``g ← g + λ·g⊙g⊙(drift·(p − θ))`` in f32, in the gradient buffer
+    ``g`` itself, in the reference's order of operations
+    (``gf + ((λ·gf)·gf)·delta``); then ``θ ← p``, the pre-update plane the
+    next step compares against. Chunked along the group so that no
+    plane-sized f32 temporary is made."""
+    n = g.shape[-1]
+    for lo in range(0, n, _COMPENSATE_CHUNK):
+        sl = slice(lo, lo + _COMPENSATE_CHUNK)
+        gc, pc, tc = g[..., sl], p[..., sl], theta[..., sl]
+        gf = gc.to(torch.float32)
+        delta = pc.to(torch.float32) - tc.to(torch.float32)
+        delta.mul_(drift)
+        corr = gf * lam
+        corr.mul_(gf).mul_(delta)
+        del delta
+        if gc.dtype == torch.float32:
+            gc.add_(corr)
+        else:
+            gc.copy_(gf + corr)
+        tc.copy_(pc)
+
+
 def backward_update_lane(optimizer: Optimizer, schedule: Callable, *,
-                         update_delay: int = 0, apply: bool = True
-                         ) -> Callable:
+                         update_delay: int = 0, apply: bool = True,
+                         compensate: float = 0.0) -> Callable:
     """Delayed update application on the stacked write plane.
 
     Returns ``upd(params, opt_state, grads, fifo, step_idx, active=None) ->
@@ -119,12 +156,24 @@ def backward_update_lane(optimizer: Optimizer, schedule: Callable, *,
     (worker, group) pairs. ``active`` ((M,) 0/1 float) masks the update's
     application per worker (the straggler emulation; the optimizer state
     still advances). ``apply=False`` returns the update deltas in place of
-    the new params: the contract of :func:`gossip_fused_lane`."""
+    the new params: the contract of :func:`gossip_fused_lane`.
+
+    ``compensate=λ > 0`` corrects the delayed gradient after the nonfinite
+    select and before the optimizer: ``g + λ·g⊙g⊙(s·(params − theta))``,
+    ``s`` the update staleness and ``theta`` (a kwarg) the previous step's
+    pre-update params. The lane then writes this step's pre-update params
+    into ``theta`` and appends it (``theta_new``) after
+    ``nonfinite_skips``. At D == 0 the staleness is 0 and the correction
+    adds zeros."""
     D = int(update_delay)
     if D < 0:
         raise ValueError("update_delay must be >= 0")
+    lam = float(compensate)
+    if lam < 0:
+        raise ValueError("compensate (λ) must be >= 0")
 
-    def upd(params, opt_state, grads, fifo, step_idx, active=None):
+    def upd(params, opt_state, grads, fifo, step_idx, active=None,
+            theta=None):
         step_f = float(np.float32(step_idx))
         if D > 0:
             g_apply = {k: b[:, 0] for k, b in fifo["g"].items()}
@@ -150,6 +199,9 @@ def backward_update_lane(optimizer: Optimizer, schedule: Callable, *,
         skips = sum((~o).sum(dtype=torch.float32) for o in ok.values())
         for k, g in grads.items():  # a select, in the consumed buffer
             g.masked_fill_(~ok[k][:, None], 0.0)
+        if lam > 0.0:
+            for k, g in grads.items():
+                _compensate_(g, params[k], theta[k], update_staleness, lam)
         lr = schedule(step_idx)
         updates, opt_state = optimizer.update(grads, opt_state, params, lr)
         del grads
@@ -158,6 +210,8 @@ def backward_update_lane(optimizer: Optimizer, schedule: Callable, *,
             if active is not None:
                 u.mul_(active[:, None].to(u.dtype))
         out = updates if not apply else apply_updates(params, updates)
+        if lam > 0.0:
+            return out, opt_state, fifo, update_staleness, skips, theta
         return out, opt_state, fifo, update_staleness, skips
 
     return upd
@@ -181,36 +235,72 @@ def fifo_init(plane_single: Dict[str, torch.Tensor], update_delay: int,
 # ---------------------------------------------------------------------------
 
 
-def _ring_exchange(plane, w, shift_idx, shifts: Sequence[int]):
+def _ring_exchange(w, shift_idx, shifts: Sequence[int]):
     """One push-sum ring hop on the stacked plane: worker ``i`` sends its
     buffers and half its weight to worker ``i + s mod M``, i.e. row ``j``
     receives row ``j − s`` (``torch.roll(buf, s, 0)``).
 
-    Returns ``(recv, w_keep, rw)``. ``recv`` maps each group to a
-    zero-argument function that makes the received buffer, so a caller can
-    hold one group's copy at a time."""
+    Returns ``(hop, w_keep, rw)``. ``hop(buf)`` makes the received copy of
+    one stacked buffer, so a caller holds one group's copy at a time, and
+    every buffer of a round (an int8 group's q and its scales) moves by the
+    same shift."""
     s = int(shifts[int(shift_idx)])
     w_keep = w * 0.5
     rw = torch.roll(w * 0.5, s, 0)
-    recv = {name: (lambda v=v: torch.roll(v, s, 0))
-            for name, v in plane.items()}
-    return recv, w_keep, rw
+    return (lambda buf: torch.roll(buf, s, 0)), w_keep, rw
 
 
-def gossip_plane_lane(part: FlatPartition, M: int, shifts: Sequence[int]):
+def _check_wire(wire: str, compensate: float) -> None:
+    """Validation of the quantized-wire and delay-compensation knobs."""
+    if wire not in ("param", "int8"):
+        raise ValueError(f"unknown wire dtype {wire!r} "
+                         "(expected 'param' or 'int8')")
+    if float(compensate) < 0.0:
+        raise ValueError("compensate (λ) must be >= 0")
+
+
+def gossip_plane_lane(part: FlatPartition, M: int, shifts: Sequence[int], *,
+                      wire: str = "param"):
     """Push-sum ring gossip on the stacked flat plane, after the update was
     applied: ``(w/2·mine + w'/2·recv) / (w/2 + w'/2)`` in f32, plain
     PyTorch. Returns ``mix(plane, w, shift_idx) -> (plane, w)``; the
-    identity when M == 1."""
+    identity when M == 1.
+
+    ``wire="int8"`` quantizes each outgoing group with its error-feedback
+    residual and mixes the received ``{q, scales}`` with
+    ``α·mine + β·(q·s)``, ``α = w_keep/w'``, ``β = rw/w'`` (the plain
+    ``quantize_plane_ref`` and ``dequant_mix_ref``). The signature becomes
+    ``mix(plane, resid, w, shift_idx) -> (plane, resid, w)``; the residual
+    is updated in place. At M == 1 it is the identity: nothing crosses the
+    wire, nothing is quantized."""
+    _check_wire(wire, 0.0)
+    if wire == "int8":
+        if M == 1:
+            return lambda plane, resid, w, shift_idx: (plane, resid, w)
+
+        def mix_q(plane, resid, w, shift_idx):
+            hop, w_keep, rw = _ring_exchange(w, shift_idx, shifts)
+            new_w = w_keep + rw
+            alpha, beta = w_keep / new_w, rw / new_w
+            mixed = {}
+            for name, mine in plane.items():
+                q, s, _ = quantize_plane_ref(mine, resid[name],
+                                             out_resid=resid[name])
+                mixed[name] = dequant_mix_ref(mine, hop(q), hop(s), None,
+                                              alpha, beta)
+                del q, s
+            return mixed, resid, new_w
+
+        return mix_q
     if M == 1:
         return lambda plane, w, shift_idx: (plane, w)
 
     def mix(plane, w, shift_idx):
-        recv, w_keep, rw = _ring_exchange(plane, w, shift_idx, shifts)
+        hop, w_keep, rw = _ring_exchange(w, shift_idx, shifts)
         new_w = w_keep + rw
         mixed = {}
         for name, mine in plane.items():
-            r = recv[name]()
+            r = hop(mine)
             mf = (w_keep[:, None] * mine.to(torch.float32)
                   + rw[:, None] * r.to(torch.float32)) / new_w[:, None]
             mixed[name] = mf.to(mine.dtype)
@@ -221,31 +311,65 @@ def gossip_plane_lane(part: FlatPartition, M: int, shifts: Sequence[int]):
 
 
 def gossip_fused_lane(part: FlatPartition, M: int, shifts: Sequence[int], *,
-                      use_pallas: bool = True):
+                      use_pallas: bool = True, wire: str = "param"):
     """The paper's Alg. 1 ordering, fused: ship the PRE-update plane, then
     one pass per group computes ``mixed = α·x + β·recv + upd`` (3 reads + 1
     write). Returns ``mix_apply(plane, updates, w, shift_idx) -> (plane,
     w)``. At M == 1 it is a fused ``x + upd`` (α=1, β=0), still one pass
     per group.
 
-    ``use_pallas=True`` sends each group through ``ops.gossip_mix`` (the
-    Triton kernel on a CUDA tensor); ``False`` calls the plain
-    ``gossip_mix_ref`` directly, the same arithmetic in PyTorch ops. The
-    result is written into ``plane``'s buffers in place."""
+    ``use_pallas=True`` sends each group through the kernels of
+    ``kernels.ops`` (on a CUDA tensor: ``gossip_mix``, ``quantize_plane``,
+    ``dequant_mix``); ``False`` calls their plain versions directly, the
+    same arithmetic in PyTorch ops. The result is written into ``plane``'s
+    buffers in place.
+
+    ``wire="int8"``: per group, quantize the pre-update plane with its
+    error-feedback residual (the residual rewritten in place), roll ``q``
+    and the scales by the same shift, and mix with one ``dequant_mix`` pass
+    ``α·x + β·(q·s) + upd``. Only one group's ``q`` and its received copy
+    are alive at a time. The signature becomes ``mix_apply(plane, resid,
+    updates, w, shift_idx) -> (plane, resid, w)``; at M == 1 the residual
+    passes through untouched."""
+    _check_wire(wire, 0.0)
     op = ops.gossip_mix if use_pallas else gossip_mix_ref
+
+    def apply_m1(plane, updates, w):
+        one, zero = torch.ones_like(w), torch.zeros_like(w)
+        return {name: op(x, x, updates[name], one, zero, out=x)
+                for name, x in plane.items()}
+
+    if wire == "int8":
+        qfn = ops.quantize_plane if use_pallas else quantize_plane_ref
+        dqfn = ops.dequant_mix if use_pallas else dequant_mix_ref
+
+        def mix_apply_q(plane, resid, updates, w, shift_idx):
+            if M == 1:
+                return apply_m1(plane, updates, w), resid, w
+            hop, w_keep, rw = _ring_exchange(w, shift_idx, shifts)
+            new_w = w_keep + rw
+            alpha, beta = w_keep / new_w, rw / new_w
+            mixed = {}
+            for name, x in plane.items():
+                q, s, _ = qfn(x, resid[name], out_resid=resid[name])
+                q_recv, s_recv = hop(q), hop(s)
+                del q, s
+                mixed[name] = dqfn(x, q_recv, s_recv, updates[name], alpha,
+                                   beta, out=x)
+                del q_recv, s_recv
+            return mixed, resid, new_w
+
+        return mix_apply_q
 
     def mix_apply(plane, updates, w, shift_idx):
         if M == 1:
-            one, zero = torch.ones_like(w), torch.zeros_like(w)
-            mixed = {name: op(x, x, updates[name], one, zero, out=x)
-                     for name, x in plane.items()}
-            return mixed, w
-        recv, w_keep, rw = _ring_exchange(plane, w, shift_idx, shifts)
+            return apply_m1(plane, updates, w), w
+        hop, w_keep, rw = _ring_exchange(w, shift_idx, shifts)
         new_w = w_keep + rw
         alpha, beta = w_keep / new_w, rw / new_w
         mixed = {}
         for name, x in plane.items():
-            r = recv[name]()
+            r = hop(x)
             mixed[name] = op(x, r, updates[name], alpha, beta, out=x)
             del r
         return mixed, new_w
@@ -269,7 +393,14 @@ def _decoupled_worker_fn(part: FlatPartition, fwd: Callable, upd: Callable,
     gossip (``fused_mix`` folds apply+mix; else apply then ``mix``) → the
     read plane adopts the mixed write plane → each group's clock is stamped
     ``t + φ_g`` (only when M > 1: with one worker nothing is received).
-    ``batch`` carries a leading ``(M,)`` worker axis on every leaf."""
+    ``batch`` carries a leading ``(M,)`` worker axis on every leaf.
+
+    A state with ``"resid"`` (``wire="int8"``, see
+    :func:`make_decoupled_state`) threads the error-feedback residual
+    plane through the gossip lane, whose signature then takes it; one with
+    ``"theta"`` (``compensate > 0``) threads θ through the update lane,
+    which must have been built with ``compensate > 0``. Both are consumed
+    in place like the rest of the state."""
     phi = send_fractions(part.num_groups)
     phi_on: Dict[torch.device, torch.Tensor] = {}  # φ copied once per device
 
@@ -286,17 +417,28 @@ def _decoupled_worker_fn(part: FlatPartition, fwd: Callable, upd: Callable,
             del g_m
             losses.append(loss_m)
         active = active_fn(step_idx) if active_fn is not None else None
+        resid, theta = state.get("resid"), state.get("theta")
+        upd_out = upd(write, opt_state, grads, fifo, step_idx, active=active,
+                      theta=theta)
+        del grads
+        # lane_out: the update deltas on the fused route, else the updated
+        # write plane
+        lane_out, opt_state, fifo, upd_stale, skips = upd_out[:5]
+        if theta is not None:
+            theta = upd_out[5]
+        del upd_out
+        int8 = resid is not None
         if fused_mix is not None:
-            updates, opt_state, fifo, upd_stale, skips = upd(
-                write, opt_state, grads, fifo, step_idx, active=active)
-            del grads
-            write, w = fused_mix(write, updates, w, shift_idx)
-            del updates
+            if int8:
+                write, resid, w = fused_mix(write, resid, lane_out, w,
+                                            shift_idx)
+            else:
+                write, w = fused_mix(write, lane_out, w, shift_idx)
+        elif int8:
+            write, resid, w = mix(lane_out, resid, w, shift_idx)
         else:
-            write, opt_state, fifo, upd_stale, skips = upd(
-                write, opt_state, grads, fifo, step_idx, active=active)
-            del grads
-            write, w = mix(write, w, shift_idx)
+            write, w = mix(lane_out, w, shift_idx)
+        del lane_out
         read = write
         if M > 1:
             if versions.device not in phi_on:
@@ -309,6 +451,10 @@ def _decoupled_worker_fn(part: FlatPartition, fwd: Callable, upd: Callable,
                      "versions": versions}
         if D > 0:
             new_state["fifo"] = fifo
+        if int8:
+            new_state["resid"] = resid
+        if theta is not None:
+            new_state["theta"] = theta
         return new_state, _decoupled_metrics(w, versions, loss, upd_stale,
                                              step_idx, skips)
 
@@ -317,11 +463,16 @@ def _decoupled_worker_fn(part: FlatPartition, fwd: Callable, upd: Callable,
 
 def make_decoupled_state(params_stacked, optimizer: Optimizer, *,
                          update_delay: int = 0,
-                         part: Optional[FlatPartition] = None):
+                         part: Optional[FlatPartition] = None,
+                         wire: str = "param", compensate: float = 0.0):
     """Initial step state: the params packed ONCE into the stacked plane,
     as two separate copies (read, write), optimizer state in plane layout,
     push-sum weights ``1/M``, zero version clocks and, with D > 0, a zero
-    gradient FIFO with stamps −1."""
+    gradient FIFO with stamps −1. ``wire="int8"`` adds the zero
+    error-feedback residual plane ``"resid"`` (the plane's dtypes);
+    ``compensate > 0`` adds ``"theta"``, a third copy of the initial plane
+    (the θ_prev of step 0)."""
+    _check_wire(wire, compensate)
     leaves, _ = tree_flatten(params_stacked)
     M = leaves[0].shape[0]
     D = int(update_delay)
@@ -332,6 +483,10 @@ def make_decoupled_state(params_stacked, optimizer: Optimizer, *,
             for k, v in plane.items()}
     write = {k: v.clone(memory_format=torch.contiguous_format)
              for k, v in plane.items()}
+    theta = None
+    if float(compensate) > 0.0:
+        theta = {k: v.clone(memory_format=torch.contiguous_format)
+                 for k, v in plane.items()}
     del plane
     device = leaves[0].device
     state = {
@@ -343,6 +498,10 @@ def make_decoupled_state(params_stacked, optimizer: Optimizer, *,
     }
     if D > 0:
         state["fifo"] = fifo_init({k: v[0] for k, v in read.items()}, D, M)
+    if wire == "int8":
+        state["resid"] = {k: torch.zeros_like(v) for k, v in read.items()}
+    if theta is not None:
+        state["theta"] = theta
     return state
 
 
@@ -378,21 +537,25 @@ def make_decoupled_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
                                    fb_ratio: int = 1, update_delay: int = 0,
                                    straggler_delays=None,
                                    measure_drift: bool = False,
-                                   use_pallas: bool = False):
+                                   use_pallas: bool = False,
+                                   wire: str = "param",
+                                   compensate: float = 0.0):
     """Decoupled LayUp over a params dict + ``loss_fn``: the engine behind
     the ``"prod"`` backend. ``M`` workers are stacked on ``device`` (the
     reference takes a mesh with M devices on its worker axis).
 
     Batches use the sim layout: every leaf carries a leading ``(M,)``
-    worker axis. Only the flat plane and ``wire="param"`` are ported; the
-    prod backend rejects the other options. ``use_pallas=True`` is the fused Alg. 1 route through the
-    ``gossip_mix`` kernel (:func:`gossip_fused_lane`); the default applies
-    the update and then mixes in plain PyTorch (:func:`gossip_plane_lane`).
+    worker axis. Only the flat plane is ported. ``use_pallas=True`` is the
+    fused Alg. 1 route through the kernels (:func:`gossip_fused_lane`); the
+    default applies the update and then mixes in plain PyTorch
+    (:func:`gossip_plane_lane`). ``wire`` (``"param"`` or ``"int8"``) and
+    ``compensate=λ ≥ 0`` are the options of DESIGN.md §14.
 
     Returns ``(init_fn, step_fn, shifts, box)`` as the reference does:
     ``init_fn(rng, params_single) -> state``, ``step_fn(state, batch,
     step_idx, shift_idx) -> (state, metrics)``, the effective gossip shift
     set, and ``box["part"]`` (the FlatPartition, after ``init_fn``)."""
+    _check_wire(wire, compensate)
     device = resolve_device(device)
     R, D = int(fb_ratio), int(update_delay)
     shifts = tuple(s % M for s in shifts if s % M != 0) or (1,)
@@ -403,11 +566,12 @@ def make_decoupled_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
         part = FlatPartition(params_single)
         fwd = forward_lane(loss_fn, fb_ratio=R)
         upd = backward_update_lane(optimizer, schedule, update_delay=D,
-                                   apply=not use_pallas)
+                                   apply=not use_pallas,
+                                   compensate=compensate)
         if use_pallas:
-            mix, fused = None, gossip_fused_lane(part, M, shifts)
+            mix, fused = None, gossip_fused_lane(part, M, shifts, wire=wire)
         else:
-            mix, fused = gossip_plane_lane(part, M, shifts), None
+            mix, fused = gossip_plane_lane(part, M, shifts, wire=wire), None
         base_step = _decoupled_worker_fn(part, fwd, upd, mix, M, D,
                                          active_fn=active_fn,
                                          fused_mix=fused)
@@ -430,7 +594,8 @@ def make_decoupled_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
         if "step" not in part_box:
             part_box["step"], part_box["part"] = build(params_single)
         return make_decoupled_state(stacked, optimizer, update_delay=D,
-                                    part=part_box["part"])
+                                    part=part_box["part"], wire=wire,
+                                    compensate=compensate)
 
     def step_fn(state, batch, step_idx, shift_idx):
         if "step" not in part_box:

@@ -169,3 +169,101 @@ def test_flash_trainable_and_decoder_routes_agree(cuda_device):
     _close(kl, pl, "loss", tol=1e-5)
     for a, b in zip(kg, pg):  # f32 sums in another order, through 2 layers
         _close(a, b, "grad", tol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the int8 wire (CUDA C++): quantize_plane and dequant_mix
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import quantize as q_kernel  # noqa: E402
+from repro_torch.kernels.ref import (dequant_mix_ref,  # noqa: E402
+                                     quantize_plane_ref)
+
+
+def _assert_same(name, got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype, name
+    if not torch.equal(got, want):
+        diff = (got.float() - want.float()).abs()
+        raise AssertionError(f"{name}: {int((diff != 0).sum())} elements "
+                             f"differ from the plain version, max "
+                             f"{diff.max().item()}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [None, 3])
+@pytest.mark.parametrize("n", [1, 127, 129, 1029, 1 << 20])
+def test_quantize_kernels_bit_identical(cuda_device, dtype, M, n):
+    """Both kernels against the plain versions on the same CUDA tensors,
+    bit for bit: q, scales, residual (also written over itself, and with no
+    residual) and both dequant_mix variants (also with out=x); 1-D (M=1)
+    and stacked buffers, an all-zero row."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    shape = (n,) if M is None else (M, n)
+    x, r, u = ((torch.randn(shape, generator=gen, device=cuda_device) * sc)
+               .to(dtype) for sc in (3.0, 0.01, 0.01))
+    if n > 256:
+        x[..., 128:256] = 0
+        r[..., 128:256] = 0
+    want = quantize_plane_ref(x, r)
+    before = (q_kernel.quantize_launches, q_kernel.dequant_mix_launches)
+    for name, g, w in zip(("q", "scales", "resid"),
+                          ops.quantize_plane(x, r), want):
+        _assert_same(name, g, w)
+    for name, g, w in zip(("q", "scales", "resid"), ops.quantize_plane(x),
+                          quantize_plane_ref(x)):
+        _assert_same(f"{name} (no residual)", g, w)
+    r_in = r.clone()
+    got = ops.quantize_plane(x, r_in, out_resid=r_in)
+    assert got[2] is r_in
+    for name, g, w in zip(("q", "scales", "resid"), got, want):
+        _assert_same(f"{name} (in place)", g, w)
+    q, s = got[0], got[1]
+    if M is None:
+        a, b = torch.tensor(0.6, device=cuda_device), \
+            torch.tensor(0.4, device=cuda_device)
+    else:
+        q, s = torch.roll(q, 1, 0), torch.roll(s, 1, 0)
+        a = torch.rand(M, generator=gen, device=cuda_device)
+        b = 1.0 - a
+    for upd in (u, None):
+        _assert_same(f"dequant_mix upd={upd is not None}",
+                     ops.dequant_mix(x, q, s, upd, a, b),
+                     dequant_mix_ref(x, q, s, upd, a, b))
+    o = x.clone()
+    assert ops.dequant_mix(o, q, s, u, a, b, out=o) is o
+    _assert_same("dequant_mix out=x", o, dequant_mix_ref(x, q, s, u, a, b))
+    torch.cuda.synchronize()
+    assert (q_kernel.quantize_launches, q_kernel.dequant_mix_launches) == \
+        (before[0] + 3, before[1] + 3)
+
+
+@pytest.mark.gpu
+def test_quantize_kernels_past_int32_offsets(cuda_device):
+    """A stacked bf16 buffer of more than 2^31 elements (M=3, n % 128 != 0,
+    about 11 GB of operands): the last worker's row, whose offsets pass
+    2^31, and the first against the plain version on that row alone (the
+    layout is per worker, so row m of a stacked call is the 1-D call on
+    row m)."""
+    M, n = 3, 715_827_883  # M·n = 2^31 + 1
+    gen = torch.Generator(device=cuda_device).manual_seed(31)
+    x = torch.randn((M, n), generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16)
+    r = torch.randn((M, n), generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16) * 0.01
+    r_rows = {m: r[m].clone() for m in (0, M - 1)}  # r is overwritten
+    q, s, _ = ops.quantize_plane(x, r, out_resid=r)
+    a = torch.tensor([0.5, 0.6, 0.7], device=cuda_device)
+    b = 1.0 - a
+    q_recv, s_recv = torch.roll(q, 1, 0), torch.roll(s, 1, 0)
+    o = ops.dequant_mix(x, q_recv, s_recv, None, a, b)
+    torch.cuda.synchronize()
+    for m, r_m in r_rows.items():
+        want = quantize_plane_ref(x[m], r_m)
+        for name, g, w in zip(("q", "scales", "resid"), (q[m], s[m], r[m]),
+                              want):
+            _assert_same(f"row {m} {name}", g, w)
+        del want
+        _assert_same(f"row {m} dequant_mix", o[m], dequant_mix_ref(
+            x[m], q_recv[m], s_recv[m], None, a[m], b[m]))
+        torch.cuda.empty_cache()

@@ -79,8 +79,9 @@ def test_partition_metadata_matches(trees, name):
         {k: jnp.dtype(v).name for k, v in jp.group_dtypes.items()}
     assert tp.plane_nbytes() == jp.plane_nbytes() == \
         tp.plane_nbytes(wire="param")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tp.plane_nbytes(wire="int8")
+    assert tp.plane_nbytes(wire="int8") == jp.plane_nbytes(wire="int8")
+    with pytest.raises(ValueError, match="wire"):
+        tp.plane_nbytes(wire="fp4")
     assert tp._index == jp._index
 
 
