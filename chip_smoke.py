@@ -32,6 +32,16 @@ not 0:
    stacked group shapes (GPT-2 Medium, M=4, float32), at odd sizes (n in
    {1, 127, 129, 1029}, M in {1, 3}), in bfloat16, with all-zero rows and
    with the residual written over itself; kernel, plain and bound times.
+3c. norm_ssd: the CUDA C++ ``rmsnorm`` and ``ssd_scan`` against their
+   plain PyTorch versions on the same CUDA tensors. ``rmsnorm``: the
+   Mamba2 step's norms (512 rows of 1536 and of 3072, bfloat16), the
+   decoder's 1024 x 1024 float32, the JAX tests' three shapes in float32
+   and bfloat16, and 16384 x 4096 bfloat16 for bandwidth. ``ssd_scan``:
+   the step's shape (B=2, H=48, S=256, P=64, N=128, chunk 128) in
+   bfloat16 and float32 from strided (B,S,H,P) views, S=2048 (16 chunks
+   carry the state), and the JAX tests' three shapes, also against the
+   sequential ``ssd_ref``. Kernel, plain, library (``F.rms_norm``; none
+   computes the SSD scan) and bound times.
 4. train: the port's main path through its user entry points,
    ``make_backend("prod", "layup", M=4, fb_ratio=2, update_delay=1,
    use_pallas=True)`` + ``drive``, GPT-2 Medium at full width and depth
@@ -48,6 +58,17 @@ not 0:
    then one more step, outside the counted window, whose new residual must
    keep |r'| <= s/2 of its row (s computed plainly from the plane and
    residual it quantizes).
+4c. train_ssm: the SSM family's main path, the same entry points and
+   traffic with Mamba2-780M (48 layers, d 1536, bfloat16) at full width
+   and depth, random weights from a seed, after the GPT-2 states are
+   freed: ``gossip_mix`` must run once per layer group per step, flash
+   never, and neither ``rmsnorm`` nor ``ssd_scan`` (the model runs the
+   plain forms, as the reference's does). Then, outside that window, the
+   two kernels run on the step's own activations (worker 0's read plane,
+   the first batch's first forward slice): ``ssd_scan`` on layers 0 and
+   47's mixer inputs against the model's ``ssd_chunked``, ``rmsnorm`` on
+   their pre-norm and gate-norm inputs and the final norm's against the
+   model's norm; their launches there are counted from 0.
 5. route: the same step at 2 layers, full width, M=4, 3 steps, through the
    kernels and through the plain route (``USE_PALLAS=False`` attention and
    ``gossip_mix_ref``) on the same CUDA tensors; losses and planes must
@@ -104,13 +125,28 @@ FLASH_SWEEP = [  # (B, Hq, Hkv, S, D, causal, window, dtype)
 # side is one rounding of a float32 result within that tolerance
 FLASH_TOL = (1e-5, 1e-4)  # forward, backward
 ULP = {"float32": 0.0, "bfloat16": 2.0 ** -7}
-CUDA_SOURCES = ("flash_attention", "quantize")  # src/repro_torch/csrc/*.cu
 LAMBDA = 0.5  # delay compensation of the int8 phases
 # the int8 wire of GPT-2 Medium: its groups' int8 bytes plus 4 B a scale row
 INT8_WIRE_BYTES = 468_360_320
 # |r'| <= s/2 of its row, up to the two roundings (v/s and q·s, each at
 # most 127·2^-24·s) that float32 adds
 RESID_SLACK = 2.0 ** -15
+# the SSM phases: rmsnorm shapes (rows, d, dtype); the step's scan is per
+# worker and forward slice B = BATCH_PER_WORKER / R sequences, Mamba2's 48
+# heads of 64, state 128, chunk 128
+RMS_SHAPES = [(512, 1536, "bfloat16"), (512, 3072, "bfloat16"),
+              (1024, 1024, "float32")] + [
+    (r, d, dt) for dt in ("float32", "bfloat16")
+    for r, d in ((4, 64), (14, 128), (300, 32))] + [
+    (16384, 4096, "bfloat16")]
+RMS_MAIN = (512, 3072, "bfloat16")   # the gate norm, the kernels line's row
+SSD_MAIN = (BATCH_PER_WORKER // R, 48, SEQ, 64, 128, 128)  # B,H,S,P,N,Q
+SSD_SHAPES = [SSD_MAIN + (dt, True) for dt in ("bfloat16", "float32")] + [
+    (BATCH_PER_WORKER // R, 48, 2048, 64, 128, 128, "bfloat16", True)] + [
+    c + (dt, False) for dt in ("float32", "bfloat16")
+    for c in ((1, 2, 32, 8, 4, 8), (2, 3, 64, 16, 8, 16),
+              (1, 1, 64, 32, 16, 64))]
+SSM_PROBE_LAYERS = (0, 47)
 
 
 def emit(phase: str, **kw) -> None:
@@ -195,12 +231,12 @@ def phase_build():
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    built = _build.build_all(CUDA_SOURCES)
+    built = _build.build_all()
     for name, (lib, seconds) in built.items():
         emit("build", kernel=name,
              source=f"src/repro_torch/csrc/{name}.cu",
              library=os.path.relpath(lib, HERE), seconds=seconds)
-    emit("build_all", sources=list(CUDA_SOURCES),
+    emit("build_all", sources=list(_build.SOURCES),
          seconds=time.perf_counter() - t0)
 
 
@@ -439,6 +475,302 @@ def phase_quantize(torch):
     return res
 
 
+def norm_bound_ms(rows, d, itemsize, gamma_itemsize):
+    """Least time for rmsnorm over (rows, d): x read once and the output
+    written once, plus γ once, over HBM; or 4 flops an element (square,
+    add, scale, γ) over the float32 rate. Returns (ms, bound_by)."""
+    nbytes = 2 * rows * d * itemsize + d * gamma_itemsize
+    flops = 4 * rows * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def ssd_flops(B, H, S, P, N, Q, per_head_cb: bool = False) -> int:
+    """Operations of the SSD chunked scan, products over i >= j only
+    (T = Q(Q+1)/2 pairs of a chunk), 2 a multiply-add. Per (b, chunk):
+    C·Bᵀ, 2·T·N (Bm and Cm are shared across heads). Per (b, h, chunk):
+    W·x, 2·T·P; W's decay weights, 3 a pair; C·state and the state's ingest
+    (B⊙w)ᵀ·x, 2·Q·N·P each; the state's decay, 2·N·P. ``per_head_cb``
+    counts C·Bᵀ for every head instead, as the kernel (and the TPU kernel)
+    recomputes it: the kernel's own work, not the function's."""
+    T, nc = Q * (Q + 1) // 2, S // Q
+    cb = 2 * T * N * B * nc * (H if per_head_cb else 1)
+    return cb + B * H * nc * (2 * T * P + 3 * T + 4 * Q * N * P + 2 * N * P)
+
+
+def ssd_bound_ms(B, H, S, P, N, Q, itemsize, dt_itemsize):
+    """Least time for the SSD chunked scan on these inputs, the larger of
+    bytes and the function's operations (``ssd_flops``) over the float32
+    rate (its products run in f32 outside the tensor cores, as the TPU
+    kernel's preferred_element_type=f32). Bytes: x, dt, A, Bm and Cm read
+    once, y written once. Returns (ms, bound_by)."""
+    flops = ssd_flops(B, H, S, P, N, Q)
+    nbytes = (2 * B * H * S * P * itemsize + B * H * S * dt_itemsize + 4 * H
+              + 2 * B * S * N * itemsize)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def rms_check(torch, got, want, what: str) -> float:
+    """rmsnorm kernel against its plain version: float32 rtol 1e-5 and
+    atol 1e-6 (the row's sum runs in another order); bfloat16 within one
+    bf16 ulp of each element (2^-7 × |plain|), each side one rounding of
+    float32 values that close. Returns max |got − want|."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"rmsnorm {what}: {got.dtype} {tuple(got.shape)} vs "
+          f"{want.dtype} {tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    if got.dtype == torch.bfloat16:
+        allowed = ULP["bfloat16"] * w.abs()
+    else:
+        allowed = 1e-6 + 1e-5 * w.abs()
+    excess = (diff - allowed).max().item()
+    check(excess <= 0, f"rmsnorm {what}: error exceeds its tolerance by "
+          f"{excess}")
+    return diff.max().item()
+
+
+def ssd_check(torch, got, want, what: str) -> float:
+    """ssd_scan kernel against a plain version, the JAX test's ``_tol``:
+    |got − want| ≤ atol + rtol·|want|, bfloat16 2e-2 / 2e-2, float32 rtol
+    2e-4 and atol 2e-5 × max(1, max |want|) (the chunk's products are
+    summed in other orders; in float32 the two differ by rounding of the
+    summands, which grow with the output). Returns max |got − want|."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"ssd_scan {what}: {got.dtype} {tuple(got.shape)} vs "
+          f"{want.dtype} {tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    scale = max(1.0, w.abs().max().item())
+    if got.dtype == torch.bfloat16:
+        rtol, atol = 2e-2, 2e-2
+    else:
+        rtol, atol = 2e-4, 2e-5 * scale
+    diff = (g - w).abs()
+    excess = (diff - atol - rtol * w.abs()).max().item()
+    check(excess <= 0, f"ssd_scan {what}: error exceeds {atol} + "
+          f"{rtol}|want| by {excess}")
+    return diff.max().item()
+
+
+def phase_norm_ssd(torch):
+    """The CUDA C++ ``rmsnorm`` and ``ssd_scan`` against their plain
+    versions on the same CUDA tensors, and their times, at the shapes of
+    ``RMS_SHAPES`` and ``SSD_SHAPES``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.kernels.ref import rmsnorm_ref, ssd_ref, ssd_scan_ref
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(1357)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    rms_cases, rows = [], {}
+    for n_rows, d, dn in RMS_SHAPES:
+        dt = getattr(torch, dn)
+        x = (randn(n_rows, d) * 3).to(dt)
+        g = (1 + 0.1 * randn(d)).to(dt)
+        err = rms_check(torch, rk.rmsnorm(x, g), rmsnorm_ref(x, g),
+                        f"{n_rows}x{d} {dn}")
+        bound, bound_by = norm_bound_ms(n_rows, d, x.element_size(),
+                                        g.element_size())
+        case = {"shape": [n_rows, d], "dtype": dn, "max_abs_err": err,
+                "ms": time_ms(torch, lambda: rk.rmsnorm(x, g)),
+                "plain_ms": time_ms(torch, lambda: rmsnorm_ref(x, g)),
+                "library_ms": time_ms(torch, lambda: F.rms_norm(
+                    x, (d,), g, 1e-5)),
+                "bound_ms": bound, "bound_by": bound_by}
+        rms_cases.append(case)
+        if (n_rows, d, dn) == RMS_MAIN:
+            rows["rmsnorm"] = {k: case[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}
+        del x, g
+
+    ssd_cases = []
+    for B, H, S, P, N, Q, dn, model_layout in SSD_SHAPES:
+        dt_ = getattr(torch, dn)
+        A = -torch.exp(randn(H) * 0.3)
+        if model_layout:   # the model's strided (B,S,H,P), f32 dt, slices
+            x = (randn(B, S, H, P) * 0.5).to(dt_).transpose(1, 2)
+            dt = F.softplus(randn(B, S, H)).transpose(1, 2)
+            bc = (randn(B, S, 2 * N + 1) * 0.5).to(dt_)
+            Bm, Cm = bc[..., 1:N + 1], bc[..., N + 1:]
+        else:              # the JAX test's operands, dt in x's dtype
+            x = (randn(B, H, S, P) * 0.5).to(dt_)
+            dt = F.softplus(randn(B, H, S)).to(dt_)
+            Bm, Cm = ((randn(B, S, N) * 0.5).to(dt_) for _ in range(2))
+        args = (x, dt, A, Bm, Cm)
+        y = sk.ssd_scan(*args, chunk=Q)
+        what = f"{[B, H, S, P, N, Q]} {dn}"
+        case = {"shape": [B, H, S, P, N, Q], "dtype": dn,
+                "model_views": model_layout,
+                "max_abs_err": ssd_check(torch, y, ssd_scan_ref(
+                    *args, chunk=Q), what)}
+        if not model_layout:
+            case["max_abs_err_sequential"] = ssd_check(
+                torch, y, ssd_ref(*args), what + " vs sequential")
+        if model_layout:
+            bound, bound_by = ssd_bound_ms(B, H, S, P, N, Q,
+                                           x.element_size(),
+                                           dt.element_size())
+            case.update(ms=time_ms(torch, lambda: sk.ssd_scan(*args,
+                                                              chunk=Q)),
+                        plain_ms=time_ms(torch, lambda: ssd_scan_ref(
+                            *args, chunk=Q)),
+                        bound_ms=bound, bound_by=bound_by,
+                        flops=ssd_flops(B, H, S, P, N, Q),
+                        kernel_flops=ssd_flops(B, H, S, P, N, Q,
+                                               per_head_cb=True))
+        if (B, H, S, P, N, Q) == SSD_MAIN and dn == "bfloat16":
+            rows["ssd_scan"] = {k: case[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "kernel_flops")}
+            rows["ssd_scan"]["library_ms"] = None
+        ssd_cases.append(case)
+        del x, dt, Bm, Cm, args, y
+    torch.cuda.empty_cache()
+    emit("norm_ssd", rmsnorm=rms_cases, ssd_scan=ssd_cases, rows=rows)
+    return rows
+
+
+def probe_ssm_kernels(torch, cfg, part, read, batch):
+    """``ssd_scan`` and ``rmsnorm`` on the training step's own activations:
+    worker 0's read plane, the first forward slice of its first batch.
+    Layers ``SSM_PROBE_LAYERS`` are run through the model's plain forms up
+    to the mixer (``ssm_mixer_inputs``, ``ssd_chunked``), keeping the mixer's
+    operands and y, the pre-norm and gate-norm inputs, and the final norm's
+    input. Then, with the two counts zeroed, the kernels run on them (the
+    probe's path), and only after that are their outputs held against the
+    model's: ``ssd_scan`` against the plain ``ssd_scan_ref`` on the same
+    operands at the bfloat16 tolerance; ``rmsnorm`` within one bf16 ulp of
+    the model's norm. The gap between the kernel's y and the model's own
+    (the model rounds W and the states to bf16, the kernel keeps f32) is
+    reported as a reading, not checked. Returns the probe's launches,
+    errors and gaps."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.kernels.ref import ssd_scan_ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+    from repro_torch.models import transformer as T
+
+    params = part.unpack({k: v[0] for k, v in read.items()})
+    tokens = batch["tokens"][0][:BATCH_PER_WORKER // R]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+    mixers, norms = {}, {}
+    with torch.no_grad():
+        h = L.embed_apply(params["embed"], tokens)
+        for layer, sub in T.decoder_layers(params):
+            if layer in SSM_PROBE_LAYERS:
+                p = sub["ssm"]
+                xn = L.rmsnorm(h, p["norm"], cfg.norm_eps)
+                x_ssm, dt, A, Bm, Cm, z, _ = S.ssm_mixer_inputs(p, xn, cfg)
+                y, _ = S.ssd_chunked(x_ssm, dt, A, Bm, Cm)
+                mixers[layer] = ((x_ssm.transpose(1, 2), dt.transpose(1, 2),
+                                  A, Bm, Cm), y.transpose(1, 2))
+                norms[f"layer{layer}_pre"] = (h, p["norm"])
+                norms[f"layer{layer}_gate"] = (
+                    S.ssm_gate_input(p, y, x_ssm, z), p["gate_norm"])
+            h, _ = T.decoder_layer(sub, h, cfg, positions=positions)
+        norms["final"] = (h, params["final_norm"])
+        torch.cuda.synchronize()
+        rk.reset_launches()                         # the probe's path starts
+        sk.reset_launches()
+        y_k = {l: ops.ssd_scan(*m[0]) for l, m in mixers.items()}
+        n_k = {n: ops.rmsnorm(x, g, eps=cfg.norm_eps)
+               for n, (x, g) in norms.items()}
+        torch.cuda.synchronize()
+        launches = {"rmsnorm": rk.launches,         # the probe's path ends
+                    "ssd_scan": sk.launches}
+        want = {"rmsnorm": len(norms), "ssd_scan": len(mixers)}
+        check(launches == want, f"probe launches {launches} != {want}")
+        err, gap = {}, {}
+        for l, (args, y_model) in mixers.items():
+            err[f"ssd_scan layer{l} vs plain"] = ssd_check(
+                torch, y_k[l], ssd_scan_ref(*args), f"layer {l} activations")
+            gap[f"ssd_scan layer{l} vs model"] = (
+                y_k[l].float() - y_model.float()).abs().max().item()
+            gap[f"max |y| layer{l}"] = y_model.float().abs().max().item()
+        for n, (x, g) in norms.items():
+            err[f"rmsnorm {n}"] = rms_check(
+                torch, n_k[n], L.rmsnorm(x, g, cfg.norm_eps), n)
+        shapes = {f"ssd_scan layer{l}": [list(t.shape) for t in m[0]]
+                  for l, m in mixers.items()}
+        shapes.update({f"rmsnorm {n}": list(x.shape)
+                       for n, (x, _) in norms.items()})
+    return {"launches": launches, "max_abs_err": err,
+            "model_gap": gap, "shapes": shapes,
+            "dtype": str(h.dtype).replace("torch.", "")}
+
+
+def phase_train_ssm(torch, profile: bool):
+    """The SSM family's main path: ``train``'s entry points and traffic
+    with Mamba2-780M at full width and depth in bfloat16."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.backend import make_backend
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gossip_mix as gm_kernel
+    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.models import build_model
+    from repro_torch.optim import constant, momentum
+
+    cfg = get_config("mamba2-780m")
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    backend = make_backend("prod", "layup", M=M, loss_fn=model.loss_fn,
+                           optimizer=momentum(0.9), schedule=constant(LR),
+                           fb_ratio=R, update_delay=1, use_pallas=True,
+                           device="cuda")
+    batches = lm_batches(torch, cfg.vocab_size, TRAIN_STEPS, seed=0)
+    out, hist, step_s, peak = counted_drive(
+        torch, backend, params, batches,
+        (gm_kernel.reset_launches, fa.reset_launches, rk.reset_launches,
+         sk.reset_launches))
+    launches = {"gossip_mix": gm_kernel.launches,
+                "flash": fa.fwd_launches + fa.dq_launches + fa.dkv_launches,
+                "rmsnorm": rk.launches, "ssd_scan": sk.launches}
+    n_groups = len(backend.part.group_sizes)
+    want = {"gossip_mix": TRAIN_STEPS * n_groups, "flash": 0, "rmsnorm": 0,
+            "ssd_scan": 0}
+    check(launches == want, f"train_ssm launches {launches} != {want}")
+    check_history(hist, cfg.vocab_size, "train_ssm")
+    state = out["state"]
+    check(all(v.dtype == torch.bfloat16 and bool(torch.isfinite(v).all())
+              for v in state["read"].values()), "train_ssm plane")
+    if profile:
+        def run(b):
+            nonlocal state
+            state, _ = backend.step(state, b)
+        profile_steps(torch, run, batches[:2], model=cfg.name)
+    probe = probe_ssm_kernels(torch, cfg, backend.part, state["read"],
+                              batches[0])
+    med = statistics.median(step_s[1:])
+    tokens = M * BATCH_PER_WORKER * SEQ
+    res = {"model": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "dtype": "bfloat16",
+           "params": sum(backend.part.group_sizes.values()), "M": M,
+           "fb_ratio": R, "update_delay": 1, "seq": SEQ,
+           "batch_per_worker": BATCH_PER_WORKER, "steps": TRAIN_STEPS,
+           "history": hist, "step_s": step_s, "median_step_s": med,
+           "tokens_per_step": tokens, "tokens_per_s": tokens / med,
+           "peak_bytes": peak, "step_launches": launches,
+           "wire_bytes_per_round": out["wire_bytes_per_round"],
+           "groups": dict(backend.part.group_sizes), "probe": probe}
+    emit("train_ssm", **res)
+    del out, state, params
+    torch.cuda.empty_cache()
+    return res
+
+
 def attention_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
     """(query, key) pairs the mask leaves visible in one head."""
     import numpy as np
@@ -601,9 +933,53 @@ def lm_batches(torch, vocab, steps, seed):
     return out
 
 
+HISTORY_KEYS = ("loss", "weight_sum", "update_staleness", "staleness_mean",
+                "disagreement", "nonfinite_skips")
+
+
+def counted_drive(torch, backend, params, batches, resets):
+    """``drive`` over ``batches`` with the launch counts zeroed (each of
+    ``resets`` called) just before; the caller reads them right after.
+    Returns (out, history, step seconds, peak device bytes); a step's time
+    is host clock between synchronised batch handovers."""
+    from repro_torch.core.backend import drive
+
+    stamps = []
+
+    def timed(batches):
+        for b in batches:
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            yield b
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for reset in resets:                            # main path starts
+        reset()
+    out = drive(backend, timed(batches), None, params,
+                history_keys=HISTORY_KEYS)
+    torch.cuda.synchronize()                        # main path ends
+    stamps.append(time.perf_counter())
+    hist = {k: [float(v) for v in out["history"][k]] for k in HISTORY_KEYS}
+    return (out, hist, [b - a for a, b in zip(stamps, stamps[1:])],
+            torch.cuda.max_memory_allocated())
+
+
+def check_history(hist, vocab: int, what: str) -> None:
+    """Finite losses near ln(V) at random init, Σw = 1 ± 1e-5, no skips."""
+    check(all(math.isfinite(v) for v in hist["loss"]), f"{what} loss {hist}")
+    check(all(abs(v - 1.0) <= 1e-5 for v in hist["weight_sum"]),
+          f"{what} weight_sum {hist['weight_sum']}")
+    check(abs(hist["loss"][0] - math.log(vocab)) < 0.5,
+          f"{what} first loss {hist['loss'][0]} far from ln(V) at random "
+          "init")
+    check(hist["nonfinite_skips"] == [0.0] * TRAIN_STEPS,
+          f"{what} nonfinite skips")
+
+
 def phase_train(torch, profile: bool):
     from repro_torch.configs import get_config
-    from repro_torch.core.backend import drive, make_backend
+    from repro_torch.core.backend import make_backend
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gossip_mix as gm_kernel
     from repro_torch.models import build_model
@@ -617,41 +993,19 @@ def phase_train(torch, profile: bool):
                            fb_ratio=R, update_delay=1, use_pallas=True,
                            device="cuda")
     batches = lm_batches(torch, cfg.vocab_size, TRAIN_STEPS, seed=0)
-    stamps = []
-
-    def timed(batches):
-        for b in batches:
-            torch.cuda.synchronize()
-            stamps.append(time.perf_counter())
-            yield b
-
-    keys = ("loss", "weight_sum", "update_staleness", "staleness_mean",
-            "disagreement", "nonfinite_skips")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    gm_kernel.reset_launches()                      # main path starts
-    fa.reset_launches()
-    out = drive(backend, timed(batches), None, params, history_keys=keys)
-    torch.cuda.synchronize()
-    launches = gm_kernel.launches                   # main path ends
+    out, hist, step_s, peak = counted_drive(
+        torch, backend, params, batches,
+        (gm_kernel.reset_launches, fa.reset_launches))
+    launches = gm_kernel.launches
     flash = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
              "dkv": fa.dkv_launches}
-    stamps.append(time.perf_counter())
-    peak = torch.cuda.max_memory_allocated()
-    step_s = [b - a for a, b in zip(stamps, stamps[1:])]
-    hist = {k: [float(v) for v in out["history"][k]] for k in keys}
     n_groups = len(backend.part.group_sizes)
     check(launches == TRAIN_STEPS * n_groups,
           f"gossip_mix launches {launches} != {TRAIN_STEPS} x {n_groups}")
     per_pass = TRAIN_STEPS * M * cfg.num_layers
     want = {"fwd": per_pass * R, "dq": per_pass, "dkv": per_pass}
     check(flash == want, f"flash launches {flash} != {want}")
-    check(all(math.isfinite(v) for v in hist["loss"]), f"loss {hist}")
-    check(all(abs(v - 1.0) <= 1e-5 for v in hist["weight_sum"]),
-          f"weight_sum {hist['weight_sum']}")
-    check(abs(hist["loss"][0] - math.log(cfg.vocab_size)) < 0.5,
-          f"first loss {hist['loss'][0]} far from ln(V) at random init")
-    check(hist["nonfinite_skips"] == [0.0] * TRAIN_STEPS, "nonfinite skips")
+    check_history(hist, cfg.vocab_size, "train")
     read = out["state"]["read"]
     check(all(bool(torch.isfinite(v).all()) for v in read.values()),
           "nonfinite plane")
@@ -719,7 +1073,7 @@ def phase_train_int8(torch, train_res, profile: bool):
     """The int8 wire's main path: the train phase's run with
     ``wire="int8"`` and ``compensate=λ``."""
     from repro_torch.configs import get_config
-    from repro_torch.core.backend import drive, make_backend
+    from repro_torch.core.backend import make_backend
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gossip_mix as gm_kernel
     from repro_torch.kernels import quantize as qk
@@ -734,32 +1088,14 @@ def phase_train_int8(torch, train_res, profile: bool):
                            fb_ratio=R, update_delay=1, use_pallas=True,
                            wire="int8", compensate=LAMBDA, device="cuda")
     batches = lm_batches(torch, cfg.vocab_size, TRAIN_STEPS, seed=0)
-    stamps = []
-
-    def timed(batches):
-        for b in batches:
-            torch.cuda.synchronize()
-            stamps.append(time.perf_counter())
-            yield b
-
-    keys = ("loss", "weight_sum", "update_staleness", "staleness_mean",
-            "disagreement", "nonfinite_skips")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    gm_kernel.reset_launches()                      # main path starts
-    fa.reset_launches()
-    qk.reset_launches()
-    out = drive(backend, timed(batches), None, params, history_keys=keys)
-    torch.cuda.synchronize()
-    launches = {"quantize_plane": qk.quantize_launches,  # main path ends
+    out, hist, step_s, peak = counted_drive(
+        torch, backend, params, batches,
+        (gm_kernel.reset_launches, fa.reset_launches, qk.reset_launches))
+    launches = {"quantize_plane": qk.quantize_launches,
                 "dequant_mix": qk.dequant_mix_launches,
                 "gossip_mix": gm_kernel.launches}
     flash = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
              "dkv": fa.dkv_launches}
-    stamps.append(time.perf_counter())
-    peak = torch.cuda.max_memory_allocated()
-    step_s = [b - a for a, b in zip(stamps, stamps[1:])]
-    hist = {k: [float(v) for v in out["history"][k]] for k in keys}
     n_groups = len(backend.part.group_sizes)
     want = {"quantize_plane": TRAIN_STEPS * n_groups,
             "dequant_mix": TRAIN_STEPS * n_groups, "gossip_mix": 0}
@@ -767,12 +1103,7 @@ def phase_train_int8(torch, train_res, profile: bool):
     per_pass = TRAIN_STEPS * M * cfg.num_layers
     want = {"fwd": per_pass * R, "dq": per_pass, "dkv": per_pass}
     check(flash == want, f"int8 flash launches {flash} != {want}")
-    check(all(math.isfinite(v) for v in hist["loss"]), f"loss {hist}")
-    check(all(abs(v - 1.0) <= 1e-5 for v in hist["weight_sum"]),
-          f"weight_sum {hist['weight_sum']}")
-    check(abs(hist["loss"][0] - math.log(cfg.vocab_size)) < 0.5,
-          f"first loss {hist['loss'][0]} far from ln(V) at random init")
-    check(hist["nonfinite_skips"] == [0.0] * TRAIN_STEPS, "nonfinite skips")
+    check_history(hist, cfg.vocab_size, "train_int8")
     wire = out["wire_bytes_per_round"]
     f32_plane = backend.part.plane_nbytes()
     check(out["wire_dtype"] == "int8" and wire == INT8_WIRE_BYTES
@@ -1051,8 +1382,10 @@ def main(argv) -> int:
     kern = phase_kernels(torch)
     flash = phase_flash(torch)
     quant = phase_quantize(torch)
+    norm_ssd = phase_norm_ssd(torch)
     train = phase_train(torch, profile="--profile" in argv)
     int8 = phase_train_int8(torch, train, profile="--profile" in argv)
+    ssm = phase_train_ssm(torch, profile="--profile" in argv)
     phase_route(torch)
     phase_route_int8(torch)
     fused = kern["timing"]["fused"]
@@ -1089,6 +1422,18 @@ def main(argv) -> int:
                      "replaces": replaces, "launches": int8["launches"][name],
                      "max_abs_err": quant["max_abs_err"],
                      **quant["timing"][key], "library_ms": None})
+    # the SSM family's kernels: 0 launches on train_ssm's step (the model
+    # runs their plain forms, as the reference's does); the probe's own
+    # launches on the step's activations under their own key
+    for name, replaces in (
+            ("rmsnorm", "src/repro/kernels/rmsnorm.py:27"),
+            ("ssd_scan", "src/repro/kernels/ssd_scan.py:68")):
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"src/repro_torch/csrc/{name}.cu",
+                     "replaces": replaces,
+                     "launches": ssm["step_launches"][name],
+                     "probe_launches": ssm["probe"]["launches"][name],
+                     **norm_ssd[name]})
     print(json.dumps({"kernels": rows}), flush=True)
     emit("done", wall_s=time.perf_counter() - t0)
     print(smi, flush=True)

@@ -2,8 +2,9 @@
 
 ``ModelConfig`` keeps every field of the JAX package's config, so a config
 ports field for field; ``dtype`` is a ``torch.dtype``. The registry holds
-the dense decoders the port can build. The other families of the JAX
-package's zoo are named here so that asking for one says what is missing.
+the configs the port can build: the dense decoders and the SSM family
+(Mamba2). The other families of the JAX package's zoo are named here so
+that asking for one says what is missing.
 """
 from __future__ import annotations
 
@@ -147,15 +148,14 @@ class ModelConfig:
 
 _REGISTRY: Dict[str, ModelConfig] = {}
 
-_ARCH_MODULES = ["gpt2_medium", "gpt2_xl", "granite_8b", "stablelm_1_6b",
-                 "yi_34b"]
+_ARCH_MODULES = ["gpt2_medium", "gpt2_xl", "granite_8b", "mamba2_780m",
+                 "stablelm_1_6b", "yi_34b"]
 
 # configs of the JAX package whose families the port cannot build yet
 _NOT_PORTED = {
-    "jamba-v0.1-52b": "hybrid", "mamba2-780m": "ssm",
-    "mixtral-8x7b": "moe", "moonshot-v1-16b-a3b": "moe",
-    "qwen2-vl-2b": "vlm", "qwen3-moe-30b-a3b": "moe",
-    "whisper-large-v3": "audio",
+    "jamba-v0.1-52b": "hybrid", "mixtral-8x7b": "moe",
+    "moonshot-v1-16b-a3b": "moe", "qwen2-vl-2b": "vlm",
+    "qwen3-moe-30b-a3b": "moe", "whisper-large-v3": "audio",
 }
 
 
@@ -175,7 +175,7 @@ def get_config(name: str) -> ModelConfig:
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"{name!r} is a {_NOT_PORTED[name]} model; the port builds dense "
-            "decoders only so far (ROADMAP queue 1, item 14)")
+            "and SSM decoders only so far (ROADMAP queue 1, item 14)")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]

@@ -22,6 +22,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+# every CUDA C++ source of the port (``csrc/<name>.cu``); ``build_all``
+# compiles them together
+SOURCES = ("flash_attention", "quantize", "rmsnorm", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -63,9 +66,10 @@ def build(name: str) -> Path:
     return out
 
 
-def build_all(names) -> dict:
-    """Compile several sources at once, one ``nvcc`` process each, all
-    started together; returns ``{name: (library path, seconds)}``."""
+def build_all(names=SOURCES) -> dict:
+    """Compile several sources (default: all of :data:`SOURCES`) at once,
+    one ``nvcc`` process each, all started together; returns ``{name:
+    (library path, seconds)}``."""
     def timed(name):
         t0 = time.perf_counter()
         return build(name), time.perf_counter() - t0

@@ -12,9 +12,12 @@ import torch
 from repro_torch.kernels import flash_attention as _flash_kernel
 from repro_torch.kernels import gossip_mix as _gossip_mix_kernel
 from repro_torch.kernels import quantize as _quant_kernel
+from repro_torch.kernels import rmsnorm as _rmsnorm_kernel
+from repro_torch.kernels import ssd_scan as _ssd_kernel
 from repro_torch.kernels.ref import (dequant_mix_ref, flash_attention_bwd_ref,
                                      flash_attention_ref, gossip_mix_ref,
-                                     quantize_plane_ref)
+                                     quantize_plane_ref, rmsnorm_ref,
+                                     ssd_scan_ref)
 
 
 def gossip_mix(x: torch.Tensor, x_recv: torch.Tensor, upd, alpha, beta,
@@ -51,6 +54,31 @@ def dequant_mix(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor, upd,
         return _quant_kernel.dequant_mix(x, q, scales, upd, alpha, beta,
                                          out=out)
     raise ValueError(f"dequant_mix: no kernel for device {x.device}")
+
+
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-5,
+            tile_rows: int = 256) -> torch.Tensor:
+    """``x·rsqrt(mean(x²)+eps)·γ`` over the last axis, f32 statistics,
+    stored in ``x.dtype``; see :func:`repro_torch.kernels.rmsnorm.rmsnorm`.
+    ``tile_rows`` is accepted for the JAX signature and ignored: the kernel
+    takes one row a warp and needs no row tile."""
+    del tile_rows
+    if x.device.type == "cpu":
+        return rmsnorm_ref(x, gamma, eps)
+    if x.device.type == "cuda":
+        return _rmsnorm_kernel.rmsnorm(x, gamma, eps=eps)
+    raise ValueError(f"rmsnorm: no kernel for device {x.device}")
+
+
+def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128) -> torch.Tensor:
+    """The Mamba2 SSD chunked scan: x ``(B, H, S, P)``, dt ``(B, H, S)``,
+    A ``(H,)``, Bm/Cm ``(B, S, N)`` → y ``(B, H, S, P)``; see
+    :func:`repro_torch.kernels.ssd_scan.ssd_scan`."""
+    if x.device.type == "cpu":
+        return ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk)
+    if x.device.type == "cuda":
+        return _ssd_kernel.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    raise ValueError(f"ssd_scan: no kernel for device {x.device}")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -108,5 +136,6 @@ def flash_attention_trainable(q, k, v, *, causal: bool = True,
     return FlashAttention.apply(q, k, v, causal, window)
 
 
-__all__ = ["gossip_mix", "quantize_plane", "dequant_mix", "flash_attention",
-           "flash_attention_bwd", "flash_attention_trainable"]
+__all__ = ["gossip_mix", "quantize_plane", "dequant_mix", "rmsnorm",
+           "ssd_scan", "flash_attention", "flash_attention_bwd",
+           "flash_attention_trainable"]

@@ -215,3 +215,94 @@ def dequant_mix_ref(x, q, scales, upd, alpha, beta, out=None):
     if upd is not None:
         res = res + worker_rows(upd, "upd").to(torch.float32)
     return _store(res.to(x.dtype).reshape(x.shape), out)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm and the Mamba2 SSD chunked scan (counterparts of rmsnorm_ref and
+# ssd_ref in the JAX package's ref.py, and of the function its ssd_scan
+# kernel computes)
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_ref(x, gamma, eps=1e-5):
+    """``x·rsqrt(mean(x²) + eps)·γ`` over the last axis, statistics in
+    float32, output in ``x.dtype``."""
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)
+            * gamma.to(torch.float32)).to(x.dtype)
+
+
+def _ssd_operands(x, dt, A, Bm, Cm):
+    """float32 copies of the scan's operands, with shape checks."""
+    if x.dim() != 4 or dt.shape != x.shape[:3] or Bm.dim() != 3 \
+            or Cm.shape != Bm.shape or Bm.shape[:2] != (x.shape[0],
+                                                        x.shape[2]) \
+            or A.shape != (x.shape[1],):
+        raise ValueError(
+            f"ssd_scan wants x (B,H,S,P), dt (B,H,S), A (H,), Bm/Cm "
+            f"(B,S,N); got {tuple(x.shape)}, {tuple(dt.shape)}, "
+            f"{tuple(A.shape)}, {tuple(Bm.shape)}, {tuple(Cm.shape)}")
+    f = torch.float32
+    return x.to(f), dt.to(f), A.to(f), Bm.to(f), Cm.to(f)
+
+
+def ssd_scan_ref(x, dt, A, Bm, Cm, *, chunk=128):
+    """The Mamba2 SSD chunked scan, plainly: the arithmetic of the JAX
+    package's ``_ssd_kernel`` (``repro/kernels/ssd_scan.py``), all in
+    float32, with the chunks' states carried in order. x ``(B, H, S, P)``,
+    dt ``(B, H, S)``, A ``(H,)``, Bm/Cm ``(B, S, N)`` (shared across heads)
+    → y ``(B, H, S, P)`` in ``x.dtype``. Per chunk of Q steps::
+
+        cum  = inclusive cumsum(dt·A)
+        W    = (C·Bᵀ) ⊙ exp(cum_i − cum_j)[i ≥ j] ⊙ dt_j
+        y    = W·x + exp(cum)·(C·state)
+        state ← state·exp(cum_last) + (B ⊙ exp(cum_last − cum)·dt)ᵀ·x
+    """
+    B, H, S, P = x.shape
+    N = Bm.shape[-1]
+    chunk = min(int(chunk), S)
+    if chunk < 1 or S % chunk:
+        raise ValueError(f"chunk {chunk} must divide S={S}")
+    nc = S // chunk
+    xf, dtf, Af, Bf, Cf = _ssd_operands(x, dt, A, Bm, Cm)
+    xs = xf.reshape(B, H, nc, chunk, P)
+    dts = dtf.reshape(B, H, nc, chunk)
+    Bs = Bf.reshape(B, 1, nc, chunk, N)
+    Cs = Cf.reshape(B, 1, nc, chunk, N)
+    cum = torch.cumsum(dts * Af[None, :, None, None], dim=-1)
+    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=x.device).tril()
+    # the exponential only where i >= j: above the diagonal cum_i − cum_j
+    # is positive and may overflow
+    seg = torch.where(causal, cum[..., :, None] - cum[..., None, :], 0.0)
+    Lmat = torch.where(causal, torch.exp(seg), 0.0)
+    W = (Cs @ Bs.transpose(-1, -2)) * Lmat * dts[..., None, :]
+    y = W @ xs                                         # (B, H, nc, Q, P)
+    del W, Lmat, seg
+    decay_out = torch.exp(cum[..., -1:] - cum) * dts   # (B, H, nc, Q)
+    ingest = (Bs * decay_out[..., None]).transpose(-1, -2) @ xs
+    state = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+    for c in range(nc):
+        y[:, :, c] += torch.exp(cum[:, :, c])[..., None] \
+            * (Cs[:, :, c] @ state)
+        state = state * torch.exp(cum[:, :, c, -1])[..., None, None] \
+            + ingest[:, :, c]
+    return y.reshape(B, H, S, P).to(x.dtype)
+
+
+def ssd_ref(x, dt, A, Bm, Cm):
+    """Sequential SSD recurrence, the oracle of the scan (tests only).
+    Layouts as :func:`ssd_scan_ref`."""
+    B, H, S, P = x.shape
+    xf, dtf, Af, Bf, Cf = _ssd_operands(x, dt, A, Bm, Cm)
+    state = torch.zeros((B, H, Bm.shape[-1], P), dtype=torch.float32,
+                        device=x.device)
+    ys = []
+    for t in range(S):
+        dA = torch.exp(dtf[:, :, t] * Af[None, :])
+        upd = torch.einsum("bn,bhp->bhnp", Bf[:, t],
+                           dtf[:, :, t][..., None] * xf[:, :, t])
+        state = state * dA[:, :, None, None] + upd
+        ys.append(torch.einsum("bn,bhnp->bhp", Cf[:, t], state))
+    return torch.stack(ys, dim=2).to(x.dtype)

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from repro_torch.core.pytree import tree_flatten_with_path, tree_unflatten
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels.ref import attention_ref, rmsnorm_ref
 
 # ---------------------------------------------------------------------------
 # Parameter specs
@@ -81,10 +81,9 @@ def init_params(specs, *, seed: int = 0, dtype=torch.float32, device=None):
 
 
 def rmsnorm(x, gamma, eps=1e-5):
-    xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps)
-    return (out * gamma.to(torch.float32)).to(x.dtype)
+    """The model's norm, plain PyTorch on every device (the reference's
+    models call the plain norm too, never the fused kernel)."""
+    return rmsnorm_ref(x, gamma, eps)
 
 
 def rmsnorm_spec(d: int, axis: str = "embed") -> ParamSpec:

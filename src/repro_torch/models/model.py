@@ -1,4 +1,5 @@
-"""Model API (port of ``repro/models/model.py``, dense decoders).
+"""Model API (port of ``repro/models/model.py``, the dense and SSM
+decoders).
 
 ``build_model(cfg)`` returns a ``Model`` bundle whose ``loss_fn(params,
 batch) -> (loss, aux)`` matches the JAX package's teacher-forced LM loss on a
@@ -54,6 +55,8 @@ def _build_decoder_model(cfg: ModelConfig) -> Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
+    """Dense and SSM decoders both go through the one decoder path; other
+    families raise ``NotImplementedError`` (``transformer.decoder_specs``)."""
     return _build_decoder_model(cfg)
 
 

@@ -267,3 +267,144 @@ def test_quantize_kernels_past_int32_offsets(cuda_device):
         _assert_same(f"row {m} dequant_mix", o[m], dequant_mix_ref(
             x[m], q_recv[m], s_recv[m], None, a[m], b[m]))
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm and the SSD chunked scan (CUDA C++)
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import rmsnorm as rms_kernel  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd_kernel  # noqa: E402
+from repro_torch.kernels.ref import (rmsnorm_ref, ssd_ref,  # noqa: E402
+                                     ssd_scan_ref)
+
+
+def _rms_close(got, want, name):
+    """float32: rtol 1e-5, atol 1e-6 (the row's sum of squares runs in
+    another order). bfloat16: within one bf16 ulp of each element
+    (2^-7 × |want|): each side rounds a float32 result that close."""
+    assert got.shape == want.shape and got.dtype == want.dtype, name
+    if got.dtype == torch.bfloat16:
+        _close(got, want, name, tol=0.0, ulp=2.0 ** -7)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6,
+                                   msg=name)
+
+
+# the JAX tests' shapes, the Mamba2 step's norms (pre-norm d 1536,
+# gate_norm d_inner 3072), the decoder's 1024, and d with a ragged tail
+RMS_CASES = [((4, 64), torch.float32), ((2, 7, 128), torch.float32),
+             ((300, 32), torch.float32), ((4, 64), torch.bfloat16),
+             ((2, 7, 128), torch.bfloat16), ((300, 32), torch.bfloat16),
+             ((2, 256, 1536), torch.bfloat16),
+             ((2, 256, 3072), torch.bfloat16), ((1024, 1024), torch.float32),
+             ((5, 33), torch.float32), ((3, 77), torch.bfloat16),
+             ((1, 1), torch.float32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", RMS_CASES, ids=str)
+def test_rmsnorm_kernel_matches_plain_version(cuda_device, shape, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = (torch.randn(shape, generator=gen, device=cuda_device) * 3).to(dtype)
+    g = (1 + 0.1 * torch.randn(shape[-1:], generator=gen,
+                               device=cuda_device)).to(dtype)
+    before = rms_kernel.launches
+    got = ops.rmsnorm(x, g)
+    torch.cuda.synchronize()
+    assert rms_kernel.launches == before + 1
+    _rms_close(got, rmsnorm_ref(x, g), f"rmsnorm {shape} {dtype}")
+    # gamma in the other dtype (the model's gamma has the params' dtype)
+    g2 = g.to(torch.float32 if dtype == torch.bfloat16 else torch.bfloat16)
+    _rms_close(ops.rmsnorm(x, g2), rmsnorm_ref(x, g2), "mixed gamma")
+
+
+@pytest.mark.gpu
+def test_rmsnorm_kernel_rejects_strided_input(cuda_device):
+    x = torch.randn(8, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rmsnorm(x.t(), torch.ones(8, device=cuda_device))
+
+
+def _ssd_operands(gen, B, H, S, P, N, dtype, dev, model_layout=False):
+    """The JAX test's distributions. ``model_layout``: x as a (B,H,S,P)
+    view of a (B,S,H,P) tensor, dt float32 as a view of (B,S,H), Bm and
+    Cm column slices of one (B, S, 2N+1) tensor, as the model holds them."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    A = -torch.exp(randn(H) * 0.3)
+    if model_layout:
+        x = (randn(B, S, H, P) * 0.5).to(dtype).transpose(1, 2)
+        dt = torch.nn.functional.softplus(randn(B, S, H)).transpose(1, 2)
+        bc = (randn(B, S, 2 * N + 1) * 0.5).to(dtype)
+        return x, dt, A, bc[..., 1:N + 1], bc[..., N + 1:]
+    x = (randn(B, H, S, P) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(randn(B, H, S)).to(dtype)
+    return (x, dt, A, (randn(B, S, N) * 0.5).to(dtype),
+            (randn(B, S, N) * 0.5).to(dtype))
+
+
+def _ssd_close(got, want, msg=""):
+    """The JAX test's ``_tol``: |got − want| ≤ atol + rtol·|want|, bfloat16
+    2e-2 / 2e-2, float32 rtol 2e-4 and atol 2e-5 × max(1, max |want|): the
+    kernel and cuBLAS sum the chunk's products in other orders, so in
+    float32 they differ by rounding of the summands, whose size grows with
+    the output's (at the step's shape, up to 3e-5 where y is near 0)."""
+    g, w = got.float(), want.float()
+    if got.dtype == torch.bfloat16:
+        rtol, atol = 2e-2, 2e-2
+    else:
+        rtol, atol = 2e-4, 2e-5 * max(1.0, w.abs().max().item())
+    excess = ((g - w).abs() - atol - rtol * w.abs()).max().item()
+    assert excess <= 0, f"{msg}: error exceeds {atol} + {rtol}|want| by " \
+        f"{excess}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("B,H,S,P,N,chunk", [
+    (1, 2, 32, 8, 4, 8), (2, 3, 64, 16, 8, 16), (1, 1, 64, 32, 16, 64),
+    (2, 4, 256, 64, 128, 128), (1, 2, 2048, 64, 128, 128),
+    (1, 2, 96, 40, 24, 24)])
+def test_ssd_scan_kernel_matches_plain_version(cuda_device, dtype, B, H, S,
+                                               P, N, chunk):
+    """The JAX test's cases, the step's chunk and state (S=2048: 16 chunks
+    carry the state), and P not a multiple of the 32-column tile."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    args = _ssd_operands(gen, B, H, S, P, N, dtype, cuda_device)
+    before = ssd_kernel.launches
+    y = ops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_kernel.launches == before + 1
+    assert y.shape == (B, H, S, P) and y.dtype == dtype
+    for name, want in (("plain", ssd_scan_ref(*args, chunk=chunk)),
+                       ("sequential", ssd_ref(*args))):
+        _ssd_close(y, want, f"ssd_scan vs {name}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_ssd_scan_kernel_reads_model_views(cuda_device, dtype):
+    """The Mamba2 step's shape from strided views, without copies."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    args = _ssd_operands(gen, 2, 48, 256, 64, 128, dtype, cuda_device,
+                         model_layout=True)
+    assert not args[0].is_contiguous() and not args[3].is_contiguous()
+    y = ops.ssd_scan(*args)
+    want = ssd_scan_ref(*(a.contiguous() for a in args))
+    _ssd_close(y, want, "ssd_scan from the model's views")
+
+
+@pytest.mark.gpu
+def test_ssd_scan_kernel_rejects_what_it_does_not_take(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    x, dt, A, Bm, Cm = _ssd_operands(gen, 1, 2, 64, 8, 4, torch.float32,
+                                     cuda_device)
+    with pytest.raises(ValueError, match="divide"):
+        ops.ssd_scan(x, dt, A, Bm, Cm, chunk=24)
+    big = torch.zeros(1, 64, 129, device=cuda_device)
+    with pytest.raises(ValueError, match="state size"):
+        ops.ssd_scan(x, dt, A, big, big)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.ssd_scan(x, dt, A, Bm.to(torch.bfloat16), Cm.to(torch.bfloat16))

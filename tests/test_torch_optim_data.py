@@ -86,7 +86,7 @@ def test_synthetic_data_bit_identical():
 
 def test_dense_configs_and_param_counts_match():
     assert list_configs() == ["gpt2-medium", "gpt2-xl", "granite-8b",
-                              "stablelm-1.6b", "yi-34b"]
+                              "mamba2-780m", "stablelm-1.6b", "yi-34b"]
     for name in list_configs():
         t, j = get_config(name), jax_get_config(name)
         for f in j.__dataclass_fields__:
@@ -96,12 +96,34 @@ def test_dense_configs_and_param_counts_match():
         assert t.param_counts() == j.param_counts()
 
 
-@pytest.mark.parametrize("name", ["mixtral-8x7b", "mamba2-780m",
+@pytest.mark.parametrize("name", ["mixtral-8x7b", "jamba-v0.1-52b",
                                   "whisper-large-v3"])
 def test_other_families_name_their_roadmap_item(name):
     jax_get_config(name)  # exists in the JAX package
     with pytest.raises(NotImplementedError, match="item 14"):
         get_config(name)
+
+
+def test_ssm_family_builds():
+    """``mamba2-780m`` is ported: its config builds, and so does its
+    model's spec tree (nothing is allocated)."""
+    from repro_torch.models import build_model
+    cfg = get_config("mamba2-780m")
+    assert cfg.family == "ssm" and cfg.dtype == torch.bfloat16
+    model = build_model(cfg)
+    assert set(model.specs["blocks"]["sub0"]) == {"ssm"}
+    assert model.specs["blocks"]["sub0"]["ssm"]["in_proj_x"].shape == \
+        (48, 1536, 3072)
+
+
+@pytest.mark.parametrize("kw", [dict(num_experts=4, experts_per_token=2),
+                                dict(qk_norm=True), dict(mrope=True),
+                                dict(enc_dec=True), dict(frontend="vision")])
+def test_unported_model_features_name_their_roadmap_item(kw):
+    from repro_torch.models import build_model
+    cfg = get_config("gpt2-medium").with_(num_layers=2, **kw)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        build_model(cfg)
 
 
 def test_convert_roundtrip_keeps_dtypes():
