@@ -12,20 +12,30 @@ not 0:
 1. device: ``nvidia-smi`` name and power limit, torch and Triton versions;
    then build: ``nvcc`` builds every CUDA C++ source of the port at once,
    one process each (a line per source with its build time).
+1b. ptxas: each flash kernel's registers, static shared memory and spills
+   (what ``-Xptxas -v`` printed when the build compiled
+   ``flash_attention.cu``).
 2. kernels: the Triton ``gossip_mix`` (both variants) against its plain
    PyTorch version on the same CUDA tensors, at the training step's real
    layer-group shapes (GPT-2 Medium, M=4, float32), at odd sizes and in
    bfloat16; max error against the stated tolerance; kernel and plain
    device times (CUDA events, median of 20, queued behind a spin kernel
    so that the host's dispatch is not timed) beside the bound from bytes.
-3. flash: the CUDA C++ flash attention kernels, the forward (o, lse), the
-   backward (dq, dk, dv) and the autograd Function, are held against their
-   plain PyTorch versions on the same CUDA tensors, at the training step's
-   attention shape (B=2, H=16, S=256, D=64, float32, causal; (B,S,H,D)
-   tensors passed as (B,H,S,D) views) and over a sweep (GQA, MQA, windows, bidirectional,
-   bfloat16, D=128, S not a multiple of the tile); kernel, plain and
-   ``scaled_dot_product_attention`` times (the last as a yardstick only:
-   the port never calls it) beside each bound.
+3. flash: the CUDA C++ flash attention kernels (3xTF32 ``mma.sync``
+   products, ``cp.async`` ring; the dq kernel also computes delta), the
+   forward (o, lse), the backward (dq, dk, dv; two launches) and the
+   autograd Function, are held against their plain PyTorch versions on the
+   same CUDA tensors, at the training step's attention shape (B=2, H=16,
+   S=256, D=64, float32, causal; (B,S,H,D) tensors passed as (B,H,S,D)
+   views), over a sweep (GQA, MQA, windows, bidirectional, bfloat16,
+   D=128, S not a multiple of the tile), at S=2048, 65 and 1, and on
+   misaligned views (storage offset 1, odd sequence stride: the kernels'
+   element-by-element copies); two calls on the same inputs must give
+   bit-identical o, lse, dq, dk and dv (float32 and bfloat16). Each
+   kernel's block and dynamic shared memory (``flash_config``); kernel,
+   plain and ``scaled_dot_product_attention`` times (the last as a
+   yardstick only: the port never calls it) beside each bound, at the
+   card's f32-accurate tensor-core rate for f32 (3xTF32, 165 TFLOP/s).
 3b. quantize: the CUDA C++ ``quantize_plane`` and both ``dequant_mix``
    variants against their plain PyTorch versions on the same CUDA tensors,
    required BIT-IDENTICAL (q, scales, residual, output): at the int8 step's
@@ -87,6 +97,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -97,6 +108,10 @@ HERE = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+# f32-accurate matrix products on the tensor cores: TF32 (495 TFLOP/s
+# dense) over the three products of 3xTF32, as the flash kernels and
+# PyTorch's f32 attention take them
+TF32X3_FLOPS_PER_S = 495e12 / 3
 BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
 TOL = {"float32": 1e-6, "bfloat16": 2e-2}  # relative to max |ref|
 M = 4
@@ -119,6 +134,18 @@ FLASH_SWEEP = [  # (B, Hq, Hkv, S, D, causal, window, dtype)
     (2, 8, 4, 200, 64, True, 0, "float32"),      # S not a multiple of 64
     (1, 4, 2, 77, 128, False, 20, "bfloat16"),
 ]
+# more flash cases (B, Hq, Hkv, S, D, causal, window, dtype): 32 trips round
+# the K/V ring, one row, and a full tile plus a ragged one. At S=1 the
+# softmax has one key, so dq and dk are 0 in exact arithmetic and both sides
+# are rounding noise of dP − delta: they are held to tol × max |dP| instead
+# of max |plain| (~1e-6).
+FLASH_EXTRA = [
+    (1, 4, 2, 2048, 64, True, 0, "float32"),
+    (2, 4, 2, 1, 64, True, 0, "float32"),
+    (1, 4, 2, 65, 64, True, 0, "float32"),
+]
+# a misaligned operand: storage offset 1 element, sequence stride H·D + 3
+FLASH_MISALIGNED = (2, 8, 2, 200, 64, True, 0, "float32")
 # |kernel − plain| ≤ tol × max |plain| in float32, which sums in another
 # order than cuBLAS (tol 1e-5 forward; 1e-4 backward, which sums over S).
 # bfloat16, element by element: + 2^-7 × |plain|, one bf16 ulp, since each
@@ -238,6 +265,20 @@ def phase_build():
              library=os.path.relpath(lib, HERE), seconds=seconds)
     emit("build_all", sources=list(_build.SOURCES),
          seconds=time.perf_counter() - t0)
+    emit("ptxas", source="src/repro_torch/csrc/flash_attention.cu",
+         kernels=[{**r, "function": flash_kernel_name(r["function"])}
+                  for r in _build.ptxas_report("flash_attention")])
+
+
+def flash_kernel_name(mangled: str) -> str:
+    """``flash_fwd_kernel<float, 64, 2>`` (type, D, warpgroups) from a
+    mangled name; other names as they are."""
+    m = re.search(r"(flash_\w+?_kernel)I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
+                  mangled)
+    if not m:
+        return mangled
+    dtype = "float" if m.group(2) == "f" else "bf16"
+    return f"{m.group(1)}<{dtype}, {m.group(3)}, {m.group(4)}>"
 
 
 def phase_kernels(torch):
@@ -788,8 +829,10 @@ def attention_bound_ms(B, Hq, Hkv, S, D, causal, window, itemsize, kind):
     operations and bytes. Operations: the matrix products over the visible
     pairs only, 2 flops a multiply-add: forward QKᵀ and PV (4·D a pair);
     backward S, dP, dV, dK and dQ (10·D a pair) plus delta = rowsum(do·o);
-    ``trainable`` both. Rate: float32 outside the tensor cores for f32
-    operands (the kernels take no TF32 path), bf16 tensor cores for bf16.
+    ``trainable`` both. Rate: for f32 operands the card's f32-accurate rate
+    on the tensor cores, TF32 over the three products of 3xTF32 (165
+    TFLOP/s; whatever the kernel does, the bound is the card's); bf16
+    tensor cores for bf16.
     Bytes: each input read once, each output written once: forward q, k, v
     in, o and the f32 lse out; backward q, k, v, o, do and lse in, dq, dk,
     dv out; trainable q, k, v and do in, o, dq, dk and dv out. Returns
@@ -802,7 +845,7 @@ def attention_bound_ms(B, Hq, Hkv, S, D, causal, window, itemsize, kind):
         "bwd": (10 * D * pairs + delta, 4 * nq + 4 * nkv + nlse),
         "trainable": (14 * D * pairs + delta, 4 * nq + 4 * nkv),
     }[kind]
-    rate = F32_FLOPS_PER_S if itemsize == 4 else BF16_FLOPS_PER_S
+    rate = TF32X3_FLOPS_PER_S if itemsize == 4 else BF16_FLOPS_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -827,15 +870,30 @@ def phase_flash(torch):
         return [torch.randn((B, S, H, D), generator=gen, device=dev).to(dt)
                 .transpose(1, 2) for H in (Hq, Hkv, Hkv, Hq)]
 
-    def max_err(name, got, want, tol, dtype="float32"):
+    def misaligned(B, Hq, Hkv, S, D, dtype):
+        """q, k, v, do with a storage offset of 1 element and a sequence
+        stride of H·D + 3: no operand takes the 16-byte copies."""
+        def view(H):
+            row = H * D + 3
+            buf = torch.randn(B * S * row + 1, generator=gen,
+                              device=dev).to(getattr(torch, dtype))
+            return buf.as_strided((B, S, H, D), (S * row, row, D, 1),
+                                  1).transpose(1, 2)
+        ops_ = [view(H) for H in (Hq, Hkv, Hkv, Hq)]
+        check(not any(fa.aligned(t) for t in ops_),
+              "the misaligned case has an aligned operand")
+        return ops_
+
+    def max_err(name, got, want, tol, dtype="float32", scale=None):
         diff, ref = (got.float() - want.float()).abs(), want.float().abs()
-        excess = (diff - ULP[dtype] * ref - tol * ref.max()).max().item()
+        scale = ref.max() if scale is None else scale
+        excess = (diff - ULP[dtype] * ref - tol * scale).max().item()
         check(excess <= 0, f"flash {name} ({dtype}): error exceeds "
-              f"{ULP[dtype]} x |plain| + {tol} x max |plain| by {excess}")
+              f"{ULP[dtype]} x |plain| + {tol} x {float(scale)} by {excess}")
         return diff.max().item()
 
-    def check_case(B, Hq, Hkv, S, D, causal, window, dtype):
-        q, k, v, do = operands(B, Hq, Hkv, S, D, dtype)
+    def check_case(B, Hq, Hkv, S, D, causal, window, dtype, make=operands):
+        q, k, v, do = make(B, Hq, Hkv, S, D, dtype)
         kw = dict(causal=causal, window=window)
         tol_f, tol_b = FLASH_TOL
         o, lse = fa.flash_attention(q, k, v, **kw)
@@ -843,19 +901,46 @@ def phase_flash(torch):
         grads = fa.flash_attention_bwd(q, k, v, o_r, lse_r, do, **kw)
         want = flash_attention_bwd_ref(q, k, v, o_r, lse_r, do, **kw)
         torch.cuda.synchronize()
+        dp_scale = None
+        if S == 1:  # dq, dk: 0 exactly; noise of dP − delta, |dP| = |do·v|
+            G = Hq // Hkv
+            dp_scale = (do.reshape(B, Hkv, G, S, D).float()
+                        * v[:, :, None].float()).sum(-1).abs().max()
         errs = {"o": max_err("o", o, o_r, tol_f, dtype),
                 "lse": max_err("lse", lse, lse_r, 1e-5)}
         for n, g, w in zip(("dq", "dk", "dv"), grads, want):
-            errs[n] = max_err(n, g, w, tol_b, dtype)
+            errs[n] = max_err(n, g, w, tol_b, dtype,
+                              dp_scale if n != "dv" else None)
         return {"shape": [B, Hq, Hkv, S, D], "causal": causal,
                 "window": window, "dtype": dtype, "tol": [tol_f, tol_b],
-                "ulp": ULP[dtype],
+                "ulp": ULP[dtype], "aligned": fa._aligned_bits(q, k, v, do),
                 "max_abs_err": errs, "max_abs_plain": {
                     n: w.float().abs().max().item() for n, w in zip(
                         ("o", "lse", "dq", "dk", "dv"),
                         (o_r, lse_r) + tuple(want))}}
 
-    cases = [check_case(*c) for c in [FLASH_MAIN] + FLASH_SWEEP]
+    def deterministic(B, Hq, Hkv, S, D, causal, window, dtype):
+        """Two calls on the same inputs: o, lse, dq, dk, dv bit-identical."""
+        q, k, v, do = operands(B, Hq, Hkv, S, D, dtype)
+        kw = dict(causal=causal, window=window)
+        runs = []
+        for _ in range(2):
+            o, lse = fa.flash_attention(q, k, v, **kw)
+            runs.append((o, lse) + fa.flash_attention_bwd(q, k, v, o, lse,
+                                                          do, **kw))
+        torch.cuda.synchronize()
+        same = {n: bool(torch.equal(a, b)) for n, a, b in zip(
+            ("o", "lse", "dq", "dk", "dv"), *runs)}
+        check(all(same.values()), f"flash not deterministic: {same}")
+        return same
+
+    emit("flash_config", kernels={str(dt).split(".")[-1]: fa.launch_config(
+        dt, 64) for dt in (torch.float32, torch.bfloat16)})
+    cases = [check_case(*c) for c in [FLASH_MAIN] + FLASH_SWEEP
+             + FLASH_EXTRA]
+    cases.append(check_case(*FLASH_MISALIGNED, make=misaligned))
+    same = {dt: deterministic(*FLASH_MAIN[:7], dt)
+            for dt in ("float32", "bfloat16")}
     main = cases[0]["max_abs_err"]
 
     B, Hq, Hkv, S, D, causal, window, dtype = FLASH_MAIN
@@ -914,7 +999,8 @@ def phase_flash(torch):
     for kind, row in zip(("fwd", "bwd", "trainable"), rows.values()):
         row["bound_ms"], row["bound_by"] = attention_bound_ms(
             B, Hq, Hkv, S, D, causal, window, itemsize, kind)
-    emit("flash", main_shape=list(FLASH_MAIN), cases=cases, rows=rows)
+    emit("flash", main_shape=list(FLASH_MAIN), cases=cases,
+         bit_identical_reruns=same, rows=rows)
     del q, k, v, do, o, lse, args, sdpa_out
     torch.cuda.empty_cache()
     return rows
@@ -1049,9 +1135,12 @@ def profile_steps(torch, run, batches, **label):
             rows.append((ev.self_device_time_total, ev.key, ev.count))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
+    flash = [r for r in rows if "flash_" in r[1]]  # the CUDA C++ attention
     emit("profile", **label, steps=len(batches), wall_s=wall,
          device_busy_s=busy, idle_share=max(0.0, 1.0 - busy / wall),
          device_events=sum(r[2] for r in rows),
+         flash_device_ms=sum(r[0] for r in flash) / 1e3,
+         flash_events=sum(r[2] for r in flash),
          top=[{"kernel": k[:120], "device_ms": us / 1e3, "count": c}
               for us, k, c in rows[:25]])
 

@@ -11,41 +11,69 @@
 // k, v (B,Hkv,Sk,D), kv head = q head / (Hq/Hkv); online softmax with f32
 // running max, sum and accumulator; the forward also writes the f32
 // log-sum-exp (B,Hq,Sq) from which the backward recomputes P = exp(s - lse).
-// delta = rowsum(do * o) is computed by the caller, as the reference does.
-// Positions are the row indices (query q sees key k iff k <= q when causal
-// and q - k < window when window > 0); every query row must see a key.
+// The dq kernel also computes delta = rowsum(do * o) in f32 for its rows
+// and writes it to a (B,Hq,Sq) buffer that the dk/dv kernel, launched after
+// it on the same stream, reads. Positions are the row indices (query q sees
+// key k iff k <= q when causal and q - k < window when window > 0); every
+// query row must see a key.
 //
 // What bounds it on an H100: at the training step's shapes (B=2, H=16,
-// S=256, D=64, f32, causal) arithmetic. The causal half of the score and
-// value products is 0.27 GFLOP a forward call, 4.0 us at the 67 TFLOP/s
-// float32 rate outside the tensor cores, against 2.5 us for its 8.4 MB of
-// q, k, v and o. f32 inputs take no TF32 path (the reference's f32 numerics),
-// so every product is an FMA on the CUDA cores; bf16 inputs are widened to
-// f32 on load and run the same code.
+// S=256, D=64, f32, causal) bytes. The card's f32-accurate matrix rate is
+// the tensor cores' TF32 rate over three products (3xTF32, below): 495/3 =
+// 165 TFLOP/s. The forward's 0.27 GFLOP over the visible pairs take 1.6 us
+// at that rate, its 8.4 MB of q, k, v, o and lse 2.5 us at 3.35 TB/s; the
+// backward's 0.67 GFLOP take 4.1 us, its 16.8 MB 5.0 us. Measured on an
+// NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py, PERF.md): forward 24 us,
+// backward 75 us, 10x and 15x those bounds, against 33 us and 81 us for
+// PyTorch's f32 scaled_dot_product_attention.
 //
 // What the design does about it:
-// * Every 64x64 product is register-tiled: a block of 128 threads (4 warps)
-//   owns 64 rows, each thread 4 rows x 8 columns of the score tile, so one
-//   pass over D does 128 FMAs for 12 16-byte shared-memory loads. Tiles sit
-//   in shared memory in f32 with a row stride of D+4 floats, which keeps
-//   those loads free of bank conflicts.
-// * A row's 8 score columns live in the 8 lanes of one quarter-warp: the
-//   online-softmax max and sum are three xor shuffles, with no shared
-//   memory and no block barrier.
+// * Every product runs on the tensor cores: mma.sync m16n8k8 TF32 with f32
+//   accumulators, in 3xTF32 for f32 operands. x = hi + lo with hi =
+//   cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi); a.b ~ lo_a.hi_b +
+//   hi_a.lo_b + hi_a.hi_b, the small terms first: within ~1e-6 of f32, where
+//   one TF32 product is off by ~5e-4. bf16 values are exact in TF32 (lo = 0),
+//   so a product of two bf16 operands takes one mma and one of P or dS (f32)
+//   with a bf16 operand two; P and dS are never rounded to bf16.
+// * P and dS stay in registers: the accumulator fragment of m16n8k8 holds
+//   columns (2t, 2t+1) of a row, the A operand wants (t, t+4); the key index
+//   is summed over, so the B operand (V, K, Q or dO) is read with keys in
+//   the order 2t, 2t+1 instead of shuffling P between lanes.
+// * Tiles of 64 rows come in by 16-byte cp.async.cg copies into a ring of 2
+//   stages in shared memory: the next K/V (in dk/dv, Q/dO/lse/delta) tile is
+//   in flight while the current one is multiplied. Rows past the end are
+//   zero-filled by the copy (source size 0). Rows are padded by 16 bytes,
+//   which makes every fragment load free of bank conflicts. An operand whose
+//   pointer or strides are not 16-byte aligned (the wrapper says which, and
+//   the launcher checks it) is copied element by element into the same ring
+//   inside the same kernel: no copy of the tensor, no other kernel.
+// * Latency, not rate, held the first design (one warpgroup a block) at
+//   SDPA's speed: at the step's shape each grid is 128 blocks, one warp an
+//   SM sub-partition, and the last query tile walks 4 key tiles. So a block
+//   holds two warpgroups of 4 warps (16 rows a warp) that take alternate
+//   key tiles (dk/dv: alternate (head, query tile) iterations) from a ring
+//   of 2 stages x 2 slots, and merge at the end through shared memory:
+//   (m, l, acc) in the forward, plain sums in the backward. That halves the
+//   chain and doubles the warps; it beat one warpgroup in an A/B on the
+//   card (PERF.md). 153-172 KB of shared memory a block at D=64 f32, so one
+//   block an SM: 8 warps, where the 2 blocks of 4 warps the first design
+//   aimed at would each still walk the whole chain. f32 D=128, whose ring
+//   would not fit, keeps one warpgroup. The forward and dq grids take the last query tile, the
+//   longest causal chain, first; in dk/dv the first key tile is the
+//   longest and already comes first.
 // * Tiles that the causal mask or the window hides entirely are skipped
 //   (the Pallas grid visits and masks them); that computes the same
 //   function.
-// * Each block loops over the key (or query) tiles itself: CUDA blocks run
-//   in no order, so nothing is carried from one block to another. The
-//   dk/dv block owns one key tile of one kv head and loops over the G query
-//   heads of its group, so the group sum the reference does outside its
-//   kernel happens in f32 registers: no (B,Hq,Sk,D) partials, no atomics.
+// * A deterministic backward with no atomics: each dq block owns its query
+//   rows; the dk/dv block owns one key tile of one kv head and loops over the
+//   G query heads of its group, so the group sum the reference does outside
+//   its kernel happens in f32 registers, in a fixed order; the warpgroups'
+//   partial sums add in a fixed order too.
 // * Any strides for the batch, head and sequence dimensions (the last
 //   dimension must be dense): the decoder's (B,S,H,D) tensors go in as
 //   (B,H,S,D) views without a copy.
-// * Ragged sequence lengths: rows past the end load as zeros and are masked.
-// A simple kernel that is right first: wgmma, TMA and pipelined loads are
-// left for later work.
+// Left for later work: wgmma (its .tf32 form reads only K-major operands
+// from shared memory, so V, Q, dO and dS would need a transpose) and TMA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,9 +83,11 @@ namespace {
 
 constexpr int BQ = 64;   // query rows of a tile
 constexpr int BK = 64;   // key rows of a tile
-constexpr int NT = 128;  // threads of a block: 4 warps x 16 rows
-constexpr int TS = 68;   // row stride (floats) of a 64x64 score tile in shared memory
+constexpr int WG = 128;  // threads of a warpgroup: 4 warps x 16 rows
 constexpr float NEG_INF = -1e30f;
+
+// bits of Params::aligned: the operand takes 16-byte asynchronous copies
+constexpr int AL_Q = 1, AL_K = 2, AL_V = 4, AL_DO = 8;
 
 struct View {  // one (B, H, S, D) tensor: base pointer and element strides
   void* p;
@@ -67,10 +97,17 @@ struct View {  // one (B, H, S, D) tensor: base pointer and element strides
 struct Params {
   View q, k, v, dout, o, dq, dk, dv;
   float* lse;
-  const float* delta;
-  int B, Hq, Hkv, Sq, Sk, causal, window;
+  float* delta;
+  int B, Hq, Hkv, Sq, Sk, causal, window, aligned;
   float scale;
 };
+
+template <typename T> __host__ __device__ constexpr int row_stride(int D) {
+  return D + 16 / (int)sizeof(T);
+}
+template <typename T> __host__ __device__ constexpr size_t tile_bytes(int D) {
+  return (size_t)64 * row_stride<T>(D) * sizeof(T);
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -89,103 +126,202 @@ __device__ __forceinline__ bool visible(const Params& p, int q, int k) {
   return q < p.Sq && k < p.Sk && (!p.causal || k <= q) && (p.window <= 0 || q - k < p.window);
 }
 
-// reductions over the 8 lanes of a quarter-warp (one row of a score tile)
-__device__ __forceinline__ float group_max(float x) {
+// ---- asynchronous copies ----
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 64 rows of a (S, D) slice with row stride ss into shared memory (row
+// stride row_stride<T>(D)); rows at or past nrows become zeros. vec: 16-byte
+// cp.async copies (pointer and stride aligned), else element by element.
+template <typename T, int D>
+__device__ __forceinline__ void copy_tile(T* dst, const T* src, int64_t ss, int row0, int nrows,
+                                          bool vec) {
+  constexpr int LD = row_stride<T>(D);
+  if (vec) {
+    constexpr int E = 16 / sizeof(T), CPR = D / E;  // elements a copy, copies a row
+    for (int idx = threadIdx.x; idx < 64 * CPR; idx += blockDim.x) {
+      const int r = idx / CPR, c = (idx - r * CPR) * E, gr = row0 + r;
+      const bool in = gr < nrows;
+      cp_async16(dst + r * LD + c, in ? src + (int64_t)gr * ss + c : src, in ? 16 : 0);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < 64 * D; idx += blockDim.x) {
+      const int r = idx / D, c = idx - r * D, gr = row0 + r;
+      dst[r * LD + c] = gr < nrows ? src[(int64_t)gr * ss + c] : from_f32<T>(0.f);
+    }
+  }
+}
+
+// ---- tensor-core products in 3xTF32 ----
+
+struct A4 { uint32_t hi[4], lo[4]; };  // A fragment of m16n8k8, split
+struct B2 { uint32_t hi[2], lo[2]; };  // B fragment
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo in TF32; EXACT: x is a bf16 value, exact in TF32, lo = 0
+template <bool EXACT>
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  if (EXACT) {
+    hi = __float_as_uint(x);
+    lo = 0u;
+  } else {
+    hi = to_tf32(x);
+    lo = to_tf32(x - __uint_as_float(hi));
+  }
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a.b in 3xTF32, the small terms first; a product with a low part that
+// is 0 (an exact operand) is left out at compile time
+template <bool A_EXACT, bool B_EXACT>
+__device__ __forceinline__ void mma3(float (&c)[4], const A4& a, const B2& b) {
+  if (!A_EXACT) mma(c, a.lo, b.hi);
+  if (!B_EXACT) mma(c, a.hi, b.lo);
+  mma(c, a.hi, b.hi);
+}
+
+// Fragment lanes: g = lane / 4 and t = lane % 4. The accumulator c of a
+// 16x8 tile holds (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1).
+
+// A = rows r0.. r0+15, columns k0.. k0+7 of a row-major tile
+template <bool EXACT, typename T>
+__device__ __forceinline__ void load_a(A4& a, const T* s, int ld, int r0, int k0, int g, int t) {
+  const T* p = s + (r0 + g) * ld + k0 + t;
+  split<EXACT>(to_f32(p[0]), a.hi[0], a.lo[0]);
+  split<EXACT>(to_f32(p[8 * ld]), a.hi[1], a.lo[1]);
+  split<EXACT>(to_f32(p[4]), a.hi[2], a.lo[2]);
+  split<EXACT>(to_f32(p[8 * ld + 4]), a.hi[3], a.lo[3]);
+}
+
+// B of A.Xᵀ, X a row-major [n][k] tile: (k, n) = X[n0 + n][k0 + k]
+template <bool EXACT, typename T>
+__device__ __forceinline__ void load_bt(B2& b, const T* s, int ld, int n0, int k0, int g, int t) {
+  const T* p = s + (n0 + g) * ld + k0 + t;
+  split<EXACT>(to_f32(p[0]), b.hi[0], b.lo[0]);
+  split<EXACT>(to_f32(p[4]), b.hi[1], b.lo[1]);
+}
+
+// B of P.X, X a row-major [k][n] tile, with the k index in the order of
+// a_from_acc: k = t reads row k0 + 2t, k = t + 4 reads row k0 + 2t + 1
+template <bool EXACT, typename T>
+__device__ __forceinline__ void load_bp(B2& b, const T* s, int ld, int n0, int k0, int g, int t) {
+  const T* p = s + (k0 + 2 * t) * ld + n0 + g;
+  split<EXACT>(to_f32(p[0]), b.hi[0], b.lo[0]);
+  split<EXACT>(to_f32(p[ld]), b.hi[1], b.lo[1]);
+}
+
+// A from an accumulator tile (P or dS), its k index permuted as load_bp
+// reads: (g, t) <- (g, 2t), (g+8, t) <- (g+8, 2t), (g, t+4) <- (g, 2t+1)
+__device__ __forceinline__ void a_from_acc(A4& a, const float (&c)[4]) {
+  split<false>(c[0], a.hi[0], a.lo[0]);
+  split<false>(c[2], a.hi[1], a.lo[1]);
+  split<false>(c[1], a.hi[2], a.lo[2]);
+  split<false>(c[3], a.hi[3], a.lo[3]);
+}
+
+// acc[j] += A[r0.., :] . B[8j.., :]ᵀ over D: a 16 x 64 score tile of a warp
+template <bool EXACT, typename T, int D>
+__device__ __forceinline__ void tile_abt(float (&acc)[8][4], const T* A, const T* B, int r0,
+                                         int g, int t) {
+  constexpr int LD = row_stride<T>(D);
+#pragma unroll
+  for (int kc = 0; kc < D / 8; ++kc) {
+    A4 a;
+    load_a<EXACT>(a, A, LD, r0, 8 * kc, g, t);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      B2 b;
+      load_bt<EXACT>(b, B, LD, 8 * j, 8 * kc, g, t);
+      mma3<EXACT, EXACT>(acc[j], a, b);
+    }
+  }
+}
+
+// acc[n] += P . X[:, 8n..]: P a warp's 16 x 64 tile in accumulator
+// fragments, X a row-major 64 x D tile
+template <bool EXACT, typename T, int D>
+__device__ __forceinline__ void tile_pv(float (&acc)[D / 8][4], const float (&P)[8][4],
+                                        const T* X, int g, int t) {
+  constexpr int LD = row_stride<T>(D);
+#pragma unroll
+  for (int kc = 0; kc < 8; ++kc) {
+    A4 a;
+    a_from_acc(a, P[kc]);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      B2 b;
+      load_bp<EXACT>(b, X, LD, 8 * n, 8 * kc, g, t);
+      mma3<false, EXACT>(acc[n], a, b);
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&acc)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+}
+
+// reductions over the 4 lanes of a quad (one row of a fragment)
+__device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
-__device__ __forceinline__ float group_sum(float x) {
+__device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x + __shfl_xor_sync(0xffffffffu, x, 4);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
 }
 
-__device__ __forceinline__ float comp(const float4& a, int e) {
-  return e == 0 ? a.x : e == 1 ? a.y : e == 2 ? a.z : a.w;
-}
-
-// 64 rows of a (S, D) slice with row stride ss into shared memory (f32,
-// row stride D+4), times scale; rows at or past nrows load as zeros.
+// rows r0 + g and r0 + g + 8 of a (S, D) slice from acc * mul; rows at or
+// past nrows are not written
 template <typename T, int D>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, int64_t ss, int row0,
-                                          int nrows, float scale) {
-  constexpr int LD = D + 4;
-  for (int idx = threadIdx.x; idx < 64 * D; idx += NT) {
-    const int r = idx / D, c = idx - r * D, gr = row0 + r;
-    dst[r * LD + c] = gr < nrows ? to_f32(src[(int64_t)gr * ss + c]) * scale : 0.f;
-  }
-}
-
-// acc[i][j] = A[r0 + 4i] . B[cg + 8j] over D: rows of two 64-row tiles.
-template <int D>
-__device__ __forceinline__ void tile_abt(const float* A, const float* B, int r0, int cg,
-                                         float (&acc)[4][8]) {
-  constexpr int LD = D + 4;
+__device__ __forceinline__ void store_rows(T* dst, int64_t ss, int row0, int nrows,
+                                           const float (&acc)[D / 8][4], float mul, int g,
+                                           int t) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
-    float4 a[4], b[8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(A + (r0 + 4 * i) * LD + d);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) b[j] = *reinterpret_cast<const float4*>(B + (cg + 8 * j) * LD + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
-        acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
-        acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
-        acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
-      }
-  }
-}
-
-// acc[i][4c + e] += sum over 64 k of P[r0 + 4i][k] * V[k][4cg + 32c + e]:
-// P a 64x64 score tile (row stride TS), V 64 rows of D (row stride D+4).
-template <int D>
-__device__ __forceinline__ void tile_pv(const float* P, const float* V, int r0, int cg,
-                                        float (&acc)[4][D / 8]) {
-  constexpr int LD = D + 4;
-#pragma unroll 2
-  for (int k = 0; k < 64; k += 4) {
-    float4 pr[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) pr[i] = *reinterpret_cast<const float4*>(P + (r0 + 4 * i) * TS + k);
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-#pragma unroll
-      for (int c = 0; c < D / 32; ++c) {
-        const float4 v = *reinterpret_cast<const float4*>(V + (k + e) * LD + 4 * cg + 32 * c);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float pk = comp(pr[i], e);
-          acc[i][4 * c + 0] = fmaf(pk, v.x, acc[i][4 * c + 0]);
-          acc[i][4 * c + 1] = fmaf(pk, v.y, acc[i][4 * c + 1]);
-          acc[i][4 * c + 2] = fmaf(pk, v.z, acc[i][4 * c + 2]);
-          acc[i][4 * c + 3] = fmaf(pk, v.w, acc[i][4 * c + 3]);
-        }
-      }
-  }
-}
-
-// the thread's 4 rows of a (S, D) slice, columns 4cg + 32c + e, from acc * mul
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* dst, int64_t ss, int row0, int nrows, int r0,
-                                           int cg, const float (&acc)[4][D / 8], float mul) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + r0 + 4 * i;
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = row0 + g + 8 * hr;
     if (r >= nrows) continue;
+    T* row = dst + (int64_t)r * ss + 2 * t;
 #pragma unroll
-    for (int c = 0; c < D / 32; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        dst[(int64_t)r * ss + 4 * cg + 32 * c + e] = from_f32<T>(acc[i][4 * c + e] * mul);
+    for (int n = 0; n < D / 8; ++n) {
+      row[8 * n] = from_f32<T>(acc[n][2 * hr] * mul);
+      row[8 * n + 1] = from_f32<T>(acc[n][2 * hr + 1] * mul);
+    }
   }
 }
 
@@ -203,248 +339,461 @@ __device__ __forceinline__ void query_range(const Params& p, int k0, int& q_begi
   q_end = p.window > 0 ? min(p.Sq, k_last + p.window) : p.Sq;
 }
 
-// grid (ceil(Sq/64), Hq, B): o and lse of one query tile of one head
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
-  constexpr int LD = D + 4, NC = D / 8;
+// Warpgroup 1 of a split block hands its fragments to warpgroup 0 through
+// shared memory in fragment order: conflict-free, and both warpgroups hold
+// the same (row, column) in the same lane and register. buf: the warp's
+// region.
+template <int N>
+__device__ __forceinline__ void stash(float* buf, const float (&x)[N][4], int lane) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) buf[(4 * i + e) * 32 + lane] = x[i][e];
+}
+template <int N>
+__device__ __forceinline__ void add_stash(float (&x)[N][4], const float* buf, int lane) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[i][e] += buf[(4 * i + e) * 32 + lane];
+}
+
+// grid (ceil(Sq/64), Hq, B), SPLIT warpgroups: o and lse of one query tile
+// of one head. Warpgroup w takes key tiles w, w + SPLIT, ...; the partial
+// softmax states (m, l, acc) merge at the end.
+template <typename T, int D, int SPLIT>
+__global__ void __launch_bounds__(WG * SPLIT) flash_fwd_kernel(const Params p) {
+  constexpr int TILE = 64 * row_stride<T>(D), NN = D / 8;
+  constexpr bool EX = sizeof(T) == 2;  // bf16: exact in TF32
   extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);
-  float* sK = sQ + BQ * LD;
-  float* sV = sK + BK * LD;
-  float* sP = sV + BK * LD;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
+  T* sQ = reinterpret_cast<T*>(smem4);
+  T* ring = sQ + TILE;  // round r: K, V of key tile r SPLIT + w in slot SPLIT (r & 1) + w
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // the longest causal chain first
   const int hk = h / (p.Hq / p.Hkv);
-  const int lane = threadIdx.x & 31, cg = lane & 7;
-  const int r0 = (threadIdx.x >> 5) * 16 + (lane >> 3);
+  const int wg = threadIdx.x / WG, wi = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = wi * 16;
   const T* k = slice<T>(p.k, b, hk);
   const T* v = slice<T>(p.v, b, hk);
-  load_rows<T, D>(sQ, slice<T>(p.q, b, h), p.q.ss, q0, p.Sq, p.scale);
-
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
   int k_begin, k_end;
   key_range(p, q0, k_begin, k_end);
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    load_rows<T, D>(sK, k, p.k.ss, k0, p.Sk, 1.f);
-    load_rows<T, D>(sV, v, p.v.ss, k0, p.Sk, 1.f);
+  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
+  const int n_rounds = (n_tiles + SPLIT - 1) / SPLIT;
+  auto issue = [&](int r) {  // round r's K/V tiles into its stage
+#pragma unroll
+    for (int w = 0; w < SPLIT; ++w) {
+      if (r * SPLIT + w >= n_tiles) break;
+      const int kt = k_begin + (r * SPLIT + w) * BK;
+      T* dst = ring + 2 * (SPLIT * (r & 1) + w) * TILE;
+      copy_tile<T, D>(dst, k, p.k.ss, kt, p.Sk, p.aligned & AL_K);
+      copy_tile<T, D>(dst + TILE, v, p.v.ss, kt, p.Sk, p.aligned & AL_V);
+    }
+  };
+
+  copy_tile<T, D>(sQ, slice<T>(p.q, b, h), p.q.ss, q0, p.Sq, p.aligned & AL_Q);
+  issue(0);
+  cp_commit();
+
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, acc[NN][4];
+  zero(acc);
+  for (int r = 0; r < n_rounds; ++r) {
+    if (r + 1 < n_rounds) issue(r + 1);  // in flight while this round is multiplied
+    cp_commit();
+    cp_wait<1>();
     __syncthreads();
-    float s[4][8];
-    tile_abt<D>(sQ, sK, r0, cg, s);
+    const int i = r * SPLIT + wg;
+    if (i < n_tiles) {
+      const int k0 = k_begin + i * BK;
+      const T* sK = ring + 2 * (SPLIT * (r & 1) + wg) * TILE;
+      float s[8][4];
+      zero(s);
+      tile_abt<EX, T, D>(s, sQ, sK, r0, g, t);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + r0 + 4 * i;
-      float mx = NEG_INF;
+      for (int hr = 0; hr < 2; ++hr) {
+        const int qi = q0 + r0 + g + 8 * hr;
+        float mx = NEG_INF;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (!visible(p, qi, k0 + cg + 8 * j)) s[i][j] = NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[j][2 * hr + e];
+            x = visible(p, qi, k0 + 8 * j + 2 * t + e) ? x * p.scale : NEG_INF;
+            mx = fmaxf(mx, x);
+          }
+        const float m_new = fmaxf(m[hr], quad_max(mx));
+        const float corr = expf(m[hr] - m_new);
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[j][2 * hr + e];
+            x = expf(x - m_new);
+            rs += x;
+          }
+        l[hr] = l[hr] * corr + quad_sum(rs);
+        m[hr] = m_new;
+#pragma unroll
+        for (int n = 0; n < NN; ++n) {
+          acc[n][2 * hr] *= corr;
+          acc[n][2 * hr + 1] *= corr;
+        }
       }
-      const float m_new = fmaxf(m[i], group_max(mx));
-      const float corr = expf(m[i] - m_new);
-      float rs = 0.f;
+      tile_pv<EX, T, D>(acc, s, sK + TILE, g, t);
+    }
+    __syncthreads();  // this stage is refilled by the next round
+  }
+
+  if (SPLIT > 1) {  // the ring is free: warpgroup 1's state joins warpgroup 0's
+    float* buf = reinterpret_cast<float*>(ring) + wi * (16 * D + 128);
+    float* ml = buf + 16 * D;  // m of rows g, g + 8; then l
+    if (wg == 1) {
+      stash(buf, acc, lane);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs += s[i][j];
-        sP[(r0 + 4 * i) * TS + cg + 8 * j] = s[i][j];
+      for (int hr = 0; hr < 2; ++hr) {
+        ml[32 * hr + lane] = m[hr];
+        ml[64 + 32 * hr + lane] = l[hr];
       }
-      l[i] = l[i] * corr + group_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= corr;
     }
     __syncthreads();
-    tile_pv<D>(sP, sV, r0, cg, acc);
+    if (wg == 1) return;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const float m1 = ml[32 * hr + lane], l1 = ml[64 + 32 * hr + lane];
+      const float m_new = fmaxf(m[hr], m1);
+      const float c0 = expf(m[hr] - m_new), c1 = expf(m1 - m_new);
+      m[hr] = m_new;
+      l[hr] = l[hr] * c0 + l1 * c1;
+#pragma unroll
+      for (int n = 0; n < NN; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int x = 2 * hr + e;
+          acc[n][x] = acc[n][x] * c0 + buf[(4 * n + x) * 32 + lane] * c1;
+        }
+    }
   }
 
   T* o = slice<T>(p.o, b, h);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + r0 + 4 * i;
+  for (int hr = 0; hr < 2; ++hr) {
+    const int qi = q0 + r0 + g + 8 * hr;
     if (qi >= p.Sq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
+    const float den = fmaxf(l[hr], 1e-30f);
+    T* row = o + (int64_t)qi * p.o.ss + 2 * t;
 #pragma unroll
-    for (int c = 0; c < NC / 4; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        o[(int64_t)qi * p.o.ss + 4 * cg + 32 * c + e] = from_f32<T>(acc[i][4 * c + e] / den);
-    if (cg == 0) p.lse[((int64_t)b * p.Hq + h) * p.Sq + qi] = m[i] + logf(den);
+    for (int n = 0; n < NN; ++n) {
+      row[8 * n] = from_f32<T>(acc[n][2 * hr] / den);
+      row[8 * n + 1] = from_f32<T>(acc[n][2 * hr + 1] / den);
+    }
+    if (t == 0) p.lse[((int64_t)b * p.Hq + h) * p.Sq + qi] = m[hr] + logf(den);
   }
 }
 
-// grid (ceil(Sq/64), Hq, B): dq of one query tile of one head
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
-  constexpr int LD = D + 4, NC = D / 8;
+// grid (ceil(Sq/64), Hq, B), SPLIT warpgroups: delta = rowsum(do * o) and dq
+// of one query tile of one head. Warpgroup w takes key tiles w, w + SPLIT,
+// ...; the partial dq sum in a fixed order at the end.
+template <typename T, int D, int SPLIT>
+__global__ void __launch_bounds__(WG * SPLIT) flash_bwd_dq_kernel(const Params p) {
+  constexpr int TILE = 64 * row_stride<T>(D), NN = D / 8;
+  constexpr bool EX = sizeof(T) == 2;
   extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);
-  float* sDO = sQ + BQ * LD;
-  float* sK = sDO + BQ * LD;
-  float* sV = sK + BK * LD;
-  float* sS = sV + BK * LD;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
+  T* sQ = reinterpret_cast<T*>(smem4);
+  T* sDO = sQ + TILE;
+  T* ring = sDO + TILE;  // round r: K, V of key tile r SPLIT + w in slot SPLIT (r & 1) + w
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int hk = h / (p.Hq / p.Hkv);
-  const int lane = threadIdx.x & 31, cg = lane & 7;
-  const int r0 = (threadIdx.x >> 5) * 16 + (lane >> 3);
+  const int wg = threadIdx.x / WG, wi = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = wi * 16;
   const T* k = slice<T>(p.k, b, hk);
   const T* v = slice<T>(p.v, b, hk);
-  load_rows<T, D>(sQ, slice<T>(p.q, b, h), p.q.ss, q0, p.Sq, p.scale);
-  load_rows<T, D>(sDO, slice<T>(p.dout, b, h), p.dout.ss, q0, p.Sq, 1.f);
-
-  float lse[4], delta[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + r0 + 4 * i;
-    const int64_t row = ((int64_t)b * p.Hq + h) * p.Sq + qi;
-    lse[i] = qi < p.Sq ? p.lse[row] : 0.f;
-    delta[i] = qi < p.Sq ? p.delta[row] : 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
+  const T* dout = slice<T>(p.dout, b, h);
   int k_begin, k_end;
   key_range(p, q0, k_begin, k_end);
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    __syncthreads();
-    load_rows<T, D>(sK, k, p.k.ss, k0, p.Sk, 1.f);
-    load_rows<T, D>(sV, v, p.v.ss, k0, p.Sk, 1.f);
-    __syncthreads();
-    float s[4][8], dp[4][8];
-    tile_abt<D>(sQ, sK, r0, cg, s);
-    tile_abt<D>(sDO, sV, r0, cg, dp);
+  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
+  const int n_rounds = (n_tiles + SPLIT - 1) / SPLIT;
+  auto issue = [&](int r) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + r0 + 4 * i;
+    for (int w = 0; w < SPLIT; ++w) {
+      if (r * SPLIT + w >= n_tiles) break;
+      const int kt = k_begin + (r * SPLIT + w) * BK;
+      T* dst = ring + 2 * (SPLIT * (r & 1) + w) * TILE;
+      copy_tile<T, D>(dst, k, p.k.ss, kt, p.Sk, p.aligned & AL_K);
+      copy_tile<T, D>(dst + TILE, v, p.v.ss, kt, p.Sk, p.aligned & AL_V);
+    }
+  };
+
+  copy_tile<T, D>(sQ, slice<T>(p.q, b, h), p.q.ss, q0, p.Sq, p.aligned & AL_Q);
+  copy_tile<T, D>(sDO, dout, p.dout.ss, q0, p.Sq, p.aligned & AL_DO);
+  issue(0);
+  cp_commit();
+
+  // delta of the warp's 16 rows from o and do in device memory, while the
+  // copies fly; warpgroup 0 writes it for the dk/dv kernel
+  const T* o = slice<T>(p.o, b, h);
+  const int64_t row0 = ((int64_t)b * p.Hq + h) * p.Sq;
+  float lse[2], delta[2] = {0.f, 0.f};
+#pragma unroll 4
+  for (int i = 0; i < 16; ++i) {
+    const int qi = q0 + r0 + i;
+    float d = 0.f;
+    if (qi < p.Sq) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float sv = visible(p, qi, k0 + cg + 8 * j) ? s[i][j] : NEG_INF;
-        const float pv = expf(sv - lse[i]);
-        sS[(r0 + 4 * i) * TS + cg + 8 * j] = pv * (dp[i][j] - delta[i]);
-      }
+      for (int c = lane; c < D; c += 32)
+        d = fmaf(to_f32(dout[(int64_t)qi * p.dout.ss + c]), to_f32(o[(int64_t)qi * p.o.ss + c]), d);
+    }
+    d = warp_sum(d);
+    if (i == g) delta[0] = d;
+    if (i == g + 8) delta[1] = d;
+    if (wg == 0 && lane == 0 && qi < p.Sq) p.delta[row0 + qi] = d;
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int qi = q0 + r0 + g + 8 * hr;
+    lse[hr] = qi < p.Sq ? p.lse[row0 + qi] : 0.f;
+  }
+
+  float acc[NN][4];
+  zero(acc);
+  for (int r = 0; r < n_rounds; ++r) {
+    if (r + 1 < n_rounds) issue(r + 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const int i = r * SPLIT + wg;
+    if (i < n_tiles) {
+      const int k0 = k_begin + i * BK;
+      const T* sK = ring + 2 * (SPLIT * (r & 1) + wg) * TILE;
+      float s[8][4], dp[8][4];
+      zero(s);
+      zero(dp);
+      tile_abt<EX, T, D>(s, sQ, sK, r0, g, t);
+      tile_abt<EX, T, D>(dp, sDO, sK + TILE, r0, g, t);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // e: (row g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)
+          const int hr = e >> 1, qi = q0 + r0 + g + 8 * hr, kj = k0 + 8 * j + 2 * t + (e & 1);
+          const float pv = visible(p, qi, kj) ? expf(s[j][e] * p.scale - lse[hr]) : 0.f;
+          s[j][e] = pv * (dp[j][e] - delta[hr]);  // dS
+        }
+      tile_pv<EX, T, D>(acc, s, sK, g, t);
     }
     __syncthreads();
-    tile_pv<D>(sS, sK, r0, cg, acc);
   }
-  store_rows<T, D>(slice<T>(p.dq, b, h), p.dq.ss, q0, p.Sq, r0, cg, acc, p.scale);
+
+  if (SPLIT > 1) {
+    float* buf = reinterpret_cast<float*>(ring) + wi * 16 * D;
+    if (wg == 1) stash(buf, acc, lane);
+    __syncthreads();
+    if (wg == 1) return;
+    add_stash(acc, buf, lane);
+  }
+  store_rows<T, D>(slice<T>(p.dq, b, h), p.dq.ss, q0 + r0, p.Sq, acc, p.scale, g, t);
 }
 
-// grid (ceil(Sk/64), Hkv, B): dk and dv of one key tile of one kv head,
-// summed over the G query heads of its group
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
-  constexpr int LD = D + 4, NC = D / 8;
+// grid (ceil(Sk/64), Hkv, B), SPLIT warpgroups: dk and dv of one key tile of
+// one kv head, summed over the G query heads of its group. The (head, query
+// tile) iterations go round the warpgroups; their partial sums add in a
+// fixed order at the end.
+template <typename T, int D, int SPLIT>
+__global__ void __launch_bounds__(WG * SPLIT) flash_bwd_dkv_kernel(const Params p) {
+  constexpr int TILE = 64 * row_stride<T>(D), NN = D / 8;
+  constexpr bool EX = sizeof(T) == 2;
   extern __shared__ float4 smem4[];
-  float* sK = reinterpret_cast<float*>(smem4);
-  float* sV = sK + BK * LD;
-  float* sQ = sV + BK * LD;
-  float* sDO = sQ + BQ * LD;
-  float* sP = sDO + BQ * LD;
-  float* sS = sP + BK * TS;
-  float* sL = sS + BK * TS;
-  float* sDelta = sL + BQ;
-  const int b = blockIdx.z, hk = blockIdx.y, k0 = blockIdx.x * BK;
+  T* sK = reinterpret_cast<T*>(smem4);
+  T* sV = sK + TILE;
+  T* ring = sV + TILE;  // slot s: Q at ring + 2s TILE, dO after it
+  float* ring_f = reinterpret_cast<float*>(ring + 4 * SPLIT * TILE);  // slot s: lse, delta
+  const int b = blockIdx.z, hk = blockIdx.y, k0 = blockIdx.x * BK;  // key tile 0 is the longest
   const int G = p.Hq / p.Hkv;
-  const int lane = threadIdx.x & 31, cg = lane & 7;
-  const int r0 = (threadIdx.x >> 5) * 16 + (lane >> 3);
-  load_rows<T, D>(sK, slice<T>(p.k, b, hk), p.k.ss, k0, p.Sk, 1.f);
-  load_rows<T, D>(sV, slice<T>(p.v, b, hk), p.v.ss, k0, p.Sk, 1.f);
-
-  float acc_k[4][NC], acc_v[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+  const int wg = threadIdx.x / WG, wi = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = wi * 16;
   int q_begin, q_end;
   query_range(p, k0, q_begin, q_end);
-  for (int g = 0; g < G; ++g) {
-    const int h = hk * G + g;
-    const T* q = slice<T>(p.q, b, h);
-    const T* dout = slice<T>(p.dout, b, h);
-    const int64_t row0 = ((int64_t)b * p.Hq + h) * p.Sq;
-    for (int q0 = q_begin; q0 < q_end; q0 += BQ) {
-      __syncthreads();
-      load_rows<T, D>(sQ, q, p.q.ss, q0, p.Sq, p.scale);
-      load_rows<T, D>(sDO, dout, p.dout.ss, q0, p.Sq, 1.f);
-      for (int r = threadIdx.x; r < BQ; r += NT) {
-        const bool in = q0 + r < p.Sq;
-        sL[r] = in ? p.lse[row0 + q0 + r] : 0.f;
-        sDelta[r] = in ? p.delta[row0 + q0 + r] : 0.f;
-      }
-      __syncthreads();
-      float s[4][8], dp[4][8];
-      tile_abt<D>(sK, sQ, r0, cg, s);    // s[i][j]: key k0+r0+4i against query q0+cg+8j
-      tile_abt<D>(sV, sDO, r0, cg, dp);
+  const int nq = q_end > q_begin ? (q_end - q_begin + BQ - 1) / BQ : 0;
+  const int n_iter = G * nq;
+  const int n_rounds = (n_iter + SPLIT - 1) / SPLIT;
+
+  // iteration it: query head hk G + it / nq, query tile q_begin + (it % nq) BQ
+  auto issue = [&](int r) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int ki = k0 + r0 + 4 * i;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = cg + 8 * j;
-          const float sv = visible(p, q0 + c, ki) ? s[i][j] : NEG_INF;
-          const float pv = expf(sv - sL[c]);
-          sP[(r0 + 4 * i) * TS + c] = pv;
-          sS[(r0 + 4 * i) * TS + c] = pv * (dp[i][j] - sDelta[c]);
-        }
+    for (int w = 0; w < SPLIT; ++w) {
+      const int it = r * SPLIT + w;
+      if (it >= n_iter) break;
+      const int h = hk * G + it / nq, q0 = q_begin + (it % nq) * BQ, slot = SPLIT * (r & 1) + w;
+      T* dst = ring + 2 * slot * TILE;
+      copy_tile<T, D>(dst, slice<T>(p.q, b, h), p.q.ss, q0, p.Sq, p.aligned & AL_Q);
+      copy_tile<T, D>(dst + TILE, slice<T>(p.dout, b, h), p.dout.ss, q0, p.Sq,
+                      p.aligned & AL_DO);
+      const int64_t row0 = ((int64_t)b * p.Hq + h) * p.Sq;
+      for (int idx = threadIdx.x; idx < 2 * BQ; idx += blockDim.x) {
+        const float* src = idx < BQ ? p.lse : p.delta;
+        const int rq = q0 + (idx & (BQ - 1));
+        const bool in = rq < p.Sq;
+        cp_async4(ring_f + 2 * BQ * slot + idx, in ? src + row0 + rq : src, in ? 4 : 0);
       }
-      __syncthreads();
-      tile_pv<D>(sP, sDO, r0, cg, acc_v);
-      tile_pv<D>(sS, sQ, r0, cg, acc_k);
     }
+  };
+
+  copy_tile<T, D>(sK, slice<T>(p.k, b, hk), p.k.ss, k0, p.Sk, p.aligned & AL_K);
+  copy_tile<T, D>(sV, slice<T>(p.v, b, hk), p.v.ss, k0, p.Sk, p.aligned & AL_V);
+  issue(0);
+  cp_commit();
+
+  float acc_k[NN][4], acc_v[NN][4];
+  zero(acc_k);
+  zero(acc_v);
+  for (int r = 0; r < n_rounds; ++r) {
+    if (r + 1 < n_rounds) issue(r + 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const int it = r * SPLIT + wg;
+    if (it < n_iter) {
+      const int q0 = q_begin + (it % nq) * BQ, slot = SPLIT * (r & 1) + wg;
+      const T* sQ = ring + 2 * slot * TILE;
+      const T* sDO = sQ + TILE;
+      const float* sL = ring_f + 2 * BQ * slot;
+      const float* sDelta = sL + BQ;
+      float s[8][4], dp[8][4];  // [j][e]: key row r0 + g (+8), query column 8j + 2t (+1)
+      zero(s);
+      zero(dp);
+      tile_abt<EX, T, D>(s, sK, sQ, r0, g, t);
+      tile_abt<EX, T, D>(dp, sV, sDO, r0, g, t);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ki = k0 + r0 + g + 8 * (e >> 1), c = 8 * j + 2 * t + (e & 1);
+          const float pv = visible(p, q0 + c, ki) ? expf(s[j][e] * p.scale - sL[c]) : 0.f;
+          s[j][e] = pv;                            // Pᵀ
+          dp[j][e] = pv * (dp[j][e] - sDelta[c]);  // dSᵀ
+        }
+      tile_pv<EX, T, D>(acc_v, s, sDO, g, t);
+      tile_pv<EX, T, D>(acc_k, dp, sQ, g, t);
+    }
+    __syncthreads();
   }
-  store_rows<T, D>(slice<T>(p.dk, b, hk), p.dk.ss, k0, p.Sk, r0, cg, acc_k, 1.f);
-  store_rows<T, D>(slice<T>(p.dv, b, hk), p.dv.ss, k0, p.Sk, r0, cg, acc_v, 1.f);
+  cp_wait<0>();
+
+  if (SPLIT > 1) {
+    float* buf = reinterpret_cast<float*>(ring) + wi * 32 * D;
+    if (wg == 1) {
+      stash(buf, acc_k, lane);
+      stash(buf + 16 * D, acc_v, lane);
+    }
+    __syncthreads();
+    if (wg == 1) return;
+    add_stash(acc_k, buf, lane);
+    add_stash(acc_v, buf + 16 * D, lane);
+  }
+  store_rows<T, D>(slice<T>(p.dk, b, hk), p.dk.ss, k0 + r0, p.Sk, acc_k, p.scale, g, t);
+  store_rows<T, D>(slice<T>(p.dv, b, hk), p.dv.ss, k0 + r0, p.Sk, acc_v, 1.f, g, t);
 }
 
 // ---- host side: one launcher per kernel, dispatched on (dtype, D) ----
 
+// the 16-byte copy path needs the base pointer and the stride of every
+// dimension longer than 1 to be multiples of 16 bytes
+bool aligned16(const View& t, int itemsize, int B, int H, int S) {
+  return reinterpret_cast<uintptr_t>(t.p) % 16 == 0 && (B == 1 || t.sb * itemsize % 16 == 0) &&
+         (H == 1 || t.sh * itemsize % 16 == 0) && (S == 1 || t.ss * itemsize % 16 == 0);
+}
+
+// the wrapper chooses the copy path of each operand (Params::aligned); a
+// claim that does not hold is refused, never launched
+cudaError_t check_aligned(const Params& p, int itemsize) {
+  const bool ok = (!(p.aligned & AL_Q) || aligned16(p.q, itemsize, p.B, p.Hq, p.Sq)) &&
+                  (!(p.aligned & AL_K) || aligned16(p.k, itemsize, p.B, p.Hkv, p.Sk)) &&
+                  (!(p.aligned & AL_V) || aligned16(p.v, itemsize, p.B, p.Hkv, p.Sk)) &&
+                  (!(p.aligned & AL_DO) || aligned16(p.dout, itemsize, p.B, p.Hq, p.Sq));
+  return ok ? cudaSuccess : cudaErrorMisalignedAddress;
+}
+
+constexpr size_t MAX_SMEM = 232448;  // a block's shared memory on sm_90
+
+// warpgroups of a block: 2 where its shared memory (fixed tiles, 2 stages
+// of 2 tiles a warpgroup, extra bytes a warpgroup) fits, else 1
+template <typename T, int D>
+constexpr int split_for(int fixed_tiles, size_t extra) {
+  return (fixed_tiles + 4 * 2) * tile_bytes<T>(D) + 2 * extra <= MAX_SMEM ? 2 : 1;
+}
+
 template <typename K>
-cudaError_t launch(K kernel, dim3 grid, size_t smem, cudaStream_t stream, const Params& p) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t launch(K kernel, dim3 grid, int split, size_t smem, cudaStream_t stream,
+                   const Params& p, int itemsize) {
+  cudaError_t err = check_aligned(p, itemsize);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, NT, smem, stream>>>(p);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, WG * split, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
+// Launch configuration of each kernel for (T, D): warpgroups a block and
+// dynamic shared memory. fwd: Q + 2 stages of K, V a warpgroup; dq: Q, dO +
+// 2 stages of K, V a warpgroup; dk/dv: K, V + 2 stages of Q, dO and 64 lse
+// and delta values a warpgroup.
+template <typename T, int D>
+struct Config {
+  static constexpr size_t rows = 4 * BQ * sizeof(float);
+  static constexpr int fwd_split = split_for<T, D>(1, 0);
+  static constexpr int dq_split = split_for<T, D>(2, 0);
+  static constexpr int dkv_split = split_for<T, D>(2, rows);
+  static constexpr size_t fwd_smem = (1 + 4 * fwd_split) * tile_bytes<T>(D);
+  static constexpr size_t dq_smem = (2 + 4 * dq_split) * tile_bytes<T>(D);
+  static constexpr size_t dkv_smem = (2 + 4 * dkv_split) * tile_bytes<T>(D) + dkv_split * rows;
+};
+
 template <typename T, int D>
 cudaError_t fwd(const Params& p, cudaStream_t stream) {
-  const size_t smem = ((BQ + 2 * BK) * (D + 4) + BQ * TS) * sizeof(float);
-  return launch(flash_fwd_kernel<T, D>, dim3((p.Sq + BQ - 1) / BQ, p.Hq, p.B), smem, stream, p);
+  using C = Config<T, D>;
+  return launch(flash_fwd_kernel<T, D, C::fwd_split>, dim3((p.Sq + BQ - 1) / BQ, p.Hq, p.B),
+                C::fwd_split, C::fwd_smem, stream, p, sizeof(T));
 }
 
 template <typename T, int D>
 cudaError_t bwd_dq(const Params& p, cudaStream_t stream) {
-  const size_t smem = ((2 * BQ + 2 * BK) * (D + 4) + BQ * TS) * sizeof(float);
-  return launch(flash_bwd_dq_kernel<T, D>, dim3((p.Sq + BQ - 1) / BQ, p.Hq, p.B), smem, stream,
-                p);
+  using C = Config<T, D>;
+  return launch(flash_bwd_dq_kernel<T, D, C::dq_split>, dim3((p.Sq + BQ - 1) / BQ, p.Hq, p.B),
+                C::dq_split, C::dq_smem, stream, p, sizeof(T));
 }
 
 template <typename T, int D>
 cudaError_t bwd_dkv(const Params& p, cudaStream_t stream) {
-  const size_t smem = ((2 * BQ + 2 * BK) * (D + 4) + 2 * BK * TS + 2 * BQ) * sizeof(float);
-  return launch(flash_bwd_dkv_kernel<T, D>, dim3((p.Sk + BK - 1) / BK, p.Hkv, p.B), smem,
-                stream, p);
+  using C = Config<T, D>;
+  return launch(flash_bwd_dkv_kernel<T, D, C::dkv_split>, dim3((p.Sk + BK - 1) / BK, p.Hkv, p.B),
+                C::dkv_split, C::dkv_smem, stream, p, sizeof(T));
+}
+
+template <typename T, int D>
+cudaError_t config(int kind, int* warpgroups, int* smem) {
+  using C = Config<T, D>;
+  if (kind < 0 || kind > 2) return cudaErrorInvalidValue;
+  *warpgroups = kind == 0 ? C::fwd_split : kind == 1 ? C::dq_split : C::dkv_split;
+  *smem = (int)(kind == 0 ? C::fwd_smem : kind == 1 ? C::dq_smem : C::dkv_smem);
+  return cudaSuccess;
 }
 
 // dtype: 0 float32, 1 bfloat16; D: 32, 64 or 128
-#define FLASH_DISPATCH(FN, p, stream)                              \
+#define FLASH_DISPATCH(FN, ...)                                   \
   switch (dtype * 1000 + D) {                                      \
-    case 32: return FN<float, 32>(p, stream);                      \
-    case 64: return FN<float, 64>(p, stream);                      \
-    case 128: return FN<float, 128>(p, stream);                    \
-    case 1032: return FN<__nv_bfloat16, 32>(p, stream);            \
-    case 1064: return FN<__nv_bfloat16, 64>(p, stream);            \
-    case 1128: return FN<__nv_bfloat16, 128>(p, stream);           \
+    case 32: return FN<float, 32>(__VA_ARGS__);                    \
+    case 64: return FN<float, 64>(__VA_ARGS__);                    \
+    case 128: return FN<float, 128>(__VA_ARGS__);                  \
+    case 1032: return FN<__nv_bfloat16, 32>(__VA_ARGS__);          \
+    case 1064: return FN<__nv_bfloat16, 64>(__VA_ARGS__);          \
+    case 1128: return FN<__nv_bfloat16, 128>(__VA_ARGS__);         \
     default: return cudaErrorInvalidValue;                         \
   }
 
-Params make_params(int D, int B, int Hq, int Hkv, int Sq, int Sk, int causal, int window) {
+Params make_params(int D, int B, int Hq, int Hkv, int Sq, int Sk, int causal, int window,
+                   int aligned) {
   Params p = {};
   p.B = B;
   p.Hq = Hq;
@@ -453,6 +802,7 @@ Params make_params(int D, int B, int Hq, int Hkv, int Sq, int Sk, int causal, in
   p.Sk = Sk;
   p.causal = causal;
   p.window = window;
+  p.aligned = aligned;
   p.scale = (float)(1.0 / sqrt((double)D));  // D ** -0.5, rounded once to f32
   return p;
 }
@@ -470,21 +820,25 @@ cudaError_t run_dq(int dtype, int D, const Params& p, cudaStream_t stream) {
 cudaError_t run_dkv(int dtype, int D, const Params& p, cudaStream_t stream) {
   FLASH_DISPATCH(bwd_dkv, p, stream)
 }
+cudaError_t run_config(int kind, int dtype, int D, int* warpgroups, int* smem) {
+  FLASH_DISPATCH(config, kind, warpgroups, smem)
+}
 
 }  // namespace
 
 // Each (B,H,S,D) tensor is passed as its pointer and its batch, head and
-// sequence strides in elements. lse and delta are dense (B,Hq,Sq) float32.
-// Returns the cudaError_t of the launch (0 on success).
+// sequence strides in elements; lse and delta are dense (B,Hq,Sq) float32.
+// aligned: bit 1 q, 2 k, 4 v, 8 do take the 16-byte copy path (see
+// aligned16). Returns the cudaError_t of the launch (0 on success).
 
 extern "C" int flash_attention_fwd(int dtype, int D, int B, int Hq, int Hkv, int Sq, int Sk,
-                                   int causal, int window,
+                                   int causal, int window, int aligned,
                                    const void* q, int64_t q_sb, int64_t q_sh, int64_t q_ss,
                                    const void* k, int64_t k_sb, int64_t k_sh, int64_t k_ss,
                                    const void* v, int64_t v_sb, int64_t v_sh, int64_t v_ss,
                                    void* o, int64_t o_sb, int64_t o_sh, int64_t o_ss,
                                    float* lse, void* stream) {
-  Params p = make_params(D, B, Hq, Hkv, Sq, Sk, causal, window);
+  Params p = make_params(D, B, Hq, Hkv, Sq, Sk, causal, window, aligned);
   p.q = view(q, q_sb, q_sh, q_ss);
   p.k = view(k, k_sb, k_sh, k_ss);
   p.v = view(v, v_sb, v_sh, v_ss);
@@ -493,28 +847,33 @@ extern "C" int flash_attention_fwd(int dtype, int D, int B, int Hq, int Hkv, int
   return (int)run_fwd(dtype, D, p, static_cast<cudaStream_t>(stream));
 }
 
+// writes delta = rowsum(do * o) (B,Hq,Sq) besides dq
 extern "C" int flash_attention_bwd_dq(int dtype, int D, int B, int Hq, int Hkv, int Sq, int Sk,
-                                      int causal, int window,
+                                      int causal, int window, int aligned,
                                       const void* q, int64_t q_sb, int64_t q_sh, int64_t q_ss,
                                       const void* k, int64_t k_sb, int64_t k_sh, int64_t k_ss,
                                       const void* v, int64_t v_sb, int64_t v_sh, int64_t v_ss,
                                       const void* dout, int64_t do_sb, int64_t do_sh,
-                                      int64_t do_ss, const float* lse, const float* delta,
+                                      int64_t do_ss,
+                                      const void* o, int64_t o_sb, int64_t o_sh, int64_t o_ss,
+                                      const float* lse, float* delta,
                                       void* dq, int64_t dq_sb, int64_t dq_sh, int64_t dq_ss,
                                       void* stream) {
-  Params p = make_params(D, B, Hq, Hkv, Sq, Sk, causal, window);
+  Params p = make_params(D, B, Hq, Hkv, Sq, Sk, causal, window, aligned);
   p.q = view(q, q_sb, q_sh, q_ss);
   p.k = view(k, k_sb, k_sh, k_ss);
   p.v = view(v, v_sb, v_sh, v_ss);
   p.dout = view(dout, do_sb, do_sh, do_ss);
+  p.o = view(o, o_sb, o_sh, o_ss);
   p.lse = const_cast<float*>(lse);
   p.delta = delta;
   p.dq = view(dq, dq_sb, dq_sh, dq_ss);
   return (int)run_dq(dtype, D, p, static_cast<cudaStream_t>(stream));
 }
 
+// reads the delta that flash_attention_bwd_dq wrote
 extern "C" int flash_attention_bwd_dkv(int dtype, int D, int B, int Hq, int Hkv, int Sq, int Sk,
-                                       int causal, int window,
+                                       int causal, int window, int aligned,
                                        const void* q, int64_t q_sb, int64_t q_sh, int64_t q_ss,
                                        const void* k, int64_t k_sb, int64_t k_sh, int64_t k_ss,
                                        const void* v, int64_t v_sb, int64_t v_sh, int64_t v_ss,
@@ -523,14 +882,22 @@ extern "C" int flash_attention_bwd_dkv(int dtype, int D, int B, int Hq, int Hkv,
                                        void* dk, int64_t dk_sb, int64_t dk_sh, int64_t dk_ss,
                                        void* dv, int64_t dv_sb, int64_t dv_sh, int64_t dv_ss,
                                        void* stream) {
-  Params p = make_params(D, B, Hq, Hkv, Sq, Sk, causal, window);
+  Params p = make_params(D, B, Hq, Hkv, Sq, Sk, causal, window, aligned);
   p.q = view(q, q_sb, q_sh, q_ss);
   p.k = view(k, k_sb, k_sh, k_ss);
   p.v = view(v, v_sb, v_sh, v_ss);
   p.dout = view(dout, do_sb, do_sh, do_ss);
   p.lse = const_cast<float*>(lse);
-  p.delta = delta;
+  p.delta = const_cast<float*>(delta);
   p.dk = view(dk, dk_sb, dk_sh, dk_ss);
   p.dv = view(dv, dv_sb, dv_sh, dv_ss);
   return (int)run_dkv(dtype, D, p, static_cast<cudaStream_t>(stream));
+}
+
+// the launch configuration of kernel kind (0 fwd, 1 dq, 2 dk/dv) for
+// (dtype, D): warpgroups a block (threads = 128 x warpgroups) and dynamic
+// shared memory bytes
+extern "C" int flash_attention_config(int kind, int dtype, int D, int* warpgroups,
+                                      int* smem_bytes) {
+  return (int)run_config(kind, dtype, D, warpgroups, smem_bytes);
 }

@@ -4,7 +4,9 @@ A source ``src/repro_torch/csrc/<name>.cu`` with a plain C interface is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``<repo>/build/kernels``, named by a hash of the source and the flags, so
 an edited source is rebuilt and an unchanged one is loaded as it is. Each
-source is one ``nvcc`` call of a few seconds (no PyTorch headers). A
+source is one ``nvcc`` call of a few seconds (no PyTorch headers); what
+ptxas reports of its kernels (``-Xptxas -v``) is kept beside the library
+as ``<name>-<hash>.ptxas``. A
 missing ``nvcc`` or a failed build raises with the compiler's output:
 there is no fall back to the plain version.
 """
@@ -26,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # compiles them together
 SOURCES = ("flash_attention", "quantize", "rmsnorm", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
@@ -47,7 +49,8 @@ def nvcc() -> str:
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless a library of the same hash exists;
-    returns the library's path."""
+    returns the library's path. ptxas's report goes beside it, written
+    before the library, so a library's report always exists."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
@@ -62,7 +65,47 @@ def build(name: str) -> Path:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed (exit {res.returncode}):\n"
                            f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build writes the same bytes
+    tmp_report = tmp.with_suffix(".ptxas")
+    tmp_report.write_text(res.stdout + res.stderr)
+    # atomic: a concurrent build writes the same bytes
+    os.replace(tmp_report, out.with_suffix(".ptxas"))
+    os.replace(tmp, out)
+    return out
+
+
+def ptxas_report(name: str) -> list:
+    """:func:`parse_ptxas` of what ptxas printed when :func:`build` compiled
+    ``csrc/<name>.cu`` (building it first if need be)."""
+    return parse_ptxas(build(name).with_suffix(".ptxas").read_text())
+
+
+def parse_ptxas(text: str) -> list:
+    """For each kernel in ptxas's ``-v`` output, ``{"function": mangled
+    name, "registers", "static_smem_bytes", "spill_stores",
+    "spill_loads"}`` (dynamic shared memory is set at launch and is not
+    among them)."""
+    import re
+
+    out = []
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            out.append({"function": m.group(1), "registers": None,
+                        "static_smem_bytes": 0, "spill_stores": 0,
+                        "spill_loads": 0})
+            continue
+        if not out:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[-1]["spill_stores"] = int(m.group(1))
+            out[-1]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[-1]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[-1]["static_smem_bytes"] = int(m.group(1)) if m else 0
     return out
 
 

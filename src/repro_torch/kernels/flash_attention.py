@@ -2,23 +2,29 @@
 backward's dq and dk/dv passes, wrappers over the kernels of
 ``src/repro_torch/csrc/flash_attention.cu``. That file's header says which
 TPU kernel each one replaces (``repro/kernels/flash_attention.py``), what
-bounds it on the card and what its design does about that.
+bounds it on the card and what its design does about that (3xTF32
+``mma.sync`` products, 16-byte ``cp.async`` copies into a 2-stage ring).
 
 Layouts are the JAX kernels': q ``(B, Hq, Sq, D)``, k and v
 ``(B, Hkv, Sk, D)`` with ``Hq % Hkv == 0``. The batch, head and sequence
 dimensions may have any strides; the last one must be dense, so the
 decoder's ``(B, S, H, D)`` tensors go in as transposed views without a
-copy. float32 or bfloat16 (all operands of one dtype), D in
-:data:`HEAD_DIMS`. Outputs are allocated with the layout of the input they
-mirror: o and dq like q, dk like k, dv like v. Positions are the row
-indices (causal: key k is visible to query q iff k <= q; window w > 0:
-iff q - k < w), and every query row must see at least one key.
+copy. An operand whose pointer or strides are not multiples of 16 bytes
+(:func:`aligned`) is copied element by element inside the same kernels.
+float32 or bfloat16 (all operands of one dtype), D in :data:`HEAD_DIMS`.
+Outputs are allocated with the layout of the input they mirror: o and dq
+like q, dk like k, dv like v. Positions are the row indices (causal: key k
+is visible to query q iff k <= q; window w > 0: iff q - k < w), and every
+query row must see at least one key.
 
 The library is built by ``nvcc`` at the first call (``_build``) and each
-kernel launches on the current CUDA stream without synchronising.
+kernel launches on the current CUDA stream without synchronising. The
+backward is two launches: the dq kernel also writes delta = rowsum(do·o)
+to a buffer the dk/dv kernel reads.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -35,14 +41,24 @@ dq_launches = 0
 dkv_launches = 0
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-_SIZES = [_I] * 9             # dtype, D, B, Hq, Hkv, Sq, Sk, causal, window
+# dtype, D, B, Hq, Hkv, Sq, Sk, causal, window, aligned (bit 1 q, 2 k, 4 v,
+# 8 do: the operand takes 16-byte copies)
+_SIZES = [_I] * 10
 _VIEW = [_P, _L, _L, _L]      # pointer, batch / head / sequence strides
 SIGNATURES = {
+    # q, k, v, o; lse; stream
     "flash_attention_fwd": _SIZES + _VIEW * 4 + [_P, _P],
-    "flash_attention_bwd_dq": _SIZES + _VIEW * 4 + [_P, _P] + _VIEW + [_P],
+    # q, k, v, do, o; lse, delta (written); dq; stream
+    "flash_attention_bwd_dq": _SIZES + _VIEW * 5 + [_P, _P] + _VIEW + [_P],
+    # q, k, v, do; lse, delta (read); dk, dv; stream
     "flash_attention_bwd_dkv": (_SIZES + _VIEW * 4 + [_P, _P] + _VIEW * 2
                                 + [_P]),
+    # kind (0 fwd, 1 dq, 2 dk/dv), dtype, D; warpgroups, smem bytes (out)
+    "flash_attention_config": [_I, _I, _I, _P, _P],
 }
+KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+# the device type the kernels run on (tests of the argument lists swap it)
+_DEVICE = "cuda"
 
 
 def reset_launches() -> None:
@@ -54,8 +70,44 @@ def _lib() -> ctypes.CDLL:
     return _build.load("flash_attention", SIGNATURES)
 
 
+def launch_config(dtype: torch.dtype, D: int) -> dict:
+    """``{kernel: {"threads": n, "smem_bytes": b}}``: each kernel's block
+    (128 threads a warpgroup) and dynamic shared memory for (dtype, D), as
+    the library launches them."""
+    lib, out = _lib(), {}
+    for kind, name in enumerate(KERNELS):
+        wg, smem = ctypes.c_int(), ctypes.c_int()
+        _run(lib.flash_attention_config, [kind, _DTYPES[dtype], D,
+                                          ctypes.byref(wg),
+                                          ctypes.byref(smem)])
+        out[name] = {"threads": 128 * wg.value, "smem_bytes": smem.value}
+    return out
+
+
 def _view(t: torch.Tensor) -> list:
     return [t.data_ptr(), t.stride(0), t.stride(1), t.stride(2)]
+
+
+def aligned(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes the kernels' 16-byte copies: its pointer and the
+    stride of each of its (B, H, S) dimensions longer than 1 are multiples
+    of 16 bytes (the launcher checks the same)."""
+    b = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        n == 1 or s * b % 16 == 0 for n, s in zip(t.shape[:3], t.stride()[:3]))
+
+
+def _aligned_bits(*ops) -> int:
+    """The ``aligned`` argument: bit i set when operand i (q, k, v, do)
+    takes the 16-byte copies."""
+    return sum(1 << i for i, t in enumerate(ops) if aligned(t))
+
+
+@contextlib.contextmanager
+def _device_stream(device):
+    """``device`` made current; yields its current CUDA stream's handle."""
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream().cuda_stream
 
 
 def _sizes(q, k, v, causal, window, *like_q) -> list:
@@ -77,7 +129,7 @@ def _sizes(q, k, v, causal, window, *like_q) -> list:
     if Sk == 0 and Sq > 0:
         raise ValueError("no keys to attend to")
     for t in (q, k, v, *like_q):
-        if t.device.type != "cuda" or t.device != q.device:
+        if t.device.type != _DEVICE or t.device != q.device:
             raise ValueError("flash attention kernels need CUDA tensors on "
                              f"one device; got {t.device} and {q.device}")
         if t.dtype != q.dtype:
@@ -102,11 +154,10 @@ def _run(fn, args) -> None:
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """Forward: ``(o, lse)``; o in ``q.dtype``, lse ``(B, Hq, Sq)`` f32."""
     global fwd_launches
-    sizes = _sizes(q, k, v, causal, window)
+    sizes = _sizes(q, k, v, causal, window) + [_aligned_bits(q, k, v)]
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with _device_stream(q.device) as stream:
         _run(_lib().flash_attention_fwd,
              sizes + _view(q) + _view(k) + _view(v) + _view(o)
              + [lse.data_ptr(), stream])
@@ -117,26 +168,27 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         window: int = 0):
     """Backward: ``(dq, dk, dv)`` in the dtypes of q, k and v, from the
-    forward's ``o`` and ``lse`` and the output gradient ``do``. dk and dv
-    are summed over the q heads of each kv group inside the kernel."""
+    forward's ``o`` and ``lse`` and the output gradient ``do``. Two
+    launches: dq (which also writes delta = rowsum(do·o)), then dk/dv,
+    summed over the q heads of each kv group inside the kernel."""
     global dq_launches, dkv_launches
-    sizes = _sizes(q, k, v, causal, window, o, do)
+    sizes = _sizes(q, k, v, causal, window, o, do) + [
+        _aligned_bits(q, k, v, do)]
     if lse.shape != q.shape[:3] or lse.dtype != torch.float32 \
             or lse.device != q.device:
         raise ValueError(f"lse must be float32 {tuple(q.shape[:3])} on "
                          f"{q.device}; got {lse.dtype} {tuple(lse.shape)}")
     lse = lse.contiguous()
-    # delta = rowsum(do·o) outside the kernels, as the reference does
-    delta = (do.to(torch.float32) * o.to(torch.float32)).sum(-1).contiguous()
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with _device_stream(q.device) as stream:
         lib = _lib()
-        common = (sizes + _view(q) + _view(k) + _view(v) + _view(do)
-                  + [lse.data_ptr(), delta.data_ptr()])
-        _run(lib.flash_attention_bwd_dq, common + _view(dq) + [stream])
+        views = _view(q) + _view(k) + _view(v) + _view(do)
+        rows = [lse.data_ptr(), delta.data_ptr()]
+        _run(lib.flash_attention_bwd_dq,
+             sizes + views + _view(o) + rows + _view(dq) + [stream])
         dq_launches += 1
         _run(lib.flash_attention_bwd_dkv,
-             common + _view(dk) + _view(dv) + [stream])
+             sizes + views + rows + _view(dk) + _view(dv) + [stream])
         dkv_launches += 1
     return dq, dk, dv

@@ -206,9 +206,12 @@ class TestBuild:
 
 def test_chip_smoke_attention_bounds():
     """The bounds ``chip_smoke.py`` reports at the training step's attention
-    shape (B=2, H=16, S=256, D=64, f32, causal): forward 4·D flops over the
-    32,896 visible pairs a head is 0.27 GFLOP, 4.0 us at 67 TFLOP/s, above
-    the 2.5 us for its 8.4 MB; backward 10·D a pair plus delta."""
+    shape (B=2, H=16, S=256, D=64, f32, causal), f32 products at the card's
+    3xTF32 tensor-core rate (495/3 = 165 TFLOP/s): the forward's 8,421,376
+    bytes take 2.51 us at 3.35 TB/s, above the 1.63 us of its 4·D flops over
+    the 32,896 visible pairs a head; the backward's 16,809,984 bytes 5.02 us,
+    above 4.09 us of 10·D flops a pair plus delta; the trainable Function's
+    944,242,688 flops 5.72 us, above its 5.01 us of bytes."""
     import importlib.util
     import pathlib
     path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
@@ -219,16 +222,284 @@ def test_chip_smoke_attention_bounds():
     assert chip_smoke.attention_pairs(256, 256, True, 0) == 256 * 257 // 2
     assert chip_smoke.attention_pairs(6, 6, True, 2) == 11
     assert chip_smoke.attention_pairs(6, 6, False, 2) == 26
+    assert chip_smoke.TF32X3_FLOPS_PER_S == 165e12
     shape = (2, 16, 16, 256, 64, True, 0, 4)
     pairs = 32 * 32896
     ms, by = chip_smoke.attention_bound_ms(*shape, "fwd")
-    assert by == "operations"
-    np.testing.assert_allclose(ms, 1e3 * 4 * 64 * pairs / 67e12)
-    assert abs(ms - 4.022e-3) < 1e-6
+    assert by == "bytes"
+    np.testing.assert_allclose(ms, 1e3 * 8_421_376 / 3.35e12)
+    assert abs(ms - 2.514e-3) < 1e-6
+    assert 1e3 * 4 * 64 * pairs / 165e12 < ms
     ms_b, by_b = chip_smoke.attention_bound_ms(*shape, "bwd")
-    assert by_b == "operations"
+    assert by_b == "bytes"
+    np.testing.assert_allclose(ms_b, 1e3 * 16_809_984 / 3.35e12)
+    assert abs(ms_b - 5.018e-3) < 1e-6
+    assert 1e3 * (10 * 64 * pairs + 2 * 32 * 256 * 64) / 165e12 < ms_b
+    ms_t, by_t = chip_smoke.attention_bound_ms(*shape, "trainable")
+    assert by_t == "operations"
+    np.testing.assert_allclose(ms_t, 1e3 * 944_242_688 / 165e12)
+    assert abs(ms_t - 5.723e-3) < 1e-6
+    # bf16 stays on the bf16 tensor-core rate
+    ms_h, _ = chip_smoke.attention_bound_ms(*shape[:7], 2, "trainable")
     np.testing.assert_allclose(
-        ms_b, 1e3 * (10 * 64 * pairs + 2 * 32 * 256 * 64) / 67e12)
-    ms_t, _ = chip_smoke.attention_bound_ms(*shape, "trainable")
-    np.testing.assert_allclose(ms_t, ms + ms_b, rtol=1e-12)
+        ms_h, max(1e3 * 944_242_688 / 989e12, 1e3 * 8_388_608 / 3.35e12))
     assert chip_smoke.FLASH_MAIN[:5] == (2, 16, 16, 256, 64)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' precision scheme, emulated: every product of the CUDA kernels
+# is an mma.sync on TF32 operands with f32 accumulation, in 3xTF32 for f32
+# operands (x = hi + lo, a·b ≈ lo_a·hi_b + hi_a·lo_b + hi_a·hi_b) and with
+# the products of a low part that is 0 (bf16 operands, exact in TF32) left
+# out. Here the same splits go into the plain formulas on the CPU, at the
+# training step's shape, and must meet chip_smoke.py's gates
+# (FLASH_TOL: 1e-5 of max |plain| forward, 1e-4 backward; bf16 adds one
+# bf16 ulp of each element).
+# ---------------------------------------------------------------------------
+
+SCHEME_SHAPE = (2, 16, 16, 256, 64)  # B, Hq, Hkv, S, D: the step's call
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: 10 mantissa bits, ties away from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _parts(x, exact):
+    """(hi, lo) of x; lo is None for an operand exact in TF32."""
+    if exact:
+        return x, None
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mm(eq, a, b, a_exact=False, b_exact=False, passes=3):
+    """einsum as the kernels' mma.sync products compute it: passes=3 is
+    3xTF32 (small terms first), passes=1 one TF32 product."""
+    (ah, al), (bh, bl) = _parts(a, a_exact), _parts(b, b_exact)
+    if passes == 1:
+        ah, bh = _tf32(a), _tf32(b)
+        return torch.einsum(eq, ah, bh)
+    out = torch.zeros(())
+    if al is not None:
+        out = out + torch.einsum(eq, al, bh)
+    if bl is not None:
+        out = out + torch.einsum(eq, ah, bl)
+    return out + torch.einsum(eq, ah, bh)
+
+
+def _scheme_fwd(q, k, v, exact, passes=3):
+    """o, lse with the kernels' products; q (B,Hkv,G,S,D), k, v (B,Hkv,S,D)
+    in f32 (values of the working dtype)."""
+    S, D = q.shape[-2], q.shape[-1]
+    s = _mm("bhgqd,bhkd->bhgqk", q, k, exact, exact, passes) * D ** -0.5
+    s = torch.where(ref._mask(S, S, True, 0, q.device), s,
+                    torch.full((), ref.NEG_INF))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    o = _mm("bhgqk,bhkd->bhgqd", p, v, False, exact, passes) / l
+    return o, (m + torch.log(l))[..., 0]
+
+
+def _scheme_bwd(q, k, v, o, lse, do, exact):
+    """dq, dk, dv with the kernels' products and delta = rowsum(do·o)."""
+    S, D = q.shape[-2], q.shape[-1]
+    scale = D ** -0.5
+    s = _mm("bhgqd,bhkd->bhgqk", q, k, exact, exact) * scale
+    p = torch.where(ref._mask(S, S, True, 0, q.device),
+                    torch.exp(s - lse[..., None]), torch.zeros(()))
+    delta = (do * o).sum(-1, keepdim=True)
+    dp = _mm("bhgqd,bhkd->bhgqk", do, v, exact, exact)
+    ds = p * (dp - delta)
+    dq = _mm("bhgqk,bhkd->bhgqd", ds, k, False, exact) * scale
+    dk = _mm("bhgqk,bhgqd->bhkd", ds, q, False, exact) * scale
+    dv = _mm("bhgqk,bhgqd->bhkd", p, do, False, exact)
+    return dq, dk, dv
+
+
+def _gate(got, want, tol, ulp=0.0):
+    """The largest error as a share of what the gate allows (≤ 1 passes):
+    |got − want| ≤ ulp × |want| + tol × max |want| element by element."""
+    diff, w = (got.float() - want.float()).abs(), want.float().abs()
+    return (diff / (ulp * w + tol * w.max())).max().item()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_precision_scheme_meets_chip_gates(dtype):
+    """3xTF32 (f32) or one and two TF32 products (bf16, P and dS kept in
+    f32) at the main shape: o, lse, dq, dk and dv within the gates with a
+    margin; for f32 a single TF32 product would not be."""
+    B, Hq, Hkv, S, D = SCHEME_SHAPE
+    dt = getattr(torch, dtype)
+    exact = dtype == "bfloat16"
+    ulp = 2.0 ** -7 if exact else 0.0
+    q, k, v, do = (t.to(dt) for t in _t(*_inputs(B, Hq, Hkv, S, D, seed=9)))
+    o_r, lse_r = ref.flash_attention_ref(q, k, v)
+    want = ref.flash_attention_bwd_ref(q, k, v, o_r, lse_r, do)
+
+    def grouped(x):
+        return x.float().reshape(B, Hkv, Hq // Hkv, S, -1)
+
+    qg, og, dog = grouped(q), grouped(o_r), grouped(do)
+    kf, vf = k.float(), v.float()
+    o, lse = _scheme_fwd(qg, kf, vf, exact)
+    dq, dk, dv = _scheme_bwd(qg, kf, vf, og, grouped(lse_r[..., None])[..., 0],
+                             dog, exact)
+    shares = {
+        "o": _gate(o.reshape(q.shape).to(dt), o_r, 1e-5, ulp),
+        "lse": _gate(lse.reshape(lse_r.shape), lse_r, 1e-5),
+        "dq": _gate(dq.reshape(q.shape).to(dt), want[0], 1e-4, ulp),
+        "dk": _gate(dk.to(dt), want[1], 1e-4, ulp),
+        "dv": _gate(dv.to(dt), want[2], 1e-4, ulp),
+    }
+    assert max(shares.values()) <= (1.0 if exact else 0.25), shares
+    if not exact:
+        o1, _ = _scheme_fwd(qg, kf, vf, exact, passes=1)
+        assert _gate(o1.reshape(q.shape), o_r, 1e-5) > 1.0
+
+
+# ---------------------------------------------------------------------------
+# The wrapper's argument lists, through a fake library on CPU tensors
+# ---------------------------------------------------------------------------
+
+
+class _FakeLib:
+    """Records each call of the C functions; returns 0 (cudaSuccess)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if name not in fa_kernel.SIGNATURES:
+            raise AttributeError(name)
+
+        def fn(*args):
+            self.calls.append((name, args))
+            return 0
+        fn.__name__ = name
+        return fn
+
+
+@pytest.fixture
+def fake_lib(monkeypatch):
+    import contextlib
+    lib = _FakeLib()
+    monkeypatch.setattr(fa_kernel, "_lib", lambda: lib)
+    monkeypatch.setattr(fa_kernel, "_DEVICE", "cpu")
+    monkeypatch.setattr(fa_kernel, "_device_stream",
+                        lambda device: contextlib.nullcontext(12345))
+    return lib
+
+
+def _check_signature(name, args):
+    import ctypes
+    sig = fa_kernel.SIGNATURES[name]
+    assert len(args) == len(sig), name
+    for i, (a, ty) in enumerate(zip(args, sig)):
+        assert isinstance(a, int) and not isinstance(a, bool), (name, i, a)
+        if ty is ctypes.c_int:
+            assert -2 ** 31 <= a < 2 ** 31, (name, i, a)
+    assert args[-1] == 12345  # the stream, last
+
+
+def test_wrapper_argument_lists_match_signatures(fake_lib):
+    """Forward one launch, backward exactly two (dq, then dk/dv) that share
+    a delta buffer the wrapper allocates and does not fill: it runs no
+    operator but allocations. A view with storage offset 1 loses its
+    16-byte copy bit; the others keep theirs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    B, Hq, Hkv, S, D = 2, 4, 2, 40, 32
+    q, k, v, do = _t(*_inputs(B, Hq, Hkv, S, D, seed=1))
+    q_off = torch.empty(q.numel() + 1)[1:].view(q.shape).copy_(q)
+    assert q_off.storage_offset() == 1 and not fa_kernel.aligned(q_off)
+    assert all(fa_kernel.aligned(t) for t in (q, k, v, do))
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops, self.outs = [], []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            self.ops.append(str(func.overloadpacket))
+            self.outs.append((out.data_ptr(), tuple(out.shape), out.dtype))
+            return out
+
+    fa_kernel.reset_launches()
+    o, lse = fa_kernel.flash_attention(q_off, k, v, causal=True, window=0)
+    (name, args), = fake_lib.calls
+    assert name == "flash_attention_fwd"
+    _check_signature(name, args)
+    assert list(args[:10]) == [0, D, B, Hq, Hkv, S, S, 1, 0, 0b0110]
+    assert args[10] == q_off.data_ptr() and args[-2] == lse.data_ptr()
+
+    fake_lib.calls.clear()
+    with Ops() as mode:
+        dq, dk, dv = fa_kernel.flash_attention_bwd(q, k, v, o, lse, do,
+                                                   window=7)
+    assert [n for n, _ in fake_lib.calls] == ["flash_attention_bwd_dq",
+                                              "flash_attention_bwd_dkv"]
+    (_, a_dq), (_, a_dkv) = fake_lib.calls
+    for n, a in fake_lib.calls:
+        _check_signature(n, a)
+        assert list(a[:10]) == [0, D, B, Hq, Hkv, S, S, 1, 7, 0b1111]
+    # dq: q, k, v, do, o views, then lse, delta; dk/dv: q, k, v, do, then
+    lse_dq, delta_dq = a_dq[30:32]
+    lse_dkv, delta_dkv = a_dkv[26:28]
+    assert lse_dq == lse_dkv == lse.data_ptr()
+    assert delta_dq == delta_dkv
+    assert a_dq[26] == o.data_ptr() and a_dq[32] == dq.data_ptr()
+    assert a_dkv[28] == dk.data_ptr() and a_dkv[32] == dv.data_ptr()
+    assert set(mode.ops) <= {"aten.empty", "aten.empty_like"}, mode.ops
+    assert [o[1:] for o in mode.outs if o[0] == delta_dq] == [
+        ((B, Hq, S), torch.float32)]
+    assert (fa_kernel.fwd_launches, fa_kernel.dq_launches,
+            fa_kernel.dkv_launches) == (1, 1, 1)
+    fa_kernel.reset_launches()
+
+
+def test_launch_config_reads_the_library(fake_lib):
+    """``launch_config`` asks the library for each kernel's block and
+    shared memory: kind 0 fwd, 1 dq, 2 dk/dv, with the dtype code and D."""
+    cfg = fa_kernel.launch_config(torch.bfloat16, 64)
+    assert list(cfg) == list(fa_kernel.KERNELS)
+    assert [list(a[:3]) for _, a in fake_lib.calls] == [[0, 1, 64], [1, 1, 64],
+                                                  [2, 1, 64]]
+    assert all(n == "flash_attention_config" for n, _ in fake_lib.calls)
+
+
+def test_ptxas_report_parses_registers_and_spills(monkeypatch, tmp_path):
+    """``_build.build`` keeps ptxas's ``-v`` lines beside the library, and
+    ``_build.ptxas_report`` reads them per kernel without compiling again."""
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/bin/sh\n"
+        "echo run >> \"$(dirname \"$0\")/runs\"\n"
+        "while [ $# -gt 0 ]; do [ \"$1\" = -o ] && out=$2; shift; done\n"
+        "touch \"$out\"\n"
+        "cat >&2 <<'EOF'\n"
+        "ptxas info    : Compiling entry function '_Z3fooIfLi64ELi2EEvv' "
+        "for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z3fooIfLi64ELi2EEvv\n"
+        "    16 bytes stack frame, 12 bytes spill stores, 28 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 255 registers, 1024 bytes smem, used 1 "
+        "barriers\n"
+        "ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, used 0 barriers\n"
+        "EOF\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    lib = _build.build("flash_attention")
+    assert lib.exists() and lib.with_suffix(".ptxas").exists()
+    assert _build.ptxas_report("flash_attention") == [
+        {"function": "_Z3fooIfLi64ELi2EEvv", "registers": 255,
+         "static_smem_bytes": 1024, "spill_stores": 12, "spill_loads": 28},
+        {"function": "_Z3barv", "registers": 40, "static_smem_bytes": 0,
+         "spill_stores": 0, "spill_loads": 0}]
+    assert (tmp_path / "runs").read_text().count("run") == 1  # one compile

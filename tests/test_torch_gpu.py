@@ -85,10 +85,12 @@ def _flash_tol(dtype, bwd):
                 ulp=2.0 ** -7 if dtype == torch.bfloat16 else 0.0)
 
 
-def _close(got, want, name, *, tol, ulp=0.0):
-    """|got − want| ≤ ulp × |want| + tol × max |want|, element by element."""
+def _close(got, want, name, *, tol, ulp=0.0, scale=None):
+    """|got − want| ≤ ulp × |want| + tol × max |want|, element by element
+    (``scale`` in place of max |want| where given)."""
     diff, ref = (got.float() - want.float()).abs(), want.float().abs()
-    excess = (diff - ulp * ref - tol * ref.max()).max().item()
+    excess = (diff - ulp * ref - tol * (ref.max() if scale is None
+                                        else scale)).max().item()
     assert excess <= 0, (f"{name}: error exceeds {ulp} x |want| + {tol} x "
                          f"max |want| by {excess}")
 
@@ -124,6 +126,87 @@ def test_flash_kernels_match_plain_version(cuda_device, case):
     torch.cuda.synchronize()
     assert (fa_kernel.fwd_launches, fa_kernel.dq_launches,
             fa_kernel.dkv_launches) == tuple(n + 1 for n in before)
+
+
+def _flash_pair(q, k, v, do, kw):
+    """The kernels' (o, lse, dq, dk, dv) and the plain versions', the
+    backward of both from the plain forward's o and lse."""
+    o, lse = fa_kernel.flash_attention(q, k, v, **kw)
+    o_ref, lse_ref = flash_attention_ref(q, k, v, **kw)
+    grads = fa_kernel.flash_attention_bwd(q, k, v, o_ref, lse_ref, do, **kw)
+    want = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
+    torch.cuda.synchronize()
+    return (o, lse, *grads), (o_ref, lse_ref, *want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [2048, 65, 1])
+def test_flash_kernels_long_and_short_sequences(cuda_device, S):
+    """S=2048 f32 causal: 32 trips round the K/V ring; S=65: one full tile
+    and a ragged one; S=1: one row and one key. At S=1 the softmax has one
+    key, so dq and dk are 0 in exact arithmetic and both sides are rounding
+    noise of dP − delta: they are held to tol × max |dP| (here |dP| =
+    |do·v|), the scale of that noise, instead of max |plain| ~ 1e-6."""
+    gen = torch.Generator(device=cuda_device).manual_seed(S)
+    B, Hq, Hkv, D = (1, 4, 2, 64) if S > 1 else (2, 4, 2, 64)
+    q, do = (_decoder_layout(gen, B, Hq, S, D, torch.float32, cuda_device)
+             for _ in range(2))
+    k, v = (_decoder_layout(gen, B, Hkv, S, D, torch.float32, cuda_device)
+            for _ in range(2))
+    got, want = _flash_pair(q, k, v, do, dict(causal=True))
+    dp = (do.reshape(B, Hkv, Hq // Hkv, S, D).float()
+          * v[:, :, None].float()).sum(-1).abs().max()
+    for n, g, w in zip(("o", "lse", "dq", "dk", "dv"), got, want):
+        bwd = n.startswith("d")
+        scale = dp if S == 1 and n in ("dq", "dk") else None
+        _close(g, w, n, tol=1e-4 if bwd else 1e-5, scale=scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_take_misaligned_views(cuda_device, dtype):
+    """Views with a storage offset of 1 element and a sequence stride of
+    H·D + 3 elements take the element-by-element copies inside the same
+    kernels (no operand is 16-byte aligned) and match the plain version."""
+    B, Hq, Hkv, S, D = 2, 8, 2, 200, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+
+    def view(H):
+        row = H * D + 3
+        buf = torch.randn(B * S * row + 1, generator=gen,
+                          device=cuda_device).to(dtype)
+        return buf.as_strided((B, S, H, D), (S * row, row, D, 1),
+                              1).transpose(1, 2)
+
+    q, k, v, do = view(Hq), view(Hkv), view(Hkv), view(Hq)
+    assert not any(fa_kernel.aligned(t) for t in (q, k, v, do))
+    got, want = _flash_pair(q, k, v, do, dict(causal=True))
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    for n, g, w in zip(("o", "lse", "dq", "dk", "dv"), got, want):
+        _close(g, w, n, tol=1e-4 if n.startswith("d") else 1e-5,
+               ulp=0.0 if n == "lse" else ulp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [FLASH_CASES[0], FLASH_CASES[5]], ids=str)
+def test_flash_kernels_are_deterministic(cuda_device, case):
+    """Two calls on the same inputs give bit-identical o, lse, dq, dk and
+    dv: the backward sums in a fixed order, with no atomics."""
+    B, Hq, Hkv, S, D, causal, window, dtype = case
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q, do = (_decoder_layout(gen, B, Hq, S, D, dtype, cuda_device)
+             for _ in range(2))
+    k, v = (_decoder_layout(gen, B, Hkv, S, D, dtype, cuda_device)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    runs = []
+    for _ in range(2):
+        o, lse = fa_kernel.flash_attention(q, k, v, **kw)
+        runs.append((o, lse) + fa_kernel.flash_attention_bwd(
+            q, k, v, o, lse, do, **kw))
+    torch.cuda.synchronize()
+    for n, a, b in zip(("o", "lse", "dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), n
 
 
 @pytest.mark.gpu
