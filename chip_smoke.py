@@ -12,9 +12,9 @@ not 0:
 1. device: ``nvidia-smi`` name and power limit, torch and Triton versions;
    then build: ``nvcc`` builds every CUDA C++ source of the port at once,
    one process each (a line per source with its build time).
-1b. ptxas: each flash kernel's registers, static shared memory and spills
-   (what ``-Xptxas -v`` printed when the build compiled
-   ``flash_attention.cu``).
+1b. ptxas: the registers, static shared memory and spills of each kernel
+   of ``flash_attention.cu``, ``ssd_scan.cu`` and ``rmsnorm.cu`` (what
+   ``-Xptxas -v`` printed when the build compiled them).
 2. kernels: the Triton ``gossip_mix`` (both variants) against its plain
    PyTorch version on the same CUDA tensors, at the training step's real
    layer-group shapes (GPT-2 Medium, M=4, float32), at odd sizes and in
@@ -50,8 +50,15 @@ not 0:
    the step's shape (B=2, H=48, S=256, P=64, N=128, chunk 128) in
    bfloat16 and float32 from strided (B,S,H,P) views, S=2048 (16 chunks
    carry the state), and the JAX tests' three shapes, also against the
-   sequential ``ssd_ref``. Kernel, plain, library (``F.rms_norm``; none
-   computes the SSD scan) and bound times.
+   sequential ``ssd_ref``. Two calls on the same inputs must give
+   bit-identical outputs (each kernel, every shape), and each shape's
+   launch configuration is reported (``rmsnorm``: blocks, threads, shared
+   memory, vectors a lane, warps a row, rows a block; ``ssd_scan``: the
+   CUDA kernels a call and each one's blocks, threads and shared memory).
+   Kernel, plain, library (``F.rms_norm``; none computes the SSD scan) and
+   bound times; the SSD bound at the rates of the card's units for each
+   product (``ssd_bound_ms``), and the device time of each of the SSD's
+   CUDA kernels (torch.profiler, ``device_ms_by_kernel``).
 4. train: the port's main path through its user entry points,
    ``make_backend("prod", "layup", M=4, fb_ratio=2, update_delay=1,
    use_pallas=True)`` + ``drive``, GPT-2 Medium at full width and depth
@@ -112,6 +119,9 @@ F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 # dense) over the three products of 3xTF32, as the flash kernels and
 # PyTorch's f32 attention take them
 TF32X3_FLOPS_PER_S = 495e12 / 3
+# a product of an f32 operand with one exact in TF32 (a bf16 value): the
+# two products of 2xTF32
+TF32X2_FLOPS_PER_S = 495e12 / 2
 BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
 TOL = {"float32": 1e-6, "bfloat16": 2e-2}  # relative to max |ref|
 M = 4
@@ -265,20 +275,40 @@ def phase_build():
              library=os.path.relpath(lib, HERE), seconds=seconds)
     emit("build_all", sources=list(_build.SOURCES),
          seconds=time.perf_counter() - t0)
-    emit("ptxas", source="src/repro_torch/csrc/flash_attention.cu",
-         kernels=[{**r, "function": flash_kernel_name(r["function"])}
-                  for r in _build.ptxas_report("flash_attention")])
+    for name in ("flash_attention", "ssd_scan", "rmsnorm"):
+        emit("ptxas", source=f"src/repro_torch/csrc/{name}.cu",
+             kernels=[{**r, "function": kernel_name(r["function"])}
+                      for r in _build.ptxas_report(name)])
 
 
-def flash_kernel_name(mangled: str) -> str:
-    """``flash_fwd_kernel<float, 64, 2>`` (type, D, warpgroups) from a
-    mangled name; other names as they are."""
-    m = re.search(r"(flash_\w+?_kernel)I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
-                  mangled)
-    if not m:
+def kernel_name(mangled: str) -> str:
+    """``flash_fwd_kernel<float, 64, 2>`` or ``ssd_out_kernel<bf16, float>``
+    (the template's types and integers) from a mangled name: the
+    identifier ending in ``_kernel`` that its length prefix delimits, then
+    its template arguments (a substitution ``S…_`` can only stand for
+    ``__nv_bfloat16`` here, the one named type); other names as they
+    are."""
+    starts = (m.end() for m in re.finditer(r"\d+", mangled))
+    for end in starts:  # a length may follow other digits (``_N_116name``)
+        names = [mangled[end:end + int(mangled[k:end])]
+                 for k in range(end - 1, -1, -1) if mangled[k].isdigit()
+                 and mangled[k:end].isdigit()]
+        name = next((n for n in names
+                     if re.fullmatch(r"[A-Za-z]\w*_kernel", n)), None)
+        if name:
+            break
+    else:
         return mangled
-    dtype = "float" if m.group(2) == "f" else "bf16"
-    return f"{m.group(1)}<{dtype}, {m.group(3)}, {m.group(4)}>"
+    rest = mangled[end + len(name):]
+    if not rest.startswith("I"):
+        return name
+    args = []
+    for a in re.finditer(r"f|13__nv_bfloat16|S\d*_|Li(-?\d+)E|(E)", rest[1:]):
+        if a.group(2):
+            break
+        args.append("float" if a.group(0) == "f" else a.group(1)
+                    if a.group(1) else "bf16")
+    return f"{name}<{', '.join(args)}>"
 
 
 def phase_kernels(torch):
@@ -532,9 +562,9 @@ def ssd_flops(B, H, S, P, N, Q, per_head_cb: bool = False) -> int:
     (T = Q(Q+1)/2 pairs of a chunk), 2 a multiply-add. Per (b, chunk):
     C·Bᵀ, 2·T·N (Bm and Cm are shared across heads). Per (b, h, chunk):
     W·x, 2·T·P; W's decay weights, 3 a pair; C·state and the state's ingest
-    (B⊙w)ᵀ·x, 2·Q·N·P each; the state's decay, 2·N·P. ``per_head_cb``
-    counts C·Bᵀ for every head instead, as the kernel (and the TPU kernel)
-    recomputes it: the kernel's own work, not the function's."""
+    (B⊙w)ᵀ·x, 2·Q·N·P each; the state's decay, 2·N·P. The CUDA kernels do
+    this work (C·Bᵀ in blocks of its own). ``per_head_cb`` counts C·Bᵀ
+    for every head instead, as the TPU kernel recomputes it."""
     T, nc = Q * (Q + 1) // 2, S // Q
     cb = 2 * T * N * B * nc * (H if per_head_cb else 1)
     return cb + B * H * nc * (2 * T * P + 3 * T + 4 * Q * N * P + 2 * N * P)
@@ -542,14 +572,31 @@ def ssd_flops(B, H, S, P, N, Q, per_head_cb: bool = False) -> int:
 
 def ssd_bound_ms(B, H, S, P, N, Q, itemsize, dt_itemsize):
     """Least time for the SSD chunked scan on these inputs, the larger of
-    bytes and the function's operations (``ssd_flops``) over the float32
-    rate (its products run in f32 outside the tensor cores, as the TPU
-    kernel's preferred_element_type=f32). Bytes: x, dt, A, Bm and Cm read
-    once, y written once. Returns (ms, bound_by)."""
-    flops = ssd_flops(B, H, S, P, N, Q)
+    bytes and operations, each kind of operation at the rate of the card's
+    unit for it. Operations: ``ssd_flops`` less the work that y does not
+    need, since the function returns y alone: C·state only for chunks
+    1 .. nc−1 (chunk 0 starts from a zero state), the ingest (B⊙w)ᵀ·x only
+    for chunks 0 .. nc−2 (the last chunk's state is never read), the
+    state's decay only for chunks 1 .. nc−2. Rates: C·Bᵀ of bf16 operands
+    (exact in any product) at the bf16 tensor-core rate; W·x, C·state and
+    the ingest, whose W, state and B⊙w are f32 (the TPU kernel's
+    preferred_element_type), at 2xTF32 (247.5 TFLOP/s) where the other
+    operand (x, C) is bf16 and so exact in TF32, at 3xTF32 (165 TFLOP/s)
+    in f32, as C·Bᵀ in f32; the decay weights and the state's decay at
+    the float32 rate. Bytes: x, dt, A, Bm and Cm read once, y written
+    once. Returns (ms, bound_by)."""
+    T, nc = Q * (Q + 1) // 2, S // Q
+    cb = 2 * T * N * B * nc
+    products = B * H * (nc * 2 * T * P + 2 * (nc - 1) * 2 * Q * N * P)
+    elementwise = B * H * (nc * 3 * T + max(nc - 2, 0) * 2 * N * P)
+    exact = itemsize == 2   # bf16 x, Bm and Cm
+    t_ops = (cb / (BF16_FLOPS_PER_S if exact else TF32X3_FLOPS_PER_S)
+             + products / (TF32X2_FLOPS_PER_S if exact
+                           else TF32X3_FLOPS_PER_S)
+             + elementwise / F32_FLOPS_PER_S)
     nbytes = (2 * B * H * S * P * itemsize + B * H * S * dt_itemsize + 4 * H
               + 2 * B * S * N * itemsize)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -616,11 +663,15 @@ def phase_norm_ssd(torch):
         dt = getattr(torch, dn)
         x = (randn(n_rows, d) * 3).to(dt)
         g = (1 + 0.1 * randn(d)).to(dt)
-        err = rms_check(torch, rk.rmsnorm(x, g), rmsnorm_ref(x, g),
-                        f"{n_rows}x{d} {dn}")
+        got = rk.rmsnorm(x, g)
+        err = rms_check(torch, got, rmsnorm_ref(x, g), f"{n_rows}x{d} {dn}")
+        check(torch.equal(got, rk.rmsnorm(x, g)),
+              f"rmsnorm {n_rows}x{d} {dn}: two calls differ")
         bound, bound_by = norm_bound_ms(n_rows, d, x.element_size(),
                                         g.element_size())
         case = {"shape": [n_rows, d], "dtype": dn, "max_abs_err": err,
+                "bit_identical_calls": True,
+                "launch": rk.launch_config(x, g),
                 "ms": time_ms(torch, lambda: rk.rmsnorm(x, g)),
                 "plain_ms": time_ms(torch, lambda: rmsnorm_ref(x, g)),
                 "library_ms": time_ms(torch, lambda: F.rms_norm(
@@ -651,8 +702,13 @@ def phase_norm_ssd(torch):
         what = f"{[B, H, S, P, N, Q]} {dn}"
         case = {"shape": [B, H, S, P, N, Q], "dtype": dn,
                 "model_views": model_layout,
+                "aligned": [sk.aligned(t) for t in (x, Bm, Cm)],
+                "launch": sk.launch_config(x, Bm, Cm, chunk=Q),
                 "max_abs_err": ssd_check(torch, y, ssd_scan_ref(
                     *args, chunk=Q), what)}
+        check(torch.equal(y, sk.ssd_scan(*args, chunk=Q)),
+              f"ssd_scan {what}: two calls differ")
+        case["bit_identical_calls"] = True
         if not model_layout:
             case["max_abs_err_sequential"] = ssd_check(
                 torch, y, ssd_ref(*args), what + " vs sequential")
@@ -665,13 +721,14 @@ def phase_norm_ssd(torch):
                         plain_ms=time_ms(torch, lambda: ssd_scan_ref(
                             *args, chunk=Q)),
                         bound_ms=bound, bound_by=bound_by,
+                        device_ms_by_kernel=device_ms_by_kernel(
+                            torch, lambda: sk.ssd_scan(*args, chunk=Q)),
                         flops=ssd_flops(B, H, S, P, N, Q),
-                        kernel_flops=ssd_flops(B, H, S, P, N, Q,
-                                               per_head_cb=True))
+                        tpu_kernel_flops=ssd_flops(B, H, S, P, N, Q,
+                                                   per_head_cb=True))
         if (B, H, S, P, N, Q) == SSD_MAIN and dn == "bfloat16":
             rows["ssd_scan"] = {k: case[k] for k in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "kernel_flops")}
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
             rows["ssd_scan"]["library_ms"] = None
         ssd_cases.append(case)
         del x, dt, Bm, Cm, args, y
@@ -1115,25 +1172,33 @@ def phase_train(torch, profile: bool):
     return res
 
 
-def profile_steps(torch, run, batches, **label):
-    """``run(batch)`` for each batch under torch.profiler: device time by
-    kernel, device events and the device's idle share over the window."""
+def device_events(torch, fn, cpu: bool = False):
+    """``fn()`` once under torch.profiler (CUDA activity, and the host's
+    with ``cpu``), synchronised before and after, every event of the
+    window kept (``acc_events``). Returns the wall seconds of the window
+    and ``[(device_us, kernel, count)]`` of its device-side events
+    (kernels, copies, fills), the largest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for b in batches:
-            run(b)
+    with profile(activities=acts, acc_events=True) as prof:
+        fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    rows = []  # device-side events only (kernels, copies, fills)
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA:
-            rows.append((ev.self_device_time_total, ev.key, ev.count))
-    rows.sort(reverse=True)
+    rows = [(ev.self_device_time_total, ev.key, ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and ev.count]
+    return wall, sorted(rows, reverse=True)
+
+
+def profile_steps(torch, run, batches, **label):
+    """``run(batch)`` for each batch under torch.profiler: device time by
+    kernel, device events and the device's idle share over the window."""
+    wall, rows = device_events(
+        torch, lambda: [run(b) for b in batches], cpu=True)
     busy = sum(r[0] for r in rows) / 1e6
     flash = [r for r in rows if "flash_" in r[1]]  # the CUDA C++ attention
     emit("profile", **label, steps=len(batches), wall_s=wall,
@@ -1143,6 +1208,25 @@ def profile_steps(torch, run, batches, **label):
          flash_events=sum(r[2] for r in flash),
          top=[{"kernel": k[:120], "device_ms": us / 1e3, "count": c}
               for us, k, c in rows[:25]])
+
+
+def device_ms_by_kernel(torch, fn, reps: int = 20) -> dict:
+    """Device time of each CUDA kernel that ``fn`` launches, over ``reps``
+    calls in one profiled window (``device_events``, after one warm-up
+    call): ``{kernel: {"ms": mean device time of one launch, "events":
+    launches recorded}}`` by the kernel's short name; ``events`` is a
+    multiple of ``reps`` when the window kept every launch."""
+    fn()
+    _, rows = device_events(torch, lambda: [fn() for _ in range(reps)])
+    out = {}
+    for us, key, count in rows:
+        m = re.search(r"(\w+_kernel)", key)
+        row = out.setdefault(m.group(1) if m else key[:60],
+                             {"us": 0.0, "events": 0})
+        row["us"] += us
+        row["events"] += count
+    return {k: {"ms": r["us"] / 1e3 / r["events"], "events": r["events"]}
+            for k, r in out.items()}
 
 
 def row_scales(torch, x, r, chunk_rows: int = 1 << 16):

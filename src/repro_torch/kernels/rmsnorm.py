@@ -12,6 +12,7 @@ kernel launches on the current CUDA stream without synchronising.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -28,7 +29,13 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 SIGNATURES = {
     # dtype, gamma dtype, rows, d, eps, x, gamma, out, vec, stream
     "rmsnorm": [_I, _I, _L, _L, ctypes.c_float, _P, _P, _P, _I, _P],
+    # dtype, rows, d, vec, SMs; 7 int64 (out): CUDA kernels a call, blocks,
+    # threads, dynamic shared memory, vectors a lane (0: the two-pass
+    # kernel), warps a row, rows a block
+    "rmsnorm_config": [_I, _L, _L, _I, _I, _P],
 }
+# the device type the kernel runs on (tests of the argument lists swap it)
+_DEVICE = "cuda"
 
 
 def reset_launches() -> None:
@@ -38,6 +45,30 @@ def reset_launches() -> None:
 
 def _lib() -> ctypes.CDLL:
     return _build.load("rmsnorm", SIGNATURES)
+
+
+@contextlib.contextmanager
+def _device_stream(device):
+    """``device`` made current; yields its current CUDA stream's handle."""
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream().cuda_stream
+
+
+def launch_config(x: torch.Tensor, gamma: torch.Tensor) -> dict:
+    """How a call on these operands launches (``x`` on a CUDA card):
+    ``{"kernels", "blocks", "threads", "smem_bytes", "vectors_a_lane",
+    "warps_a_row", "rows_a_block"}``; ``vectors_a_lane`` 0 is the two-pass
+    kernel of rows too wide for registers."""
+    d = x.shape[-1]
+    rows = x.numel() // d
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    out = (ctypes.c_int64 * 7)()
+    err = _lib().rmsnorm_config(_DTYPES[x.dtype], rows, d,
+                                int(_vec_ok(d, (x, gamma, x))), sms, out)
+    if err != 0:
+        raise RuntimeError(f"rmsnorm_config: cudaError_t {err}")
+    return dict(zip(("kernels", "blocks", "threads", "smem_bytes",
+                     "vectors_a_lane", "warps_a_row", "rows_a_block"), out))
 
 
 def _vec_ok(d: int, tensors) -> bool:
@@ -61,7 +92,7 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *,
         if t.dtype not in _DTYPES:
             raise ValueError(f"{name} dtype {t.dtype} not built; the kernel "
                              "takes float32 and bfloat16")
-        if t.device.type != "cuda" or t.device != x.device:
+        if t.device.type != _DEVICE or t.device != x.device:
             raise ValueError(f"rmsnorm needs CUDA tensors on one device; "
                              f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
@@ -73,8 +104,7 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *,
     if rows == 0:
         return out  # nothing to launch
     vec = _vec_ok(d, (x, gamma, out))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with _device_stream(x.device) as stream:
         err = _lib().rmsnorm(_DTYPES[x.dtype], _DTYPES[gamma.dtype], rows, d,
                              float(eps), x.data_ptr(), gamma.data_ptr(),
                              out.data_ptr(), int(vec), stream)

@@ -375,14 +375,18 @@ def _rms_close(got, want, name):
 
 
 # the JAX tests' shapes, the Mamba2 step's norms (pre-norm d 1536,
-# gate_norm d_inner 3072), the decoder's 1024, and d with a ragged tail
+# gate_norm d_inner 3072), the decoder's 1024, d with a ragged tail, and
+# rows shared by several warps (40960 bf16, 9000 f32) or too wide for
+# registers (70001 f32 one element an access, 140000 bf16 vectors)
 RMS_CASES = [((4, 64), torch.float32), ((2, 7, 128), torch.float32),
              ((300, 32), torch.float32), ((4, 64), torch.bfloat16),
              ((2, 7, 128), torch.bfloat16), ((300, 32), torch.bfloat16),
              ((2, 256, 1536), torch.bfloat16),
              ((2, 256, 3072), torch.bfloat16), ((1024, 1024), torch.float32),
              ((5, 33), torch.float32), ((3, 77), torch.bfloat16),
-             ((1, 1), torch.float32)]
+             ((1, 1), torch.float32), ((16384, 4096), torch.bfloat16),
+             ((3, 40960), torch.bfloat16), ((2, 9000), torch.float32),
+             ((2, 70001), torch.float32), ((2, 140000), torch.bfloat16)]
 
 
 @pytest.mark.gpu
@@ -400,6 +404,20 @@ def test_rmsnorm_kernel_matches_plain_version(cuda_device, shape, dtype):
     # gamma in the other dtype (the model's gamma has the params' dtype)
     g2 = g.to(torch.float32 if dtype == torch.bfloat16 else torch.bfloat16)
     _rms_close(ops.rmsnorm(x, g2), rmsnorm_ref(x, g2), "mixed gamma")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", [((512, 3072), torch.bfloat16),
+                                         ((1024, 1024), torch.float32),
+                                         ((3, 40960), torch.bfloat16)],
+                         ids=str)
+def test_rmsnorm_kernel_is_deterministic(cuda_device, shape, dtype):
+    """Two calls on the same inputs give the same bits: the row's sum adds
+    in a fixed order, across warps too."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    x = (torch.randn(shape, generator=gen, device=cuda_device) * 3).to(dtype)
+    g = torch.rand(shape[-1:], generator=gen, device=cuda_device).to(dtype)
+    assert torch.equal(ops.rmsnorm(x, g), ops.rmsnorm(x, g))
 
 
 @pytest.mark.gpu
@@ -449,11 +467,12 @@ def _ssd_close(got, want, msg=""):
 @pytest.mark.parametrize("B,H,S,P,N,chunk", [
     (1, 2, 32, 8, 4, 8), (2, 3, 64, 16, 8, 16), (1, 1, 64, 32, 16, 64),
     (2, 4, 256, 64, 128, 128), (1, 2, 2048, 64, 128, 128),
-    (1, 2, 96, 40, 24, 24)])
+    (1, 2, 96, 40, 24, 24), (1, 2, 1280, 16, 8, 64)])
 def test_ssd_scan_kernel_matches_plain_version(cuda_device, dtype, B, H, S,
                                                P, N, chunk):
     """The JAX test's cases, the step's chunk and state (S=2048: 16 chunks
-    carry the state), and P not a multiple of the 32-column tile."""
+    carry the state), P not a multiple of the 32-column tile, and 20
+    chunks (the state pass loads 8 at a time)."""
     gen = torch.Generator(device=cuda_device).manual_seed(7)
     args = _ssd_operands(gen, B, H, S, P, N, dtype, cuda_device)
     before = ssd_kernel.launches
@@ -477,6 +496,45 @@ def test_ssd_scan_kernel_reads_model_views(cuda_device, dtype):
     y = ops.ssd_scan(*args)
     want = ssd_scan_ref(*(a.contiguous() for a in args))
     _ssd_close(y, want, "ssd_scan from the model's views")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_ssd_scan_kernel_is_deterministic(cuda_device, dtype):
+    """Two calls on the same inputs give the same bits (no atomics), at
+    the step's shape and at S=2048, whose states carry over 16 chunks."""
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    for S in (256, 2048):
+        args = _ssd_operands(gen, 2, 48, S, 64, 128, dtype, cuda_device,
+                             model_layout=True)
+        assert torch.equal(ops.ssd_scan(*args), ops.ssd_scan(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_ssd_scan_kernel_reads_misaligned_views(cuda_device, dtype):
+    """x at storage offset 1 with an odd sequence stride, and Bm, Cm
+    sliced at offset 1 of one (B, S, 2N+1) tensor: none takes the 16-byte
+    copies as it is; a kernel of the call packs all three into aligned
+    rows first."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    B, H, S, P, N = 2, 4, 256, 40, 24
+    x, dt, A, Bm, Cm = _ssd_operands(gen, B, H, S, P, N, dtype, cuda_device,
+                                     model_layout=True)
+    buf = torch.zeros(B * S * (H * P + 3) + 1, dtype=dtype,
+                      device=cuda_device)
+    xm = buf[1:].view(B, S, H * P + 3)[..., :H * P].view(
+        B, S, H, P).transpose(1, 2)
+    xm.copy_(x)
+    assert not any(ssd_kernel.aligned(t) for t in (xm, Bm, Cm))
+    cfg = ssd_kernel.launch_config(xm, Bm, Cm, chunk=64)
+    assert cfg["ssd_pack_kernel"]["blocks"] == 3 * B * -(-H * S * P // 256)
+    aligned_x = ssd_kernel.launch_config(x, Bm, Cm, chunk=64)
+    assert aligned_x["ssd_pack_kernel"]["blocks"] == 2 * B * -(-S * N // 256)
+    y = ops.ssd_scan(xm, dt, A, Bm, Cm, chunk=64)
+    want = ssd_scan_ref(*(a.contiguous() for a in (x, dt, A, Bm, Cm)),
+                        chunk=64)
+    _ssd_close(y, want, "ssd_scan from misaligned views")
 
 
 @pytest.mark.gpu

@@ -141,8 +141,16 @@ def test_chip_smoke_ssd_bound_counts_cb_once_per_chunk():
     """``chip_smoke.py``'s ``ssd_scan`` bound at the Mamba2 step's shape
     (B=2, H=48, S=256, P=64, N=128, chunk 128) counts the function's work:
     C·Bᵀ once a (b, chunk), since Bm and Cm are shared across heads, 1.0246
-    GFLOP, 15.3 us at 67 TFLOP/s. The kernel's own count recomputes C·Bᵀ
-    for every head."""
+    GFLOP (the TPU kernel recomputes C·Bᵀ for every head). The bound
+    counts what y needs of it: C·state from chunk 1 on (chunk 0 starts
+    from a zero state), the ingest up to the last chunk but one (the last
+    state is never read), the state's decay only where a state is carried
+    past chunk 1, so 0.619 GFLOP at this shape. Each kind of work runs at
+    its unit's rate: C·Bᵀ of bf16 operands on the bf16 tensor cores, W·x,
+    C·state and the ingest (one f32 operand, one bf16, exact in TF32) at
+    the 2xTF32 rate, in f32 every product at the 3xTF32 rate, the decay
+    weights at the f32 rate: 2.53 us in bf16, where all of the function's
+    work at the f32 rate would be 15.3 us; f32 is bound by its bytes."""
     import importlib.util
     import pathlib
     path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
@@ -154,11 +162,25 @@ def test_chip_smoke_ssd_bound_counts_cb_once_per_chunk():
     assert (B, H, S, P, N, Q) == (2, 48, 256, 64, 128, 128)
     T, nc = int(np.tril(np.ones((Q, Q))).sum()), S // Q
     cb = 2 * T * N * B * nc
-    per_head = B * H * nc * (2 * T * P + 3 * T + 4 * Q * N * P + 2 * N * P)
-    assert chip_smoke.ssd_flops(B, H, S, P, N, Q) == cb + per_head
+    products = B * H * nc * (2 * T * P + 4 * Q * N * P)
+    elementwise = B * H * nc * (3 * T + 2 * N * P)
+    assert chip_smoke.ssd_flops(B, H, S, P, N, Q) == (
+        cb + products + elementwise)
     assert chip_smoke.ssd_flops(B, H, S, P, N, Q, per_head_cb=True) == (
-        H * cb + per_head)
+        H * cb + products + elementwise)
+    # what y needs: C·state over chunks 1 .. nc-1, the ingest over 0 ..
+    # nc-2, the state's decay over 1 .. nc-2 (none at two chunks)
+    needed = (B * H * (nc * 2 * T * P + 2 * (nc - 1) * 2 * Q * N * P),
+              B * H * (nc * 3 * T + max(nc - 2, 0) * 2 * N * P))
+    assert nc == 2 and needed[0] == 605_552_640
     ms, by = chip_smoke.ssd_bound_ms(B, H, S, P, N, Q, 2, 4)
     assert by == "operations"
-    np.testing.assert_allclose(ms, 1e3 * (cb + per_head) / 67e12)
-    assert abs(ms - 1.5292e-2) < 1e-6
+    np.testing.assert_allclose(ms, 1e3 * (cb / 989e12 + needed[0] / 247.5e12
+                                          + needed[1] / 67e12))
+    assert abs(ms - 2.526e-3) < 1e-6
+    # f32 operands: every product at the 3xTF32 rate; bytes bound it
+    ms32, by32 = chip_smoke.ssd_bound_ms(B, H, S, P, N, Q, 4, 4)
+    assert by32 == "bytes"
+    assert ms32 > 1e3 * ((cb + needed[0]) / 165e12 + needed[1] / 67e12)
+    nbytes = 2 * B * H * S * P * 4 + B * H * S * 4 + 4 * H + 2 * B * S * N * 4
+    np.testing.assert_allclose(ms32, 1e3 * nbytes / 3.35e12)
