@@ -66,6 +66,22 @@ not 0:
    just before and read just after: ``gossip_mix`` must run once per layer
    group per step, the flash forward once per layer, forward slice and
    worker, and each backward kernel once per layer and worker.
+4a. train_pipeline, train_streams: the train phase's run (same model,
+   weights, batches and options) through the stage-graph pipeline engine
+   (``overlap=True``) and through the stream engine (``overlap=True,
+   streams=3``: forward | update | gossip on CUDA streams of their own).
+   Steps 1-5 are one window between two synchronisations, with no copy
+   to the host inside it; the metrics are read after it. The loss,
+   update_staleness, staleness_mean, weight_sum and disagreement
+   histories, the SHA-256 of each group of the final read plane (copied to
+   the host) and every kernel's launch count must be identical to the
+   train phase's; the engines' overlap fields (``summary()``), stage times,
+   peak device bytes and the window's time per step are printed.
+   train_streams_int8: the same with ``wire="int8"``, ``compensate=0.5``,
+   held against train_int8 once that has run. ``--profile`` then
+   alternates the three (monolithic, pipeline, streams, streams, pipeline,
+   monolithic) on one state: each run's window time per step, device time
+   per step (kernels merged over the streams) and idle share.
 4b. train_int8: the int8 wire's main path, ``make_backend("prod",
    "layup", M=4, fb_ratio=2, update_delay=1, use_pallas=True,
    wire="int8", compensate=0.5)`` + ``drive``, GPT-2 Medium at full width
@@ -97,10 +113,13 @@ not 0:
 6. the kernels line, the card's ``nvidia-smi`` line, and last the result.
 
 TF32 is off for matrix products and cuDNN (both set below), so float32 is
-float32 throughout.
+float32 throughout. ``CUBLAS_WORKSPACE_CONFIG`` is fixed before CUDA
+starts, so cuBLAS gives the same bits on every CUDA stream (the engine
+phases compare streams against the default stream bit for bit).
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -184,6 +203,11 @@ SSD_SHAPES = [SSD_MAIN + (dt, True) for dt in ("bfloat16", "float32")] + [
     for c in ((1, 2, 32, 8, 4, 8), (2, 3, 64, 16, 8, 16),
               (1, 1, 64, 32, 16, 64))]
 SSM_PROBE_LAYERS = (0, 47)
+ENGINE_TIMEOUT_S = 600.0  # every wait of the stream engine's threads
+PROFILE_WINDOW = 5  # --profile: unprofiled steps timed per engine run
+# the histories the engine phases must reproduce bit for bit
+ENGINE_KEYS = ("loss", "update_staleness", "staleness_mean", "weight_sum",
+               "disagreement")
 
 
 def emit(phase: str, **kw) -> None:
@@ -1095,6 +1119,7 @@ def counted_drive(torch, backend, params, batches, resets):
             stamps.append(time.perf_counter())
             yield b
 
+    gc.collect()  # earlier phases' cyclic garbage out of the peak
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for reset in resets:                            # main path starts
@@ -1106,6 +1131,234 @@ def counted_drive(torch, backend, params, batches, resets):
     hist = {k: [float(v) for v in out["history"][k]] for k in HISTORY_KEYS}
     return (out, hist, [b - a for a, b in zip(stamps, stamps[1:])],
             torch.cuda.max_memory_allocated())
+
+
+def launch_resets():
+    """The launch counters of the kernels a training step can launch."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gossip_mix as gm_kernel
+    from repro_torch.kernels import quantize as qk
+
+    return (gm_kernel.reset_launches, fa.reset_launches, qk.reset_launches)
+
+
+def step_launches() -> dict:
+    """Every training-step kernel's launches since the counters' reset."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gossip_mix as gm_kernel
+    from repro_torch.kernels import quantize as qk
+
+    return {"gossip_mix": gm_kernel.launches,
+            "flash_fwd": fa.fwd_launches, "flash_dq": fa.dq_launches,
+            "flash_dkv": fa.dkv_launches,
+            "quantize_plane": qk.quantize_launches,
+            "dequant_mix": qk.dequant_mix_launches}
+
+
+def plane_digests(torch, plane, chunk: int = 1 << 26) -> dict:
+    """SHA-256 of each group buffer of a plane, its bytes copied to the host
+    a chunk at a time (so no second plane is kept on the card)."""
+    import hashlib
+
+    out = {}
+    for g, buf in plane.items():
+        h = hashlib.sha256()
+        flat = buf.reshape(-1)
+        for lo in range(0, flat.numel(), chunk):
+            h.update(flat[lo:lo + chunk].contiguous().view(torch.uint8)
+                     .cpu().numpy())
+        out[g] = h.hexdigest()
+    return out
+
+
+def settle(torch, backend) -> None:
+    """Wait until the backend's work is done: the stream engine's tasks all
+    launched (and their spans recorded), then the card idle."""
+    if getattr(backend, "streams", 1) > 1:
+        backend.engine.finalize()
+    torch.cuda.synchronize()
+
+
+def window_drive(torch, backend, params, batches, resets):
+    """The engine phases' drive: init and step 0, then steps 1.. as ONE
+    window between two synchronisations with no copy to the host inside
+    it (``drive``'s per-step metric copies and ``counted_drive``'s
+    per-batch synchronisations would hide any run-ahead); the metrics are
+    read after the window. The launch counters are zeroed (``resets``)
+    just before init. Returns (state, history, window seconds, peak device
+    bytes, bytes allocated before init)."""
+    gc.collect()  # earlier phases' cyclic garbage out of the peak
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for reset in resets:                            # main path starts
+        reset()
+    state = backend.init(None, params)
+    state, m = backend.step(state, batches[0])
+    metrics = [m]
+    settle(torch, backend)
+    t0 = time.perf_counter()
+    for b in batches[1:]:
+        state, m = backend.step(state, b)
+        metrics.append(m)
+    settle(torch, backend)                          # main path ends
+    window = time.perf_counter() - t0
+    hist = {k: [float(m[k]) for m in metrics] for k in HISTORY_KEYS}
+    return state, hist, window, torch.cuda.max_memory_allocated(), base
+
+
+def hold_engine(name: str, got: dict, ref: dict, ref_name: str) -> None:
+    """An engine run against its monolithic run: histories, launch counts
+    and the final read plane's digests identical."""
+    for k in ENGINE_KEYS:
+        check(got["history"][k] == ref["history"][k],
+              f"{name} {k} {got['history'][k]} != {ref_name} "
+              f"{ref['history'][k]}")
+    check(got["all_launches"] == ref["all_launches"],
+          f"{name} launches {got['all_launches']} != {ref_name} "
+          f"{ref['all_launches']}")
+    check(got["read_plane_sha256"] == ref["read_plane_sha256"],
+          f"{name} read plane differs from {ref_name}'s")
+
+
+def phase_train_engine(torch, name, ref, *, int8: bool = False, **engine):
+    """The train phase's run (train_int8's with ``int8``) through an engine
+    (``engine``: ``overlap=True[, streams=n]``), timed as one window
+    (``window_drive``) and held against ``ref``, the monolithic run, when
+    given. Returns (result, backend); the backend's state is dropped and
+    its engine reset, so it holds no plane."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.backend import make_backend
+    from repro_torch.models import build_model
+    from repro_torch.optim import constant, momentum
+
+    cfg = get_config("gpt2-medium")
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    wire = dict(wire="int8", compensate=LAMBDA) if int8 else {}
+    backend = make_backend("prod", "layup", M=M, loss_fn=model.loss_fn,
+                           optimizer=momentum(0.9), schedule=constant(LR),
+                           fb_ratio=R, update_delay=1, use_pallas=True,
+                           device="cuda", wait_timeout_s=ENGINE_TIMEOUT_S,
+                           **wire, **engine)
+    batches = lm_batches(torch, cfg.vocab_size, TRAIN_STEPS, seed=0)
+    state, hist, window, peak, base = window_drive(
+        torch, backend, params, batches, launch_resets())
+    every = step_launches()
+    check_history(hist, cfg.vocab_size, name)
+    summary = backend.summary()
+    timeline = backend.timeline.summary()
+    read = state["read"]
+    if backend.streams > 1:
+        read = backend.engine.materialize(read)
+    digests = plane_digests(torch, read)
+    steps = len(batches) - 1
+    tokens = M * BATCH_PER_WORKER * SEQ
+    res = {"model": cfg.name, "M": M, "fb_ratio": R, "update_delay": 1,
+           **wire, **engine, "steps": TRAIN_STEPS, "history": hist,
+           "all_launches": every, "read_plane_sha256": digests,
+           "window_steps": steps, "window_s": window,
+           "window_step_s": window / steps,
+           "tokens_per_s": tokens * steps / window, "peak_bytes": peak,
+           "bytes_before_init": base,
+           "describe": backend.engine.describe,
+           **{k: summary[k] for k in (
+               "pipeline_wall_s", "overlap_events", "overlap_s",
+               "fwd_gossip_overlap_s", "streams", "exec_overlap_s",
+               "signal_wait_s")},
+           "stage_s": timeline["stage_s"],
+           "stream_busy_s": timeline["stream_busy_s"]}
+    if ref is not None:
+        hold_engine(name, res, ref, ref["phase"])
+        res["held_against"] = ref["phase"]
+    emit(name, **res)
+    del state, read, params
+    backend.engine.reset()
+    torch.cuda.empty_cache()
+    return res, backend
+
+
+def profiled_busy(torch, fn):
+    """``fn()`` under torch.profiler (CUDA activity): the device's busy time
+    with the kernels of all streams merged into one timeline (time when at
+    least one ran), the plain sum of kernel times, and the kernel count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    union, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            union += b - a
+            end = b
+        elif b > end:
+            union += b - end
+            end = b
+    return union / 1e6, sum(b - a for a, b in spans) / 1e6, len(spans)
+
+
+def phase_profile_engines(torch, backends, batches):
+    """--profile: the monolithic step, the pipeline and the streams
+    alternated on one state (m, p, s, s, p, m). Each run times
+    ``PROFILE_WINDOW`` steps as one window between two synchronisations,
+    then profiles two more: device time per step (kernels merged over the
+    streams) and idle share = 1 − device time per step / the window's time
+    per step; the engines' overlap fields over the window."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    params = build_model(get_config("gpt2-medium")).init(seed=0,
+                                                         device="cuda")
+    state = backends["monolithic"].init(None, params)
+    del params
+    rows = {k: [] for k in backends}
+    for name in ("monolithic", "pipeline", "streams", "streams", "pipeline",
+                 "monolithic"):
+        be = backends[name]
+        if be.engine is not None:
+            be.engine.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches[:PROFILE_WINDOW]:
+            state, _ = be.step(state, b)
+        settle(torch, be)
+        window = time.perf_counter() - t0
+        summary = be.summary()
+
+        def run():
+            nonlocal state
+            for b in batches[PROFILE_WINDOW:PROFILE_WINDOW + 2]:
+                state, _ = be.step(state, b)
+            settle(torch, be)
+
+        busy, kernel_sum, kernels = profiled_busy(torch, run)
+        if be.streams > 1:
+            state = be.engine.materialize(state)
+        row = {"run": name, "window_step_s": window / PROFILE_WINDOW,
+               "device_s_per_step": busy / 2,
+               "kernel_s_per_step": kernel_sum / 2,
+               # time two or more kernels ran at once (streams only)
+               "concurrent_kernel_s_per_step": (kernel_sum - busy) / 2,
+               "kernels_per_step": kernels / 2,
+               "idle_share": 1.0 - busy / 2 / (window / PROFILE_WINDOW),
+               **{k: summary.get(k) for k in (
+                   "streams", "exec_overlap_s", "overlap_s",
+                   "fwd_gossip_overlap_s", "signal_wait_s")}}
+        rows[name].append(row)
+        emit("engine_profile", **row)
+    emit("engine_profile_summary", order="m, p, s, s, p, m",
+         **{name: {k: statistics.median(r[k] for r in rs)
+                   for k in ("window_step_s", "device_s_per_step",
+                             "idle_share")}
+            for name, rs in rows.items()})
+    del state
+    torch.cuda.empty_cache()
 
 
 def check_history(hist, vocab: int, what: str) -> None:
@@ -1137,8 +1390,8 @@ def phase_train(torch, profile: bool):
                            device="cuda")
     batches = lm_batches(torch, cfg.vocab_size, TRAIN_STEPS, seed=0)
     out, hist, step_s, peak = counted_drive(
-        torch, backend, params, batches,
-        (gm_kernel.reset_launches, fa.reset_launches))
+        torch, backend, params, batches, launch_resets())
+    every = step_launches()
     launches = gm_kernel.launches
     flash = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
              "dkv": fa.dkv_launches}
@@ -1152,6 +1405,7 @@ def phase_train(torch, profile: bool):
     read = out["state"]["read"]
     check(all(bool(torch.isfinite(v).all()) for v in read.values()),
           "nonfinite plane")
+    digests = plane_digests(torch, read)
     med = statistics.median(step_s[1:])
     tokens = M * BATCH_PER_WORKER * SEQ
     res = {"model": cfg.name, "layers": cfg.num_layers,
@@ -1162,14 +1416,15 @@ def phase_train(torch, profile: bool):
            "history": hist, "step_s": step_s, "median_step_s": med,
            "tokens_per_step": tokens, "tokens_per_s": tokens / med,
            "peak_bytes": peak, "gossip_mix_launches": launches,
-           "flash_launches": flash,
+           "flash_launches": flash, "all_launches": every,
+           "read_plane_sha256": digests,
            "groups": dict(backend.part.group_sizes)}
     emit("train", **res)
     if profile:
         phase_profile(torch, backend, out["state"], batches)
     del out, read, params
     torch.cuda.empty_cache()
-    return res
+    return res, backend
 
 
 def device_events(torch, fn, cpu: bool = False):
@@ -1262,8 +1517,8 @@ def phase_train_int8(torch, train_res, profile: bool):
                            wire="int8", compensate=LAMBDA, device="cuda")
     batches = lm_batches(torch, cfg.vocab_size, TRAIN_STEPS, seed=0)
     out, hist, step_s, peak = counted_drive(
-        torch, backend, params, batches,
-        (gm_kernel.reset_launches, fa.reset_launches, qk.reset_launches))
+        torch, backend, params, batches, launch_resets())
+    every = step_launches()
     launches = {"quantize_plane": qk.quantize_launches,
                 "dequant_mix": qk.dequant_mix_launches,
                 "gossip_mix": gm_kernel.launches}
@@ -1284,6 +1539,7 @@ def phase_train_int8(torch, train_res, profile: bool):
           f"wire {out['wire_dtype']} {wire} B != {INT8_WIRE_BYTES}")
     state = out["state"]
     del out
+    digests = plane_digests(torch, state["read"])
     for name in ("write", "resid", "theta"):
         check(all(bool(torch.isfinite(v).all())
                   for v in state[name].values()), f"nonfinite {name}")
@@ -1319,7 +1575,8 @@ def phase_train_int8(torch, train_res, profile: bool):
            "peak_bytes": peak, "launches": launches, "flash_launches": flash,
            "wire_bytes_per_round": wire, "f32_plane_bytes": f32_plane,
            "wire_vs_f32_plane": wire / f32_plane,
-           "resid_max_over_scale": worst}
+           "resid_max_over_scale": worst, "history": hist,
+           "all_launches": every, "read_plane_sha256": digests}
     emit("train_int8", **res)
     del state, params
     torch.cuda.empty_cache()
@@ -1522,6 +1779,8 @@ def main(argv) -> int:
     # the step's transients are plane-sized (GBs): growable segments keep
     # the caching allocator from stranding them as fragments
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    # a fixed cuBLAS workspace: the same bits on every CUDA stream
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -1549,15 +1808,37 @@ def main(argv) -> int:
          cuda=torch.version.cuda, triton=triton.__version__,
          name=torch.cuda.get_device_name(0),
          allow_tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
-         allow_tf32_cudnn=torch.backends.cudnn.allow_tf32)
+         allow_tf32_cudnn=torch.backends.cudnn.allow_tf32,
+         cublas_workspace_config=os.environ["CUBLAS_WORKSPACE_CONFIG"])
     t0 = time.perf_counter()
     phase_build()
     kern = phase_kernels(torch)
     flash = phase_flash(torch)
     quant = phase_quantize(torch)
     norm_ssd = phase_norm_ssd(torch)
-    train = phase_train(torch, profile="--profile" in argv)
-    int8 = phase_train_int8(torch, train, profile="--profile" in argv)
+    profile = "--profile" in argv
+    train, mono = phase_train(torch, profile=profile)
+    train["phase"] = "train"
+    _, pipe = phase_train_engine(torch, "train_pipeline", train,
+                                 overlap=True)
+    _, streams = phase_train_engine(torch, "train_streams", train,
+                                    overlap=True, streams=3)
+    if profile:
+        phase_profile_engines(
+            torch, {"monolithic": mono, "pipeline": pipe, "streams": streams},
+            lm_batches(torch, train["vocab"], PROFILE_WINDOW + 2, seed=3))
+    streams.engine.close()
+    del mono, pipe, streams
+    streams_int8, be = phase_train_engine(torch, "train_streams_int8", None,
+                                          int8=True, overlap=True, streams=3)
+    be.engine.close()
+    del be
+    int8 = phase_train_int8(torch, train, profile=profile)
+    int8["phase"] = "train_int8"
+    hold_engine("train_streams_int8", streams_int8, int8, "train_int8")
+    emit("train_streams_int8_held", held_against="train_int8",
+         keys=list(ENGINE_KEYS), launches=streams_int8["all_launches"],
+         read_plane_sha256=streams_int8["read_plane_sha256"])
     ssm = phase_train_ssm(torch, profile="--profile" in argv)
     phase_route(torch)
     phase_route_int8(torch)

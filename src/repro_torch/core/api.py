@@ -19,13 +19,24 @@ def consensus(params, weights: torch.Tensor):
     return tree_map(f, params)
 
 
+# elements of a worker row that the disagreement reduces at a time: its f32
+# temporaries stay at M × 64 MB instead of whole-plane copies
+_DRIFT_CHUNK = 1 << 24
+
+
 def disagreement(params, weights: torch.Tensor) -> torch.Tensor:
-    """Mean over workers of ‖x_i − x̄‖ (the paper's 'model disagreement')."""
-    xbar = consensus(params, weights)
-
-    def sq(p, b):
-        d = p.to(torch.float32) - b[None]
-        return torch.sum(torch.square(d), dim=tuple(range(1, p.dim())))
-
-    per_worker = sum(tree_leaves(tree_map(sq, params, xbar)))
+    """Mean over workers of ‖x_i − x̄‖ (the paper's 'model disagreement'),
+    x̄ the push-sum consensus. Each leaf is reduced a chunk of its row at a
+    time, so no plane-sized f32 copy is made; the sums' order differs from
+    the JAX package's by rounding only."""
+    wsum = torch.clamp(torch.sum(weights), min=1e-12)
+    w = weights.to(torch.float32)[:, None]
+    per_worker = 0.0
+    for p in tree_leaves(params):
+        rows = p.reshape(p.shape[0], -1)
+        for lo in range(0, rows.shape[1], _DRIFT_CHUNK):
+            pc = rows[:, lo:lo + _DRIFT_CHUNK].to(torch.float32)
+            xbar = torch.sum(w * pc, dim=0) / wsum
+            per_worker = per_worker + torch.sum(
+                torch.square(pc - xbar[None]), dim=1)
     return torch.mean(torch.sqrt(per_worker))

@@ -9,8 +9,8 @@ of ``repro/core/backend.py``).
 reference's mesh of M devices. The per-step gossip shift is drawn by a host
 numpy generator seeded at init, the same draws as the reference's.
 
-Metrics are device tensors; ``summary()`` and ``drive``'s history read them
-on the host.
+Metrics are device tensors (with ``streams > 1``, futures of them);
+``summary()`` and ``drive``'s history read them on the host.
 """
 from __future__ import annotations
 
@@ -18,16 +18,13 @@ from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 
-from repro_torch.device import resolve_device
+from repro_torch.device import not_ported, resolve_device
+from repro_torch.launch.pipeline import (StageTimeline,
+                                         make_pipeline_backend_trainer)
 from repro_torch.launch.train import make_decoupled_backend_trainer
 
 _NUMERIC_SUMMARY_KEYS = ("loss", "disagreement", "staleness_mean",
                          "update_staleness", "weight_sum", "nonfinite_skips")
-
-
-def _not_ported(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1, item {item})")
 
 
 def _numeric_summary(steps: int, last: Dict[str, Any]) -> Dict[str, float]:
@@ -50,9 +47,16 @@ class ProdTrainerBackend:
     applies the delay correction ``g + λ·g⊙g⊙(θ_now − θ_stale)`` in the
     update lane (DESIGN.md §14); ``summary()`` reports ``wire_dtype`` and
     ``wire_bytes_per_round``. ``device`` (default ``"cuda"``, which must
-    exist) replaces the reference's ``mesh``. The options of later slices
-    raise ``NotImplementedError`` naming the ROADMAP item that ports
-    them."""
+    exist) replaces the reference's ``mesh``.
+
+    ``overlap=True`` runs the step through the stage-graph pipeline engine
+    (``repro_torch.launch.pipeline``; ``max_inflight_steps`` bounds the
+    steps enqueued ahead of the card), and ``streams > 1`` through the
+    stream engine on CUDA streams of their own
+    (``repro_torch.launch.streams``; ``wait_timeout_s`` bounds each wait of
+    its threads): the same numerics, and ``summary()`` adds the measured
+    stage timeline's overlap fields. The options of later slices raise
+    ``NotImplementedError`` naming the ROADMAP item that ports them."""
 
     kind = "prod"
 
@@ -64,23 +68,22 @@ class ProdTrainerBackend:
                  use_pallas: bool = False, publisher=None,
                  streams: int = 1, wire: str = "param",
                  compensate: float = 0.0, faults=None,
-                 max_inflight_steps=None, tuning=None):
+                 max_inflight_steps=None, tuning=None,
+                 wait_timeout_s: float = 600.0):
         if mesh is not None:
-            raise _not_ported("an explicit device mesh (multi-GPU ring)", 15)
-        if overlap or max_inflight_steps is not None:
-            raise _not_ported("overlap=True (the stage-graph pipeline "
-                              "engine)", 9)
-        if int(streams) > 1:
-            raise _not_ported("streams > 1 (the stream engine)", 9)
+            raise not_ported("an explicit device mesh (multi-GPU ring)", 15)
+        if int(streams) > 1 and not overlap:
+            raise ValueError("streams > 1 is a property of the stage-graph "
+                             "pipeline; it requires overlap=True")
         if faults is not None:
-            raise _not_ported("faults (chaos injection and membership)", 10)
+            raise not_ported("faults (chaos injection and membership)", 10)
         if publisher is not None:
-            raise _not_ported("publisher (live serving)", 11)
+            raise not_ported("publisher (live serving)", 11)
         if tuning is not None:
-            raise _not_ported("tuning (the stage autotuner)", 12)
+            raise not_ported("tuning (the stage autotuner)", 12)
         if not flat:
-            raise _not_ported("flat=False (the legacy per-leaf tree state)",
-                              15)
+            raise not_ported("flat=False (the legacy per-leaf tree state)",
+                             15)
         algo_name = getattr(algo, "name", str(algo))
         if not algo_name.startswith("layup"):
             raise ValueError(
@@ -89,17 +92,35 @@ class ProdTrainerBackend:
         self.name = f"prod:{algo_name}"
         self.M = M
         self.wire = str(wire)
+        self.streams = int(streams)
         self.device = resolve_device(device)
-        self._init_fn, self._step_fn, self._shifts, self._engine_box = \
-            make_decoupled_backend_trainer(
-                loss_fn, optimizer, schedule, M, device=self.device,
-                shifts=shifts, fb_ratio=fb_ratio, update_delay=update_delay,
-                straggler_delays=straggler_delays,
-                measure_drift=measure_drift, use_pallas=use_pallas,
-                wire=wire, compensate=compensate)
+        common = dict(device=self.device, shifts=shifts, fb_ratio=fb_ratio,
+                      update_delay=update_delay,
+                      straggler_delays=straggler_delays,
+                      measure_drift=measure_drift, use_pallas=use_pallas,
+                      wire=wire, compensate=compensate)
+        if overlap:
+            self.timeline = StageTimeline()
+            self._init_fn, self._step_fn, self._shifts, self._engine_box = \
+                make_pipeline_backend_trainer(
+                    loss_fn, optimizer, schedule, M, timeline=self.timeline,
+                    streams=self.streams,
+                    max_inflight_steps=max_inflight_steps,
+                    wait_timeout_s=wait_timeout_s, **common)
+        else:
+            self.timeline = None
+            self._init_fn, self._step_fn, self._shifts, self._engine_box = \
+                make_decoupled_backend_trainer(loss_fn, optimizer, schedule,
+                                               M, **common)
         self._steps = 0
         self._last: Dict[str, Any] = {}
         self._shift_rng = np.random.default_rng(0xC0FFEE)
+
+    @property
+    def engine(self):
+        """The pipeline or stream engine (``overlap=True``, after init);
+        else None."""
+        return self._engine_box.get("engine")
 
     @property
     def part(self):
@@ -107,15 +128,25 @@ class ProdTrainerBackend:
         return self._engine_box.get("part")
 
     def export_params(self, state):
-        """Stacked ``(M, ...)`` parameter tree view of the read plane."""
+        """Stacked ``(M, ...)`` parameter tree view of the read plane (the
+        stream engine's futures materialized first)."""
         part = self._engine_box.get("part")
         if part is None:
             raise RuntimeError("call init() before export_params()")
-        return part.unpack(state["read"])
+        read = state["read"]
+        if self.streams > 1:
+            read = self.engine.materialize(read)
+        return part.unpack(read)
 
     def init(self, rng, params_single):
         self._steps = 0
         self._shift_rng = np.random.default_rng(0xC0FFEE)
+        if self.engine is not None:
+            # a re-init measures a fresh run: stale events would collide in
+            # the overlap accounting's event index
+            self.engine.reset()
+        elif self.timeline is not None:
+            self.timeline.reset()
         return self._init_fn(rng, params_single)
 
     def step(self, state, batch, rng=None):
@@ -135,6 +166,18 @@ class ProdTrainerBackend:
             # one full plane crosses the ring per gossip round per worker
             out["wire_bytes_per_round"] = float(
                 part.plane_nbytes(wire=self.wire))
+        if self.timeline is not None:
+            if self.streams > 1 and self.engine is not None:
+                self.engine.finalize()  # retire the in-flight tasks
+            self.timeline.finalize()
+            t = self.timeline.summary()
+            out.update(pipeline_wall_s=t["wall_s"],
+                       overlap_events=float(t["overlap_events"]),
+                       overlap_s=t["overlap_s"],
+                       fwd_gossip_overlap_s=t["fwd_gossip_overlap_s"],
+                       streams=float(t["streams"]),
+                       exec_overlap_s=t["exec_overlap_s"],
+                       signal_wait_s=t["signal_wait_s"])
         return out
 
 
@@ -143,7 +186,7 @@ def make_backend(kind: str, algo, *, M: int, loss_fn: Callable = None,
     """Entry point over the backends. The port has ``kind="prod"`` so far
     (needs loss_fn, optimizer, schedule; ``device`` defaults to CUDA)."""
     if kind in ("sim", "event"):
-        raise _not_ported(f"the {kind!r} backend", 13)
+        raise not_ported(f"the {kind!r} backend", 13)
     if kind == "prod":
         if loss_fn is None or optimizer is None or schedule is None:
             raise ValueError("prod backend needs loss_fn, optimizer, schedule")

@@ -26,25 +26,29 @@ class _Leaf:
 _LEAF = _Leaf()
 
 
+# The recursions are module-level functions, not closures: a nested
+# function that calls itself is a reference cycle, which would keep the
+# leaves it saw (plane and gradient tensors) alive until the cyclic garbage
+# collector happens to run.
+def _flatten(node, path, out):
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return {k: _flatten(node[k], path + (DictKey(k),), out)
+                for k in sorted(node)}
+    if isinstance(node, (list, tuple)):
+        kids = [_flatten(c, path + (SequenceKey(i),), out)
+                for i, c in enumerate(node)]
+        return tuple(kids) if isinstance(node, tuple) else kids
+    out.append((path, node))
+    return _LEAF
+
+
 def tree_flatten_with_path(tree) -> Tuple[List[Tuple[tuple, Any]], Any]:
     """``(path, leaf)`` pairs in jax flatten order, plus a treedef that
     :func:`tree_unflatten` rebuilds the structure from."""
     out: List[Tuple[tuple, Any]] = []
-
-    def rec(node, path):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            return {k: rec(node[k], path + (DictKey(k),))
-                    for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            kids = [rec(c, path + (SequenceKey(i),))
-                    for i, c in enumerate(node)]
-            return tuple(kids) if isinstance(node, tuple) else kids
-        out.append((path, node))
-        return _LEAF
-
-    treedef = rec(tree, ())
+    treedef = _flatten(tree, (), out)
     return out, treedef
 
 
@@ -57,20 +61,19 @@ def tree_leaves(tree) -> List[Any]:
     return tree_flatten(tree)[0]
 
 
+def _unflatten(node, it):
+    if node is _LEAF:
+        return next(it)
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return {k: _unflatten(v, it) for k, v in node.items()}
+    kids = [_unflatten(c, it) for c in node]
+    return tuple(kids) if isinstance(node, tuple) else kids
+
+
 def tree_unflatten(treedef, leaves) -> Any:
-    it = iter(leaves)
-
-    def rec(node):
-        if node is _LEAF:
-            return next(it)
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            return {k: rec(v) for k, v in node.items()}
-        kids = [rec(c) for c in node]
-        return tuple(kids) if isinstance(node, tuple) else kids
-
-    return rec(treedef)
+    return _unflatten(treedef, iter(leaves))
 
 
 def tree_map(fn: Callable, tree, *rest) -> Any:

@@ -1,4 +1,5 @@
-"""Device resolution shared by the port's entry points."""
+"""Device resolution, and the guard of options still to port, shared by the
+port's entry points."""
 from __future__ import annotations
 
 import torch
@@ -13,3 +14,10 @@ def resolve_device(device=None) -> torch.device:
             "CUDA device requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run on the CPU explicitly")
     return dev
+
+
+def not_ported(what: str, item: int) -> NotImplementedError:
+    """The error an entry point raises for an option of a later slice; it
+    names the ROADMAP item that ports it."""
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP queue 1, item {item})")

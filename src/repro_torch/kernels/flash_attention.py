@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import threading
 
 import torch
 
@@ -39,6 +40,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 fwd_launches = 0
 dq_launches = 0
 dkv_launches = 0
+# the counters are bumped from the stream engine's threads too
+_count_lock = threading.Lock()
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # dtype, D, B, Hq, Hkv, Sq, Sk, causal, window, aligned (bit 1 q, 2 k, 4 v,
@@ -161,7 +164,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         _run(_lib().flash_attention_fwd,
              sizes + _view(q) + _view(k) + _view(v) + _view(o)
              + [lse.data_ptr(), stream])
-    fwd_launches += 1
+    with _count_lock:
+        fwd_launches += 1
     return o, lse
 
 
@@ -187,8 +191,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         rows = [lse.data_ptr(), delta.data_ptr()]
         _run(lib.flash_attention_bwd_dq,
              sizes + views + _view(o) + rows + _view(dq) + [stream])
-        dq_launches += 1
+        with _count_lock:
+            dq_launches += 1
         _run(lib.flash_attention_bwd_dkv,
              sizes + views + rows + _view(dk) + _view(dv) + [stream])
-        dkv_launches += 1
+        with _count_lock:
+            dkv_launches += 1
     return dq, dk, dv

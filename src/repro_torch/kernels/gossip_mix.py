@@ -33,6 +33,7 @@ goes to ``TRITON_CACHE_DIR``, by default ``<repo>/build/triton``.
 from __future__ import annotations
 
 import os
+import threading
 from pathlib import Path
 
 import torch
@@ -45,6 +46,9 @@ NUM_WARPS = 8
 # kernel launches since the last reset (a plain counter; chip_smoke.py
 # zeroes it before the main path and reads it after)
 launches = 0
+# guards the counter and the one-time build: the stream engine's threads
+# launch the kernel too
+_lock = threading.Lock()
 
 # bound to ``triton.language`` when the kernel is first built; the kernel
 # body below resolves ``tl`` through this module's globals at compile time
@@ -76,14 +80,15 @@ def _repo_root() -> Path:
 def _kernel():
     """Build (once per process) and return the jitted Triton kernel."""
     global tl, _KERNEL
-    if _KERNEL is None:
-        os.environ.setdefault("TRITON_CACHE_DIR",
-                              str(_repo_root() / "build" / "triton"))
-        import triton
-        import triton.language
+    with _lock:
+        if _KERNEL is None:
+            os.environ.setdefault("TRITON_CACHE_DIR",
+                                  str(_repo_root() / "build" / "triton"))
+            import triton
+            import triton.language
 
-        tl = triton.language
-        _KERNEL = triton.jit(_mix_kernel)
+            tl = triton.language
+            _KERNEL = triton.jit(_mix_kernel)
     return _KERNEL
 
 
@@ -131,5 +136,6 @@ def gossip_mix(x: torch.Tensor, x_recv: torch.Tensor, upd, alpha, beta,
     grid = (-(-n // BLOCK), rows)
     kernel[grid](x, x_recv, upd if upd is not None else x, out, a, b, n,
                  HAS_UPD=upd is not None, BLOCK=BLOCK, num_warps=NUM_WARPS)
-    launches += 1
+    with _lock:
+        launches += 1
     return out

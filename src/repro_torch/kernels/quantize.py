@@ -17,6 +17,7 @@ kernel launches on the current CUDA stream without synchronising.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -52,6 +53,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # them before the main path and reads them after)
 quantize_launches = 0
 dequant_mix_launches = 0
+# the counters are bumped from the stream engine's threads too
+_count_lock = threading.Lock()
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 SIGNATURES = {
@@ -138,7 +141,8 @@ def quantize_plane(x: torch.Tensor, resid=None, *, out_q=None, out_s=None,
               None if resid is None else resid.data_ptr(),
               out_q.data_ptr(), out_s.data_ptr(), out_resid.data_ptr(),
               stream])
-    quantize_launches += 1
+    with _count_lock:
+        quantize_launches += 1
     return out_q, out_s, out_resid
 
 
@@ -173,5 +177,6 @@ def dequant_mix(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
               x.data_ptr(), q.data_ptr(), scales.data_ptr(),
               None if upd is None else upd.data_ptr(), a.data_ptr(),
               b.data_ptr(), out.data_ptr(), stream])
-    dequant_mix_launches += 1
+    with _count_lock:
+        dequant_mix_launches += 1
     return out

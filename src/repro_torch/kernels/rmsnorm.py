@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import threading
 
 import torch
 
@@ -24,6 +25,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # kernel launches since the last reset (a plain counter; chip_smoke.py
 # zeroes it before the main path and reads it after)
 launches = 0
+# the counters are bumped from the stream engine's threads too
+_count_lock = threading.Lock()
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 SIGNATURES = {
@@ -111,5 +114,6 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *,
     if err != 0:
         raise RuntimeError(f"rmsnorm: CUDA launch failed with cudaError_t "
                            f"{err}")
-    launches += 1
+    with _count_lock:
+        launches += 1
     return out

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import threading
 
 import torch
 
@@ -38,6 +39,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # kernels it launches (a plain counter; chip_smoke.py zeroes it before the
 # main path and reads it after)
 launches = 0
+# the counters are bumped from the stream engine's threads too
+_count_lock = threading.Lock()
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 SIGNATURES = {
@@ -170,5 +173,6 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             A32.data_ptr(), Bm.data_ptr(), *Bm.stride()[:2], Cm.data_ptr(),
             *Cm.stride()[:2], y.data_ptr(), *y.stride()[:3], work.data_ptr(),
             stream])
-    launches += 1
+    with _count_lock:
+        launches += 1
     return y

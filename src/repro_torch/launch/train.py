@@ -27,7 +27,9 @@ gradient by ``g + λ·g⊙g⊙(s·(θ − θ_prev))`` with ``θ_prev`` one more 
 the measured staleness (DESIGN.md §14).
 
 Then the read plane adopts the mixed write plane and each group's clock is
-stamped ``t + φ_g``. Everything stays on the device: push-sum weights,
+stamped ``t + φ_g``. The pipeline and stream engines
+(``repro_torch.launch.pipeline``, ``.streams``) run the same lanes split
+into stages (``forward_slice_lane`` is one forward slice). Everything stays on the device: push-sum weights,
 α/β, FIFO stamps and metrics are device tensors, and a step makes no host
 synchronisation of its own.
 
@@ -74,6 +76,45 @@ def _split_fwd_slices(batch, R: int):
     return [tree_map(lambda x: slc(x, r), batch) for r in range(R)]
 
 
+def forward_slice_lane(loss_fn: Callable, *, fb_ratio: int = 1,
+                       slice_idx: int = 0) -> Callable:
+    """ONE forward slice of the forward lane, the unit the pipeline engine
+    (``repro_torch.launch.pipeline``) runs as a stage of its own.
+
+    Returns ``fwd(params, batch)``: slice 0, the backward slice, gives
+    ``(loss, grads)`` (autograd under ``enable_grad``); slices ``1..R-1``
+    give ``(loss, None)``, forward only under ``no_grad``. The slice is cut
+    by :func:`_split_fwd_slices`, as in :func:`forward_lane`, which is built
+    from these lanes."""
+    R, r = int(fb_ratio), int(slice_idx)
+    if R < 1:
+        raise ValueError("fb_ratio must be >= 1")
+    if not 0 <= r < R:
+        raise ValueError(f"slice_idx={r} out of range for fb_ratio={R}")
+
+    def fwd(params, batch):
+        s = _split_fwd_slices(batch, R)[r] if R > 1 else batch
+        if r > 0:
+            with torch.no_grad():
+                return loss_fn(params, s)[0], None
+        leaves, treedef = tree_flatten(params)
+        leaves = [p.detach().requires_grad_(True) for p in leaves]
+        with torch.enable_grad():
+            loss, _ = loss_fn(tree_unflatten(treedef, leaves), s)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, leaves)]
+        return loss.detach(), tree_unflatten(treedef, grads)
+
+    return fwd
+
+
+def combine_slice_losses(loss0, rest: Sequence, R: int):
+    """One worker's loss from its R slices: ``(l0 + sum(rest)) / R``, the
+    order the reference's lanes use; slice 0's own loss at R == 1."""
+    return (loss0 + sum(rest)) / R if R > 1 else loss0
+
+
 def forward_lane(loss_fn: Callable, *, fb_ratio: int = 1) -> Callable:
     """Forward (+ autograd backward) on one worker's read parameters.
 
@@ -84,22 +125,13 @@ def forward_lane(loss_fn: Callable, *, fb_ratio: int = 1) -> Callable:
     R = int(fb_ratio)
     if R < 1:
         raise ValueError("fb_ratio must be >= 1")
+    lanes = [forward_slice_lane(loss_fn, fb_ratio=R, slice_idx=r)
+             for r in range(R)]
 
     def fwd(params, batch):
-        leaves, treedef = tree_flatten(params)
-        leaves = [p.detach().requires_grad_(True) for p in leaves]
-        slices = _split_fwd_slices(batch, R) if R > 1 else [batch]
-        with torch.enable_grad():
-            bwd_loss, _ = loss_fn(tree_unflatten(treedef, leaves), slices[0])
-            grads = torch.autograd.grad(bwd_loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(grads, leaves)]
-        loss = bwd_loss.detach()
-        if R > 1:
-            with torch.no_grad():
-                fwd_losses = [loss_fn(params, s)[0] for s in slices[1:]]
-            loss = (loss + sum(fwd_losses)) / R
-        return loss, tree_unflatten(treedef, grads)
+        loss, grads = lanes[0](params, batch)
+        rest = [lane(params, batch)[0] for lane in lanes[1:]]
+        return combine_slice_losses(loss, rest, R), grads
 
     return fwd
 
@@ -322,7 +354,8 @@ def gossip_fused_lane(part: FlatPartition, M: int, shifts: Sequence[int], *,
     ``kernels.ops`` (on a CUDA tensor: ``gossip_mix``, ``quantize_plane``,
     ``dequant_mix``); ``False`` calls their plain versions directly, the
     same arithmetic in PyTorch ops. The result is written into ``plane``'s
-    buffers in place.
+    buffers in place, or into the buffers of ``out`` (a dict like
+    ``plane``) when it is given: the stream engine's ping-pong planes.
 
     ``wire="int8"``: per group, quantize the pre-update plane with its
     error-feedback residual (the residual rewritten in place), roll ``q``
@@ -334,18 +367,19 @@ def gossip_fused_lane(part: FlatPartition, M: int, shifts: Sequence[int], *,
     _check_wire(wire, 0.0)
     op = ops.gossip_mix if use_pallas else gossip_mix_ref
 
-    def apply_m1(plane, updates, w):
+    def apply_m1(plane, updates, w, out):
         one, zero = torch.ones_like(w), torch.zeros_like(w)
-        return {name: op(x, x, updates[name], one, zero, out=x)
+        return {name: op(x, x, updates[name], one, zero, out=out[name])
                 for name, x in plane.items()}
 
     if wire == "int8":
         qfn = ops.quantize_plane if use_pallas else quantize_plane_ref
         dqfn = ops.dequant_mix if use_pallas else dequant_mix_ref
 
-        def mix_apply_q(plane, resid, updates, w, shift_idx):
+        def mix_apply_q(plane, resid, updates, w, shift_idx, out=None):
+            out = plane if out is None else out
             if M == 1:
-                return apply_m1(plane, updates, w), resid, w
+                return apply_m1(plane, updates, w, out), resid, w
             hop, w_keep, rw = _ring_exchange(w, shift_idx, shifts)
             new_w = w_keep + rw
             alpha, beta = w_keep / new_w, rw / new_w
@@ -355,22 +389,23 @@ def gossip_fused_lane(part: FlatPartition, M: int, shifts: Sequence[int], *,
                 q_recv, s_recv = hop(q), hop(s)
                 del q, s
                 mixed[name] = dqfn(x, q_recv, s_recv, updates[name], alpha,
-                                   beta, out=x)
+                                   beta, out=out[name])
                 del q_recv, s_recv
             return mixed, resid, new_w
 
         return mix_apply_q
 
-    def mix_apply(plane, updates, w, shift_idx):
+    def mix_apply(plane, updates, w, shift_idx, out=None):
+        out = plane if out is None else out
         if M == 1:
-            return apply_m1(plane, updates, w), w
+            return apply_m1(plane, updates, w, out), w
         hop, w_keep, rw = _ring_exchange(w, shift_idx, shifts)
         new_w = w_keep + rw
         alpha, beta = w_keep / new_w, rw / new_w
         mixed = {}
         for name, x in plane.items():
             r = hop(x)
-            mixed[name] = op(x, r, updates[name], alpha, beta, out=x)
+            mixed[name] = op(x, r, updates[name], alpha, beta, out=out[name])
             del r
         return mixed, new_w
 

@@ -35,3 +35,16 @@ def linear_warmup_cosine(lr: float, warmup: int, t_max: int,
                          / _f32(max(warmup, 1)))
         return cos(s - _f32(warmup))
     return fn
+
+
+def linear_decay(lr: float, warmup: int, t_max: int, warmup_lr: float = 0.0):
+    """Linear warm-up to ``lr`` over ``warmup`` steps, then a linear decay
+    that reaches 0 at ``t_max``."""
+    def fn(step):
+        s = _f32(step)
+        if s < warmup:
+            return float(_f32(warmup_lr) + _f32(lr - warmup_lr) * s
+                         / _f32(max(warmup, 1)))
+        frac = (_f32(t_max) - s) / _f32(max(t_max - warmup, 1))
+        return float(_f32(lr) * np.clip(frac, _f32(0.0), _f32(1.0)))
+    return fn

@@ -4,7 +4,13 @@ where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
+import os
+
 import pytest
+
+# cuBLAS gives the same bits on every CUDA stream only with a fixed
+# workspace; set before CUDA starts (the engine tests compare streams)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 torch = pytest.importorskip("torch")
 
@@ -549,3 +555,102 @@ def test_ssd_scan_kernel_rejects_what_it_does_not_take(cuda_device):
         ops.ssd_scan(x, dt, A, big, big)
     with pytest.raises(ValueError, match="dtype"):
         ops.ssd_scan(x, dt, A, Bm.to(torch.bfloat16), Cm.to(torch.bfloat16))
+
+
+# ---------------------------------------------------------------------------
+# the pipeline and stream engines on the card
+# ---------------------------------------------------------------------------
+
+ENGINE_STEPS = 4
+
+
+def _decoder_run(engine_kw, *, steps=ENGINE_STEPS, wrap=None, **kw):
+    """A 2-layer decoder at GPT-2 Medium's width (d 1024, vocab 50257), M=2,
+    R=2, D=1, through the kernels: each step's metrics (host floats) and the
+    final read plane. The stream engine's threads are closed on the way
+    out."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.backend import make_backend
+    from repro_torch.models import build_model
+    from repro_torch.optim import constant, momentum
+
+    cfg = get_config("gpt2-medium").with_(num_layers=2)
+    model = build_model(cfg)
+    loss_fn = model.loss_fn if wrap is None else wrap(model.loss_fn)
+    be = make_backend("prod", "layup", M=2, loss_fn=loss_fn,
+                      optimizer=momentum(0.9), schedule=constant(3e-3),
+                      fb_ratio=2, update_delay=1, use_pallas=True,
+                      device="cuda", wait_timeout_s=120.0, **engine_kw, **kw)
+    rng = np.random.default_rng(0)
+    toks = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 4, 129)))
+            .cuda() for _ in range(steps)]
+    try:
+        st = be.init(None, model.init(seed=0, device="cuda"))
+        hist = []
+        for t in toks:
+            st, m = be.step(st, {"tokens": t[..., :-1], "labels": t[..., 1:]})
+            hist.append(m)
+        hist = [{k: float(m[k]) for k in ("loss", "update_staleness",
+                                          "weight_sum", "disagreement",
+                                          "staleness_mean") if k in m}
+                for m in hist]
+        read = st["read"]
+        if hasattr(be.engine, "materialize"):
+            read = be.engine.materialize(read)
+        read = {k: v.clone() for k, v in read.items()}
+        torch.cuda.synchronize()
+        return hist, read, be.summary()
+    finally:
+        if hasattr(be.engine, "close"):
+            be.engine.close()
+
+
+@pytest.fixture(scope="module")
+def monolithic_runs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return {wire: _decoder_run({}, **kw) for wire, kw in (
+        ("param", {}), ("int8", dict(wire="int8", compensate=0.5)))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wire", ["param", "int8"])
+@pytest.mark.parametrize("engine_kw", [
+    dict(overlap=True), dict(overlap=True, streams=2),
+    dict(overlap=True, streams=3)], ids=["pipeline", "streams2", "streams3"])
+def test_engines_bit_identical_to_monolithic_step(monolithic_runs, engine_kw,
+                                                  wire):
+    """Every metric of every step and the final read plane, bit for bit;
+    with ``wire="int8"`` the int8 wire and λ=0.5. cuBLAS gives the same bits
+    on every stream with ``CUBLAS_WORKSPACE_CONFIG`` set (module top)."""
+    kw = dict(wire="int8", compensate=0.5) if wire == "int8" else {}
+    want = monolithic_runs[wire]
+    hist, read, summary = _decoder_run(engine_kw, **kw)
+    assert hist == want[0]
+    for k in want[1]:
+        assert torch.equal(read[k], want[1][k]), k
+    assert summary["streams"] == float(engine_kw.get("streams", 1))
+
+
+@pytest.mark.gpu
+def test_stream_mix_never_writes_a_plane_a_forward_reads(cuda_device):
+    """24 steps on three streams: every forward slice checksums its
+    parameters just before and just after its loss on the fwd stream (with
+    a spin kernel between, to widen the window); the
+    gossip stream's mixes write the other buffer of each group's ping-pong
+    pair, so no checksum pair may differ. The forwards and the mixes also
+    ran at the same time on the card (``exec_overlap_s`` > 0)."""
+    from _torch_watch import PlaneWatch
+
+    watch = {}
+
+    def wrap(loss_fn):
+        watch["w"] = PlaneWatch(loss_fn, hold=1e-3)  # ~1e6 cycles a slice
+        return watch["w"]
+
+    _, _, summary = _decoder_run(dict(overlap=True, streams=3), steps=24,
+                                 wrap=wrap, measure_drift=False)
+    assert len(watch["w"].pairs) == 24 * 2 * 2  # steps x workers x slices
+    assert watch["w"].changed() == 0
+    assert summary["exec_overlap_s"] > 0.0

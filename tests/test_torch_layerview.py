@@ -147,3 +147,33 @@ def test_version_clock_arithmetic_matches():
             np.testing.assert_allclose(tm[k].numpy(), np.asarray(jm[k]),
                                        rtol=1e-6)
 
+
+
+def test_tree_utilities_leave_no_reference_cycles():
+    """Flattening, unflattening and mapping a tree keep no reference to its
+    leaves once their results are dropped, without the cyclic garbage
+    collector: a leaf held by a cycle would keep a plane or a gradient tree
+    alive on the card until a collection happened to run."""
+    import gc
+    import weakref
+
+    from repro_torch.core.layerview import FlatPartition
+    from repro_torch.core.pytree import tree_flatten, tree_map, tree_unflatten
+
+    t = torch.zeros(8)
+    ref = weakref.ref(t)
+    gc.collect()
+    gc.disable()
+    try:
+        tree = {"b": [t, {"c": t}], "a": (t, None)}
+        leaves, treedef = tree_flatten(tree)
+        back = tree_unflatten(treedef, leaves)
+        mapped = tree_map(lambda x: x + 1, tree)
+        part = FlatPartition({"w": t})
+        plane = part.pack({"w": t[None]})
+        view = part.unpack(plane)
+        assert back["b"][0] is t and mapped["a"][1] is None
+        del t, tree, leaves, treedef, back, mapped, plane, view
+        assert ref() is None
+    finally:
+        gc.enable()

@@ -67,6 +67,50 @@ def test_schedules_match():
                                        atol=1e-9)
 
 
+@pytest.mark.parametrize("args", [(1.0, 0, 100), (0.1, 5, 30, 0.001),
+                                  (0.3, 10, 10)])
+def test_linear_decay_matches(args):
+    tf, jf = TO.linear_decay(*args), JO.linear_decay(*args)
+    for step in (0, 1, 4, 5, 6, 9, 10, 11, 29, 30, 50, 100, 120):
+        assert isinstance(tf(step), float)
+        np.testing.assert_allclose(tf(step), float(jf(step)), rtol=1e-6,
+                                   atol=1e-9)
+
+
+def test_sharded_iterator_matches_jax():
+    """The same (seed, step) gives the same batches, bit for bit, on the
+    CPU (the port's numpy generators are the JAX package's)."""
+    from repro.data.pipeline import ShardedIterator as JaxShardedIterator
+    from repro_torch.data import ShardedIterator
+
+    jit = JaxShardedIterator(JS.SyntheticLM(vocab=64, seq_len=8), 2, 4,
+                             prefetch=2, seed=3)
+    tit = ShardedIterator(TS.SyntheticLM(vocab=64, seq_len=8), 2, 4,
+                          prefetch=2, seed=3, device="cpu")
+    try:
+        for _ in range(3):
+            jb, tb = next(jit), next(tit)
+            assert sorted(jb) == sorted(tb) == ["labels", "tokens"]
+            for k in jb:
+                assert tb[k].device.type == "cpu"
+                assert tb[k].shape == (2, 4, 8)
+                np.testing.assert_array_equal(tb[k].numpy(),
+                                              np.asarray(jb[k]))
+    finally:
+        jit.close()
+        tit.close()
+    tit._thread.join(timeout=5.0)
+    assert not tit._thread.is_alive()
+
+
+def test_sharded_iterator_default_device_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None resolves to it")
+    from repro_torch.data import ShardedIterator
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedIterator(TS.SyntheticLM(vocab=16, seq_len=4), 1, 1)
+
+
 def test_synthetic_data_bit_identical():
     for kw in (dict(vocab=64, seq_len=12, temperature=1.5, seed=0),
                dict(vocab=128, seq_len=16, temperature=1.2, seed=3)):

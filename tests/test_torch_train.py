@@ -135,11 +135,12 @@ def test_default_device_needs_cuda():
         to_torch(np_tree(jparams))
 
 
-# ids as they were before the item-8 cases (int8 wire, compensation) left
+# ids as they were before the item-8 (int8 wire, compensation) and item-9
+# (the engines) cases left
 @pytest.mark.parametrize("kw,item", [
-    pytest.param(dict(overlap=True), "item 9", id="kw0-item 9"),
-    pytest.param(dict(streams=2), "item 9", id="kw1-item 9"),
     pytest.param(dict(faults=""), "item 10", id="kw4-item 10"),
+    pytest.param(dict(overlap=True, faults=""), "item 10",
+                 id="kw7-item 10"),
     pytest.param(dict(publisher=object()), "item 11", id="kw5-item 11"),
     pytest.param(dict(tuning="x.json"), "item 12", id="kw6-item 12")])
 def test_unported_options_name_their_roadmap_item(kw, item):
@@ -147,6 +148,14 @@ def test_unported_options_name_their_roadmap_item(kw, item):
         make_backend("prod", "layup", M=2, loss_fn=torch_mlp_loss,
                      optimizer=momentum(0.9), schedule=constant(0.05),
                      device="cpu", **kw)
+
+
+def test_streams_without_overlap_raises():
+    """As the JAX backend: streams are a property of the pipeline engine."""
+    with pytest.raises(ValueError, match="overlap=True"):
+        make_backend("prod", "layup", M=2, loss_fn=torch_mlp_loss,
+                     optimizer=momentum(0.9), schedule=constant(0.05),
+                     device="cpu", streams=2)
 
 
 # ---------------------------------------------------------------------------
