@@ -102,6 +102,28 @@ not 0:
    47's mixer inputs against the model's ``ssd_chunked``, ``rmsnorm`` on
    their pre-norm and gate-norm inputs and the final norm's against the
    model's norm; their launches there are counted from 0.
+4d. train_membership_empty (monolithic) and
+   train_membership_empty_streams (``streams=3``): train's and
+   train_streams's runs with ``faults=""`` (membership on, nothing
+   injected), each held bit-identical to its fault-free phase: loss,
+   staleness, Σw and disagreement histories, the read plane's per-group
+   SHA-256 and every launch count; ``peers_live`` = 4 at every step.
+   train_chaos: the monolithic param-wire step, 12 steps on the train
+   phase's seeded batches, with ``faults=CHAOS_PLAN`` (peer 1 crashes at
+   step 2, dead at step 3, re-synced from peer 0 at step 8; a NaN in peer
+   0's queued gradient of group 0 at step 5; a corrupted group 1 payload at
+   step 6): finite loss, |Σw − 1| ≤ 1e-5 every step, ``peers_live`` as the
+   ladder predicts, one resync, at least one nonfinite skip, one checksum
+   reject and one resend, peer 1's read-plane rows equal to the donor's
+   right after the resync, ``gossip_mix`` once per group per step.
+   train_chaos_streams_int8: the reference's headline run,
+   ``streams=3``, ``wire="int8"``, ``faults=CHAOS_STREAMS_PLAN``, 14
+   steps, held bit-identical (histories, plane digests, launches) to the
+   same plan on the monolithic int8 step (``train_chaos_int8``); finite
+   loss, Σw, one resync, no peer dead and 4 live at the end. Each prints
+   its step times, peak device bytes, the host seconds of each fault
+   event (``kill_s``, ``resync_s``, ``guard_round_s``, ``nan_s``) and the
+   controller's counters.
 5. route: the same step at 2 layers, full width, M=4, 3 steps, through the
    kernels and through the plain route (``USE_PALLAS=False`` attention and
    ``gossip_mix_ref``) on the same CUDA tensors; losses and planes must
@@ -208,6 +230,14 @@ PROFILE_WINDOW = 5  # --profile: unprofiled steps timed per engine run
 # the histories the engine phases must reproduce bit for bit
 ENGINE_KEYS = ("loss", "update_staleness", "staleness_mean", "weight_sum",
                "disagreement")
+# the chaos phases (DESIGN.md §15): crash → dead → re-sync, a NaN in a
+# queued gradient and a corrupted wire payload; then the reference's
+# headline plan on the stream engine with the int8 wire
+CHAOS_PLAN = ("crash:peer=1,step=2,recover=8;nan:step=5,peer=0,group=0;"
+              "corrupt:step=6,group=1")
+CHAOS_STEPS = 12
+CHAOS_STREAMS_PLAN = "crash:peer=1,step=3,recover=9"
+CHAOS_STREAMS_STEPS = 14
 
 
 def emit(phase: str, **kw) -> None:
@@ -1102,33 +1132,42 @@ def lm_batches(torch, vocab, steps, seed):
 
 HISTORY_KEYS = ("loss", "weight_sum", "update_staleness", "staleness_mean",
                 "disagreement", "nonfinite_skips")
+MEMBERSHIP_KEYS = HISTORY_KEYS + ("peers_live",)
 
 
-def counted_drive(torch, backend, params, batches, resets):
+def counted_drive(torch, backend, params, batches, resets,
+                  keys=HISTORY_KEYS, on_batch=None):
     """``drive`` over ``batches`` with the launch counts zeroed (each of
     ``resets`` called) just before; the caller reads them right after.
-    Returns (out, history, step seconds, peak device bytes); a step's time
-    is host clock between synchronised batch handovers."""
+    ``on_batch(t)``, when given, runs at each synchronised handover, before
+    step ``t`` (init has run by the first). Returns (out, history of
+    ``keys``, step seconds, peak device bytes); a step's time is host clock
+    between synchronised batch handovers. ``out["bytes_before_init"]`` is
+    what was allocated when the window opened (earlier phases' leftovers,
+    e.g. cuBLAS workspaces of their streams), the floor under the peak."""
     from repro_torch.core.backend import drive
 
     stamps = []
 
     def timed(batches):
-        for b in batches:
+        for t, b in enumerate(batches):
             torch.cuda.synchronize()
+            if on_batch is not None:
+                on_batch(t)
             stamps.append(time.perf_counter())
             yield b
 
     gc.collect()  # earlier phases' cyclic garbage out of the peak
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     for reset in resets:                            # main path starts
         reset()
-    out = drive(backend, timed(batches), None, params,
-                history_keys=HISTORY_KEYS)
-    torch.cuda.synchronize()                        # main path ends
+    out = drive(backend, timed(batches), None, params, history_keys=keys)
+    out["bytes_before_init"] = base
+    settle(torch, backend)                          # main path ends
     stamps.append(time.perf_counter())
-    hist = {k: [float(v) for v in out["history"][k]] for k in HISTORY_KEYS}
+    hist = {k: [float(v) for v in out["history"][k]] for k in keys}
     return (out, hist, [b - a for a, b in zip(stamps, stamps[1:])],
             torch.cuda.max_memory_allocated())
 
@@ -1179,7 +1218,8 @@ def settle(torch, backend) -> None:
     torch.cuda.synchronize()
 
 
-def window_drive(torch, backend, params, batches, resets):
+def window_drive(torch, backend, params, batches, resets,
+                 keys=HISTORY_KEYS):
     """The engine phases' drive: init and step 0, then steps 1.. as ONE
     window between two synchronisations with no copy to the host inside
     it (``drive``'s per-step metric copies and ``counted_drive``'s
@@ -1203,14 +1243,15 @@ def window_drive(torch, backend, params, batches, resets):
         metrics.append(m)
     settle(torch, backend)                          # main path ends
     window = time.perf_counter() - t0
-    hist = {k: [float(m[k]) for m in metrics] for k in HISTORY_KEYS}
+    hist = {k: [float(m[k]) for m in metrics] for k in keys}
     return state, hist, window, torch.cuda.max_memory_allocated(), base
 
 
-def hold_engine(name: str, got: dict, ref: dict, ref_name: str) -> None:
-    """An engine run against its monolithic run: histories, launch counts
-    and the final read plane's digests identical."""
-    for k in ENGINE_KEYS:
+def hold_engine(name: str, got: dict, ref: dict, ref_name: str,
+                keys=ENGINE_KEYS) -> None:
+    """An engine run against its monolithic run: the histories of ``keys``,
+    launch counts and the final read plane's digests identical."""
+    for k in keys:
         check(got["history"][k] == ref["history"][k],
               f"{name} {k} {got['history'][k]} != {ref_name} "
               f"{ref['history'][k]}")
@@ -1242,10 +1283,15 @@ def phase_train_engine(torch, name, ref, *, int8: bool = False, **engine):
                            device="cuda", wait_timeout_s=ENGINE_TIMEOUT_S,
                            **wire, **engine)
     batches = lm_batches(torch, cfg.vocab_size, TRAIN_STEPS, seed=0)
+    membership = "faults" in engine
     state, hist, window, peak, base = window_drive(
-        torch, backend, params, batches, launch_resets())
+        torch, backend, params, batches, launch_resets(),
+        keys=MEMBERSHIP_KEYS if membership else HISTORY_KEYS)
     every = step_launches()
     check_history(hist, cfg.vocab_size, name)
+    if membership:
+        check(hist["peers_live"] == [float(M)] * TRAIN_STEPS,
+              f"{name} peers_live {hist['peers_live']}")
     summary = backend.summary()
     timeline = backend.timeline.summary()
     read = state["read"]
@@ -1268,6 +1314,8 @@ def phase_train_engine(torch, name, ref, *, int8: bool = False, **engine):
                "signal_wait_s")},
            "stage_s": timeline["stage_s"],
            "stream_busy_s": timeline["stream_busy_s"]}
+    if membership:
+        res["chaos"] = chaos_counters(summary)
     if ref is not None:
         hold_engine(name, res, ref, ref["phase"])
         res["held_against"] = ref["phase"]
@@ -1373,7 +1421,201 @@ def check_history(hist, vocab: int, what: str) -> None:
           f"{what} nonfinite skips")
 
 
-def phase_train(torch, profile: bool):
+def chaos_counters(summary: dict) -> dict:
+    """The controller's counters of a backend's ``summary()``."""
+    keys = ("faults_injected", "rounds_degraded", "peers_dead",
+            "peers_suspect", "resyncs", "hangs", "nan_injections",
+            "rounds_sealed", "checksum_rejects", "drops_detected", "resends",
+            "time_to_detect_steps", "time_to_resync_steps",
+            "nonfinite_skips", "peers_live")
+    return {k: summary[k] for k in keys if k in summary}
+
+
+def live_schedule(plan: str, steps: int) -> list:
+    """``peers_live`` at each step as the membership ladder predicts for a
+    plan of single crashes with ``recover=``: 1 missed beat makes a peer
+    SUSPECT (still mixing), 2 make it DEAD, the recover step re-admits it."""
+    live = [float(M)] * steps
+    for ev in plan.split(";"):
+        kind, _, body = ev.partition(":")
+        if kind != "crash":
+            continue
+        f = dict(kv.split("=") for kv in body.split(","))
+        dead_from = int(f["step"]) + 1
+        until = int(f.get("recover", steps))
+        for t in range(dead_from, min(until, steps)):
+            live[t] -= 1.0
+    return live
+
+
+def resync_probe(torch, backend, step: int, peer: int, donor: int):
+    """A ``counted_drive`` hook that holds the peer's read-plane rows against
+    the donor's right after the controller's ``before_step`` of ``step``:
+    at the first handover it wraps the hook of the controller that init
+    made. Returns (on_batch, rows); ``rows["equal"]`` is the verdict."""
+    rows = {}
+
+    def on_batch(t):
+        if t:
+            return
+        before = backend.chaos.before_step
+
+        def before_step(state, batch, s):
+            state, batch = before(state, batch, s)
+            if s == step:
+                rows["equal"] = all(bool(torch.equal(v[peer], v[donor]))
+                                    for v in state["read"].values())
+            return state, batch
+
+        backend.chaos.before_step = before_step
+
+    return on_batch, rows
+
+
+def chaos_drive(torch, backend, params, batches, resync):
+    """A faulted run through ``counted_drive`` (histories of
+    ``MEMBERSHIP_KEYS``), with ``resync=(step, peer, donor)`` probed
+    (``resync_probe``). Returns (state, history, step seconds, peak bytes,
+    rows_equal, bytes allocated before init)."""
+    on_batch, rows = resync_probe(torch, backend, *resync)
+    out, hist, step_s, peak = counted_drive(
+        torch, backend, params, batches, launch_resets(),
+        keys=MEMBERSHIP_KEYS, on_batch=on_batch)
+    return (out["state"], hist, step_s, peak, rows.get("equal"),
+            out["bytes_before_init"])
+
+
+def chaos_backend(torch, plan: str, **kw):
+    """GPT-2 Medium at full width and depth with ``faults=plan``: (backend,
+    params, config)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.backend import make_backend
+    from repro_torch.models import build_model
+    from repro_torch.optim import constant, momentum
+
+    cfg = get_config("gpt2-medium")
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    backend = make_backend("prod", "layup", M=M, loss_fn=model.loss_fn,
+                           optimizer=momentum(0.9), schedule=constant(LR),
+                           fb_ratio=R, update_delay=1, use_pallas=True,
+                           device="cuda", wait_timeout_s=ENGINE_TIMEOUT_S,
+                           faults=plan, **kw)
+    return backend, params, cfg
+
+
+def chaos_result(torch, name, backend, cfg, plan, state, hist, step_s, peak,
+                 steps, **extra):
+    """The checks every faulted run shares, and its JSON line's fields:
+    finite loss, |Σw − 1| ≤ 1e-5 at every step, ``peers_live`` as the
+    ladder predicts, a finite read plane; the step times, peak bytes, the
+    host seconds of each fault event and the controller's counters."""
+    check(all(math.isfinite(v) for v in hist["loss"]),
+          f"{name} loss {hist['loss']}")
+    check(all(abs(v - 1.0) <= 1e-5 for v in hist["weight_sum"]),
+          f"{name} weight_sum {hist['weight_sum']}")
+    want_live = live_schedule(plan, steps)
+    check(hist["peers_live"] == want_live,
+          f"{name} peers_live {hist['peers_live']} != {want_live}")
+    read = state["read"]
+    if backend.streams > 1:
+        read = backend.engine.materialize(read)
+    check(all(bool(torch.isfinite(v).all()) for v in read.values()),
+          f"{name} nonfinite read plane")
+    summary = backend.summary()
+    events = backend.chaos.event_s
+    res = {"model": cfg.name, "M": M, "fb_ratio": R, "update_delay": 1,
+           "faults": plan, "steps": steps, "history": hist,
+           "step_s": step_s, "median_step_s": statistics.median(step_s),
+           "peak_bytes": peak, "all_launches": step_launches(),
+           "read_plane_sha256": plane_digests(torch, read),
+           "chaos": chaos_counters(summary),
+           **{f"{k}_s": v for k, v in events.items()}, **extra}
+    return res, summary
+
+
+def phase_train_chaos(torch):
+    """train_chaos: the monolithic param-wire step under CHAOS_PLAN."""
+    backend, params, cfg = chaos_backend(torch, CHAOS_PLAN)
+    batches = lm_batches(torch, cfg.vocab_size, CHAOS_STEPS, seed=0)
+    state, hist, step_s, peak, rows_equal, base = chaos_drive(
+        torch, backend, params, batches, resync=(8, 1, 0))
+    del params
+    res, summary = chaos_result(torch, "train_chaos", backend, cfg,
+                                CHAOS_PLAN, state, hist, step_s, peak,
+                                CHAOS_STEPS, resync_rows_equal=rows_equal,
+                                bytes_before_init=base)
+    check(rows_equal is True, "train_chaos: peer 1's rows differ from the "
+          "donor's right after the resync")
+    c = res["chaos"]
+    check(c["resyncs"] == 1 and c["checksum_rejects"] == 1
+          and c["resends"] == 1 and c["nonfinite_skips"] >= 1.0
+          and c["peers_dead"] == 0, f"train_chaos counters {c}")
+    n_groups = len(backend.part.group_sizes)
+    launches = res["all_launches"]
+    check(launches["gossip_mix"] == CHAOS_STEPS * n_groups,
+          f"train_chaos gossip_mix launches {launches['gossip_mix']} != "
+          f"{CHAOS_STEPS} x {n_groups}")
+    per_pass = CHAOS_STEPS * M * cfg.num_layers
+    flash = {k: launches[f"flash_{k}"] for k in ("fwd", "dq", "dkv")}
+    check(flash == {"fwd": per_pass * R, "dq": per_pass, "dkv": per_pass},
+          f"train_chaos flash launches {flash}")
+    emit("train_chaos", **res)
+    del state
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_chaos_streams_int8(torch):
+    """train_chaos_int8 (monolithic) and train_chaos_streams_int8
+    (``streams=3``): CHAOS_STREAMS_PLAN on the int8 wire, the stream run
+    held bit-identical to the monolithic one."""
+    runs = {}
+    for name, engine in (("train_chaos_int8", {}),
+                         ("train_chaos_streams_int8",
+                          dict(overlap=True, streams=3))):
+        backend, params, cfg = chaos_backend(
+            torch, CHAOS_STREAMS_PLAN, wire="int8", **engine)
+        batches = lm_batches(torch, cfg.vocab_size, CHAOS_STREAMS_STEPS,
+                             seed=0)
+        state, hist, step_s, peak, rows_equal, base = chaos_drive(
+            torch, backend, params, batches, resync=(9, 1, 0))
+        del params
+        res, summary = chaos_result(
+            torch, name, backend, cfg, CHAOS_STREAMS_PLAN, state, hist,
+            step_s, peak, CHAOS_STREAMS_STEPS, wire="int8",
+            resync_rows_equal=rows_equal, bytes_before_init=base, **engine)
+        c = res["chaos"]
+        check(c["resyncs"] == 1 and c["peers_dead"] == 0
+              and summary["peers_live"] == float(M) and rows_equal is True,
+              f"{name} counters {c}, rows equal {rows_equal}")
+        n_groups = len(backend.part.group_sizes)
+        launches = res["all_launches"]
+        want = {"quantize_plane": CHAOS_STREAMS_STEPS * n_groups,
+                "dequant_mix": CHAOS_STREAMS_STEPS * n_groups,
+                "gossip_mix": 0}
+        got = {k: launches[k] for k in want}
+        check(got == want, f"{name} int8 launches {got} != {want}")
+        if engine:
+            res["overlap"] = {k: summary[k] for k in (
+                "streams", "exec_overlap_s", "signal_wait_s")}
+            hold_engine(name, res, runs["train_chaos_int8"],
+                        "train_chaos_int8", keys=MEMBERSHIP_KEYS)
+            res["held_against"] = "train_chaos_int8"
+        emit(name, **res)
+        runs[name] = res
+        del state
+        if engine:
+            backend.engine.close()
+        del backend
+        torch.cuda.empty_cache()
+    return runs
+
+
+def phase_train(torch, profile: bool, name: str = "train", **faults):
+    """The train phase; with ``faults=""`` the same run with membership on
+    (``name`` train_membership_empty), which the caller holds against
+    train."""
     from repro_torch.configs import get_config
     from repro_torch.core.backend import make_backend
     from repro_torch.kernels import flash_attention as fa
@@ -1387,10 +1629,11 @@ def phase_train(torch, profile: bool):
     backend = make_backend("prod", "layup", M=M, loss_fn=model.loss_fn,
                            optimizer=momentum(0.9), schedule=constant(LR),
                            fb_ratio=R, update_delay=1, use_pallas=True,
-                           device="cuda")
+                           device="cuda", **faults)
     batches = lm_batches(torch, cfg.vocab_size, TRAIN_STEPS, seed=0)
     out, hist, step_s, peak = counted_drive(
-        torch, backend, params, batches, launch_resets())
+        torch, backend, params, batches, launch_resets(),
+        keys=MEMBERSHIP_KEYS if faults else HISTORY_KEYS)
     every = step_launches()
     launches = gm_kernel.launches
     flash = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
@@ -1401,7 +1644,10 @@ def phase_train(torch, profile: bool):
     per_pass = TRAIN_STEPS * M * cfg.num_layers
     want = {"fwd": per_pass * R, "dq": per_pass, "dkv": per_pass}
     check(flash == want, f"flash launches {flash} != {want}")
-    check_history(hist, cfg.vocab_size, "train")
+    check_history(hist, cfg.vocab_size, name)
+    if faults:
+        check(hist["peers_live"] == [float(M)] * TRAIN_STEPS,
+              f"{name} peers_live {hist['peers_live']}")
     read = out["state"]["read"]
     check(all(bool(torch.isfinite(v).all()) for v in read.values()),
           "nonfinite plane")
@@ -1415,11 +1661,14 @@ def phase_train(torch, profile: bool):
            "batch_per_worker": BATCH_PER_WORKER, "steps": TRAIN_STEPS,
            "history": hist, "step_s": step_s, "median_step_s": med,
            "tokens_per_step": tokens, "tokens_per_s": tokens / med,
-           "peak_bytes": peak, "gossip_mix_launches": launches,
+           "peak_bytes": peak, "bytes_before_init": out["bytes_before_init"],
+           "gossip_mix_launches": launches,
            "flash_launches": flash, "all_launches": every,
            "read_plane_sha256": digests,
-           "groups": dict(backend.part.group_sizes)}
-    emit("train", **res)
+           "groups": dict(backend.part.group_sizes), **faults}
+    if faults:
+        res["chaos"] = chaos_counters(out)
+    emit(name, **res)
     if profile:
         phase_profile(torch, backend, out["state"], batches)
     del out, read, params
@@ -1821,8 +2070,9 @@ def main(argv) -> int:
     train["phase"] = "train"
     _, pipe = phase_train_engine(torch, "train_pipeline", train,
                                  overlap=True)
-    _, streams = phase_train_engine(torch, "train_streams", train,
-                                    overlap=True, streams=3)
+    train_streams, streams = phase_train_engine(
+        torch, "train_streams", train, overlap=True, streams=3)
+    train_streams["phase"] = "train_streams"
     if profile:
         phase_profile_engines(
             torch, {"monolithic": mono, "pipeline": pipe, "streams": streams},
@@ -1839,6 +2089,25 @@ def main(argv) -> int:
     emit("train_streams_int8_held", held_against="train_int8",
          keys=list(ENGINE_KEYS), launches=streams_int8["all_launches"],
          read_plane_sha256=streams_int8["read_plane_sha256"])
+    # membership on, nothing injected: the same bits as train and
+    # train_streams; then the faulted runs
+    empty, be = phase_train(torch, profile=False,
+                            name="train_membership_empty", faults="")
+    hold_engine("train_membership_empty", empty, train, "train")
+    emit("train_membership_empty_held", held_against="train",
+         median_step_vs_train=empty["median_step_s"]
+         / train["median_step_s"],
+         peak_above_start_vs_train=(
+             (empty["peak_bytes"] - empty["bytes_before_init"])
+             / (train["peak_bytes"] - train["bytes_before_init"])))
+    del be
+    _, be = phase_train_engine(torch, "train_membership_empty_streams",
+                               train_streams, overlap=True, streams=3,
+                               faults="")
+    be.engine.close()
+    del be
+    phase_train_chaos(torch)
+    phase_train_chaos_streams_int8(torch)
     ssm = phase_train_ssm(torch, profile="--profile" in argv)
     phase_route(torch)
     phase_route_int8(torch)

@@ -11,6 +11,11 @@ numpy generator seeded at init, the same draws as the reference's.
 
 Metrics are device tensors (with ``streams > 1``, futures of them);
 ``summary()`` and ``drive``'s history read them on the host.
+
+``faults=`` (a spec string or a ``FaultPlan``; ``""`` is the empty plan)
+turns on membership and chaos injection (``repro_torch.chaos``, DESIGN.md
+§15): a fresh ``ChaosController`` per ``init`` applies the plan's faults
+at the host step boundary before each step.
 """
 from __future__ import annotations
 
@@ -24,7 +29,8 @@ from repro_torch.launch.pipeline import (StageTimeline,
 from repro_torch.launch.train import make_decoupled_backend_trainer
 
 _NUMERIC_SUMMARY_KEYS = ("loss", "disagreement", "staleness_mean",
-                         "update_staleness", "weight_sum", "nonfinite_skips")
+                         "update_staleness", "weight_sum", "nonfinite_skips",
+                         "peers_live")
 
 
 def _numeric_summary(steps: int, last: Dict[str, Any]) -> Dict[str, float]:
@@ -33,6 +39,10 @@ def _numeric_summary(steps: int, last: Dict[str, Any]) -> Dict[str, float]:
         if k in last:
             out[k] = float(last[k])
     return out
+
+
+def _add_skips(total, skips):
+    return skips.clone() if total is None else total + skips
 
 
 class ProdTrainerBackend:
@@ -55,8 +65,18 @@ class ProdTrainerBackend:
     stream engine on CUDA streams of their own
     (``repro_torch.launch.streams``; ``wait_timeout_s`` bounds each wait of
     its threads): the same numerics, and ``summary()`` adds the measured
-    stage timeline's overlap fields. The options of later slices raise
-    ``NotImplementedError`` naming the ROADMAP item that ports them."""
+    stage timeline's overlap fields.
+
+    ``faults`` (a spec string or a ``FaultPlan``) turns on fault-tolerant
+    membership on any of the three routes and either wire: crash, hang,
+    nan, corrupt, drop and recover events replayed by a
+    ``repro_torch.chaos.ChaosController`` before each step, the alive-gated
+    step while a peer is dead, ``peers_live`` in the metrics, and the
+    controller's counters (with a cumulative ``nonfinite_skips``) in
+    ``summary()``. ``faults=""`` injects nothing and gives the same bits as
+    ``faults=None``. The options still to port (``mesh``, ``flat=False``,
+    ``publisher``, ``tuning``) raise ``NotImplementedError`` naming the
+    ROADMAP item that ports them."""
 
     kind = "prod"
 
@@ -75,8 +95,6 @@ class ProdTrainerBackend:
         if int(streams) > 1 and not overlap:
             raise ValueError("streams > 1 is a property of the stage-graph "
                              "pipeline; it requires overlap=True")
-        if faults is not None:
-            raise not_ported("faults (chaos injection and membership)", 10)
         if publisher is not None:
             raise not_ported("publisher (live serving)", 11)
         if tuning is not None:
@@ -93,12 +111,23 @@ class ProdTrainerBackend:
         self.M = M
         self.wire = str(wire)
         self.streams = int(streams)
+        self.compensate = float(compensate)
+        self.update_delay = int(update_delay)
         self.device = resolve_device(device)
+        self.membership = faults is not None
+        self._faults = faults
+        self.chaos = None
+        self._nonfinite_total = None
+        if self.membership:
+            # built here so that a malformed plan fails now, not at a step;
+            # init() makes a fresh controller for each run
+            self.chaos = self._controller()
         common = dict(device=self.device, shifts=shifts, fb_ratio=fb_ratio,
                       update_delay=update_delay,
                       straggler_delays=straggler_delays,
                       measure_drift=measure_drift, use_pallas=use_pallas,
-                      wire=wire, compensate=compensate)
+                      wire=wire, compensate=compensate,
+                      membership=self.membership)
         if overlap:
             self.timeline = StageTimeline()
             self._init_fn, self._step_fn, self._shifts, self._engine_box = \
@@ -115,6 +144,12 @@ class ProdTrainerBackend:
         self._steps = 0
         self._last: Dict[str, Any] = {}
         self._shift_rng = np.random.default_rng(0xC0FFEE)
+
+    def _controller(self):
+        from repro_torch.chaos import ChaosController
+        return ChaosController(self._faults, self.M,
+                               update_delay=self.update_delay,
+                               compensate=self.compensate)
 
     @property
     def engine(self):
@@ -147,13 +182,37 @@ class ProdTrainerBackend:
             self.engine.reset()
         elif self.timeline is not None:
             self.timeline.reset()
-        return self._init_fn(rng, params_single)
+        state = self._init_fn(rng, params_single)
+        if self.membership:
+            # a fresh controller per run (fault replay and health are per
+            # run), hooked to the engine so that a host mutation first
+            # materializes the stream engine's futures, and to its board so
+            # that the liveness beats land there
+            self.chaos = self._controller()
+            self._nonfinite_total = None
+            eng = self.engine
+            self.chaos.attach(engine=eng, board=getattr(eng, "board", None))
+        return state
 
     def step(self, state, batch, rng=None):
         # ``rng`` belongs to the TrainerBackend protocol; the ring's shift
         # schedule is drawn host-side
+        if self.chaos is not None:
+            state, batch = self.chaos.before_step(state, batch, self._steps)
         shift_idx = int(self._shift_rng.integers(0, len(self._shifts)))
         state, metrics = self._step_fn(state, batch, self._steps, shift_idx)
+        if self.chaos is not None:
+            # the run's skips for summary() (a transient NaN's metric is 0
+            # again by the end), summed on the device without a wait: a
+            # stream engine's future is summed by a task of its own
+            skips = metrics["nonfinite_skips"]
+            if hasattr(skips, "result"):
+                self._nonfinite_total = self.engine.submit_aux(
+                    "skips", _add_skips, (self._nonfinite_total, skips),
+                    self._steps)
+            else:
+                self._nonfinite_total = _add_skips(self._nonfinite_total,
+                                                   skips)
         self._steps += 1
         self._last = metrics
         return state, metrics
@@ -178,6 +237,11 @@ class ProdTrainerBackend:
                        streams=float(t["streams"]),
                        exec_overlap_s=t["exec_overlap_s"],
                        signal_wait_s=t["signal_wait_s"])
+        if self.chaos is not None:
+            out.update(self.chaos.summary())
+            # over the whole run, not the last step's
+            out["nonfinite_skips"] = (0.0 if self._nonfinite_total is None
+                                      else float(self._nonfinite_total))
         return out
 
 

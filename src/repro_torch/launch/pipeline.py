@@ -49,6 +49,11 @@ the returned state only:
   both next-step handles (read == write at every step boundary, as in the
   monolithic step).
 
+Membership (``state["alive"]``, the host mask): the engine copies it to
+the device while a peer is dead and passes it to the update and gossip
+stages, which gate as the monolithic step does; the mask itself passes
+through to the next state.
+
 On one stream the caching allocator is stream-ordered, so the engine holds
 no buffer past its last use; ``max_inflight_steps`` bounds how many steps
 the host may enqueue ahead of the card (it blocks on the oldest step's
@@ -69,16 +74,17 @@ import numpy as np
 import torch
 
 from repro_torch.convert import to_torch
-from repro_torch.core.layerview import (FlatPartition, send_fractions,
-                                        stamp_groups)
+from repro_torch.core.layerview import FlatPartition, send_fractions
 from repro_torch.core.pytree import tree_map
 from repro_torch.device import not_ported, resolve_device
 from repro_torch.launch.train import (_check_wire, _decoupled_metrics,
-                                      _ring_exchange, backward_update_lane,
+                                      _ring_exchange, alive_on_device,
+                                      backward_update_lane,
                                       combine_slice_losses,
-                                      forward_slice_lane, gossip_fused_lane,
-                                      gossip_plane_lane, make_decoupled_state,
-                                      straggler_active_fn)
+                                      forward_slice_lane, gate_update,
+                                      gossip_fused_lane, gossip_plane_lane,
+                                      live_loss, make_decoupled_state,
+                                      stamp_live, straggler_active_fn)
 from repro_torch.optim.optimizers import Optimizer
 
 
@@ -353,22 +359,29 @@ def _stage_bodies(part: FlatPartition, R: int, M: int, device,
       every worker in turn; ``losses`` the M per-worker 0-d losses, and for
       slice 0 ``grads``, each worker's gradients packed into its row of a
       stacked gradient plane (``None`` for ``r > 0``);
-    * ``update(write, opt, fifo, grads, theta, step_idx)``: the update
-      lane's tuple (deltas or updated plane, opt, fifo, staleness, skips
-      [, θ']);
+    * ``update(write, opt, fifo, grads, theta, step_idx, alive=None)``:
+      the update lane's tuple (deltas or updated plane, opt, fifo,
+      staleness, skips [, θ']);
     * ``gossip(write, lane_out, resid, w, versions, step_idx, shift_idx,
-      out=None) -> (mixed, resid, w, versions)``: the gossip lane, then the
-      clock stamp ``t + φ_g``; ``out`` is where the fused route writes the
-      mixed plane (in place when ``None``);
-    * ``mix_group(name, x, lane_out, resid, w, shift_idx, out)``: the
-      gossip lane on the one-group sub-dict ``{name: ...}``: the same
+      out=None, alive=None) -> (mixed, resid, w, versions)``: the gossip
+      lane, then the clock stamp ``t + φ_g``; ``out`` is where the fused
+      route writes the mixed plane (in place when ``None``);
+    * ``mix_group(name, x, lane_out, resid, w, shift_idx, out, alive)``:
+      the gossip lane on the one-group sub-dict ``{name: ...}``: the same
       elementwise math as the full-plane stage, and the weight exchange
       recomputed (the stream engine's per-group stage);
-    * ``clock(w, versions, step_idx, shift_idx) -> (w, versions)``: the
-      push-sum weight exchange once more and the stamp;
-    * ``metrics(losses, w, versions, stale, step_idx, skips)``: each
-      worker's loss combined in the monolithic order, then the mean over
-      workers, and the staleness metrics."""
+    * ``clock(w, versions, step_idx, shift_idx, alive=None) -> (w,
+      versions)``: the push-sum weight exchange once more and the stamp;
+    * ``metrics(losses, w, versions, stale, step_idx, skips, alive=None,
+      mask=None)``: each worker's loss combined in the monolithic order,
+      then the mean over workers (the live ones), and the staleness
+      metrics (``peers_live`` from the host ``mask``).
+
+    ``alive`` is the device membership mask while a peer is dead
+    (:func:`~repro_torch.launch.train.alive_on_device`), else ``None``:
+    the same gates as the monolithic step's, at the same points (a dead
+    peer's update selected away in the update stage, the gated hop, the
+    frozen clocks and the live loss)."""
     int8 = wire == "int8"
     phi = torch.from_numpy(send_fractions(part.num_groups)).to(device)
 
@@ -390,50 +403,59 @@ def _stage_bodies(part: FlatPartition, R: int, M: int, device,
 
         return fwd_body
 
-    def update_body(write, opt_state, fifo, grads, theta, step_idx):
+    def update_body(write, opt_state, fifo, grads, theta, step_idx,
+                    alive=None):
         active = active_fn(step_idx) if active_fn is not None else None
-        return upd(write, opt_state, grads, fifo, step_idx, active=active,
-                   theta=theta)
+        out = upd(write, opt_state, grads, fifo, step_idx, active=active,
+                  theta=theta)
+        if alive is None:
+            return out
+        return (gate_update(out[0], None if fused else write, alive),) \
+            + tuple(out[1:])
 
-    def stamp(versions, step_idx):
+    def stamp(versions, step_idx, alive):
         if M == 1:  # one worker receives nothing
             return versions
-        return stamp_groups(versions, phi + float(np.float32(step_idx)))
+        return stamp_live(versions, phi + float(np.float32(step_idx)), alive)
 
-    def run_mix(write, lane_out, resid, w, shift_idx, out):
+    def run_mix(write, lane_out, resid, w, shift_idx, out, alive):
         if fused and int8:
-            return mix(write, resid, lane_out, w, shift_idx, out=out)
+            return mix(write, resid, lane_out, w, shift_idx, out=out,
+                       alive=alive)
         if fused:
-            return mix(write, lane_out, w, shift_idx, out=out) + (None,)
+            return mix(write, lane_out, w, shift_idx, out=out,
+                       alive=alive) + (None,)
         if int8:
-            return mix(lane_out, resid, w, shift_idx)
-        return mix(lane_out, w, shift_idx) + (None,)
+            return mix(lane_out, resid, w, shift_idx, alive=alive)
+        return mix(lane_out, w, shift_idx, alive=alive) + (None,)
 
     def gossip_body(write, lane_out, resid, w, versions, step_idx,
-                    shift_idx, out=None):
-        mixed, a, b = run_mix(write, lane_out, resid, w, shift_idx, out)
+                    shift_idx, out=None, alive=None):
+        mixed, a, b = run_mix(write, lane_out, resid, w, shift_idx, out,
+                              alive)
         resid, w = (a, b) if int8 else (None, a)
-        return mixed, resid, w, stamp(versions, step_idx)
+        return mixed, resid, w, stamp(versions, step_idx, alive)
 
-    def mix_group(name, x, lane_out, resid, w, shift_idx, out=None):
+    def mix_group(name, x, lane_out, resid, w, shift_idx, out=None,
+                  alive=None):
         one = lambda v: None if v is None else {name: v}  # noqa: E731
         mixed, a, _ = run_mix(one(x), one(lane_out), one(resid), w,
-                              shift_idx, one(out))
+                              shift_idx, one(out), alive)
         return mixed[name], (a[name] if int8 else None)
 
-    def clock_body(w, versions, step_idx, shift_idx):
+    def clock_body(w, versions, step_idx, shift_idx, alive=None):
         if M > 1:
-            _, w_keep, rw = _ring_exchange(w, shift_idx, shifts)
+            _, w_keep, rw, _ = _ring_exchange(w, shift_idx, shifts, alive)
             w = w_keep + rw
-        return w, stamp(versions, step_idx)
+        return w, stamp(versions, step_idx, alive)
 
-    def metrics_fn(losses, w, versions, upd_stale, step_idx, skips):
+    def metrics_fn(losses, w, versions, upd_stale, step_idx, skips,
+                   alive=None, mask=None):
         per_worker = [combine_slice_losses(losses[0][m],
                                            [lr[m] for lr in losses[1:]], R)
                       for m in range(M)]
-        loss = torch.stack(per_worker).mean()
-        return _decoupled_metrics(w, versions, loss, upd_stale, step_idx,
-                                  skips)
+        return _decoupled_metrics(w, versions, live_loss(per_worker, alive),
+                                  upd_stale, step_idx, skips, mask)
 
     return {"fwd": [make_fwd_body(r) for r in range(R)],
             "update": update_body, "gossip": gossip_body,
@@ -445,15 +467,17 @@ def _make_stages(bodies) -> Dict[str, Any]:
     """The single-stream engine's stages (``no_grad``, as the monolithic
     ``step_fn``; slice 0 enables grad inside its lane). The gossip stage
     folds the metrics: ``gossip(write, lane_out, resid, w, versions,
-    losses, stale, skips, step_idx, shift_idx) -> (mixed, resid, w,
-    versions, metrics)``."""
+    losses, stale, skips, step_idx, shift_idx, alive=None, mask=None) ->
+    (mixed, resid, w, versions, metrics)``."""
     gossip, metrics_fn = bodies["gossip"], bodies["metrics"]
 
     def gossip_stage(write, lane_out, resid, w, versions, losses, upd_stale,
-                     skips, step_idx, shift_idx):
+                     skips, step_idx, shift_idx, alive=None, mask=None):
         mixed, resid, w, versions = gossip(write, lane_out, resid, w,
-                                           versions, step_idx, shift_idx)
-        metrics = metrics_fn(losses, w, versions, upd_stale, step_idx, skips)
+                                           versions, step_idx, shift_idx,
+                                           alive=alive)
+        metrics = metrics_fn(losses, w, versions, upd_stale, step_idx, skips,
+                             alive, mask)
         return mixed, resid, w, versions, metrics
 
     ng = torch.no_grad()
@@ -463,23 +487,25 @@ def _make_stages(bodies) -> Dict[str, Any]:
 
 def _make_group_stages(bodies, group_names: Sequence[str]) -> Dict[str, Any]:
     """The gossip stage split at the layer-group boundary, for the stream
-    engine: ``mix[g](x, lane_out, resid, w, shift_idx, out) -> (mixed,
-    resid)`` per plane buffer, and ``clock(w, versions, losses, stale,
-    skips, step_idx, shift_idx) -> (w, versions, metrics)``. Together they
-    compute what the single-stream gossip stage computes."""
+    engine: ``mix[g](x, lane_out, resid, w, shift_idx, out, alive) ->
+    (mixed, resid)`` per plane buffer, and ``clock(w, versions, losses,
+    stale, skips, step_idx, shift_idx, alive, mask) -> (w, versions,
+    metrics)``. Together they compute what the single-stream gossip stage
+    computes."""
     mix_group, clock, metrics_fn = (bodies["mix_group"], bodies["clock"],
                                     bodies["metrics"])
     ng = torch.no_grad()
 
     def make_mix(name):
-        return ng(lambda x, lane_out, resid, w, shift_idx, out=None:
-                  mix_group(name, x, lane_out, resid, w, shift_idx, out))
+        return ng(lambda x, lane_out, resid, w, shift_idx, out=None,
+                  alive=None: mix_group(name, x, lane_out, resid, w,
+                                        shift_idx, out, alive))
 
     def clock_stage(w, versions, losses, upd_stale, skips, step_idx,
-                    shift_idx):
-        w, versions = clock(w, versions, step_idx, shift_idx)
+                    shift_idx, alive=None, mask=None):
+        w, versions = clock(w, versions, step_idx, shift_idx, alive)
         return w, versions, metrics_fn(losses, w, versions, upd_stale,
-                                       step_idx, skips)
+                                       step_idx, skips, alive, mask)
 
     return {"mix": {g: make_mix(g) for g in group_names},
             "clock": ng(clock_stage)}
@@ -521,6 +547,7 @@ class PipelineEngine:
         # fence rather than run further ahead.
         self.max_inflight_steps = int(max_inflight_steps)
         self._graveyard: List[Tuple[Any, Any]] = []
+        self._masks: Dict[tuple, torch.Tensor] = {}  # device alive masks
 
     def _prune(self) -> None:
         self._graveyard = [(f, h) for f, h in self._graveyard
@@ -532,6 +559,8 @@ class PipelineEngine:
         metrics)`` without waiting for the card."""
         tl = self.timeline
         t, sh = int(step_idx), int(shift_idx)
+        mask = state.get("alive")  # membership: the host mask
+        alive = alive_on_device(mask, self.device, self._masks)
         self._prune()
         while len(self._graveyard) >= self.max_inflight_steps:
             _block(self._graveyard.pop(0)[0])
@@ -551,7 +580,7 @@ class PipelineEngine:
         ev = tl.begin("update", t)
         upd_out = self._stages["update"](
             state["write"], state["opt"], state.get("fifo", ()), grads,
-            state.get("theta"), t)
+            state.get("theta"), t, alive)
         del grads
         lane_out, opt, fifo, upd_stale, skips = upd_out[:5]
         theta = upd_out[5] if len(upd_out) > 5 else None
@@ -561,7 +590,7 @@ class PipelineEngine:
         ev = tl.begin("gossip", t)
         mixed, resid, w, versions, metrics = self._stages["gossip"](
             state["write"], lane_out, state.get("resid"), state["w"],
-            state["versions"], losses, upd_stale, skips, t, sh)
+            state["versions"], losses, upd_stale, skips, t, sh, alive, mask)
         del lane_out
         fence = record_fence(self.device)
         tl.commit(ev, fence)
@@ -575,6 +604,8 @@ class PipelineEngine:
             new_state["resid"] = resid
         if theta is not None:
             new_state["theta"] = theta
+        if mask is not None:
+            new_state["alive"] = mask
         return new_state, metrics
 
     def reset(self) -> None:
@@ -727,6 +758,8 @@ def make_pipeline_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
     StreamEngine`: the same forward and update stages plus the gossip stage
     split per layer group, on CUDA streams of their own. ``wait_timeout_s``
     bounds every wait of its threads (a lost signal raises, never hangs).
+    ``membership`` adds the alive mask to the state (DESIGN.md §15); the
+    engines thread it into the update and gossip stages.
 
     Returns ``(init_fn, step_fn, shifts, box)``: ``box["engine"]`` holds
     the engine and ``box["part"]`` the FlatPartition once ``init_fn`` has
@@ -735,8 +768,6 @@ def make_pipeline_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
         raise not_ported("flat=False (the legacy per-leaf tree state)", 15)
     if publisher is not None:
         raise not_ported("publisher (live serving)", 11)
-    if membership:
-        raise not_ported("membership (chaos injection)", 10)
     _check_wire(wire, compensate)
     device = resolve_device(device)
     R, D = int(fb_ratio), int(update_delay)
@@ -796,7 +827,8 @@ def make_pipeline_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
             box["engine"], box["part"] = build(params_single)
         return make_decoupled_state(stacked, optimizer, update_delay=D,
                                     part=box["part"], wire=wire,
-                                    compensate=compensate)
+                                    compensate=compensate,
+                                    membership=membership)
 
     def step_fn(state, batch, step_idx, shift_idx):
         if "engine" not in box:

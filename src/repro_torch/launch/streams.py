@@ -48,6 +48,13 @@ n >= 4     ``fwd0..fwd{n-3}`` (slices round-robin) | ``update`` |
   update deltas) is taken off the board, so nothing holds it past its use;
   the plane slots keep two versions, the live one and the one a lagging
   forward slice may still ask for.
+* A host mutation between steps (a chaos fault) first calls
+  :meth:`StreamEngine.materialize`: every task launched, then the caller's
+  stream waits for all of the engine's streams; the next step's tasks wait
+  for the caller's stream. The ping-pong pair is kept, since the fault
+  changes the live buffer in place. The alive mask (membership) rides into
+  the update, per-group mix and clock stages; the chaos controller's
+  liveness beats land on the board as ``live:{p}`` slots.
 * The mixes and the clock of a step share the ``gossip`` stream, so the
   residual (int8 wire) is rewritten in place in order; the push-sum
   weights and the version clocks come out fresh.
@@ -80,6 +87,7 @@ import torch
 from repro_torch.device import not_ported
 from repro_torch.launch.pipeline import (StageTimeline, cutout_args,
                                          record_fence)
+from repro_torch.launch.train import alive_on_device
 
 __all__ = [
     "SignalBoard", "Stream", "StreamTask", "TaskOutput", "StreamEngine",
@@ -543,6 +551,7 @@ class StreamEngine:
         self._pair: Optional[Dict[str, List[torch.Tensor]]] = None
         self._live = 0
         self._prev_fwd: List[StreamTask] = []
+        self._masks: Dict[tuple, torch.Tensor] = {}  # device alive masks
 
     # -- helpers -----------------------------------------------------------
 
@@ -574,12 +583,21 @@ class StreamEngine:
         """First step after (re-)init, or any state of tensors: push each
         group buffer of the read plane onto the board with signal ``t`` and
         make the ping-pong pair from the state's read and write planes (a
-        second buffer is allocated where they are one)."""
+        second buffer is allocated where they are one).
+
+        A materialized state whose read plane is the pair's live buffer (a
+        host mutation between steps, e.g. a chaos fault, changes it in
+        place) keeps the pair and the last forward tasks, which the next
+        mix still waits for before it writes the other buffer."""
         read = state["read"]
         if isinstance(next(iter(read.values())), TaskOutput):
             return  # the plane already lives on the board
         for g in self.group_names:
             self.board.put_signal(self._plane_slot(g), t, (read[g], host))
+        if self.fused and self._pair is not None and all(
+                read[g] is self._pair[g][self._live]
+                for g in self.group_names):
+            return
         self._prev_fwd = []
         if self.fused:
             write = state["write"]
@@ -604,8 +622,10 @@ class StreamEngine:
             s.flush_spans(block=False)
         if self._devclock is not None:
             self._devclock.start()
-        # the caller's work so far (the batch, a state of tensors): every
-        # task of the step makes its stream wait for it
+        mask = state.get("alive")  # membership: the host mask
+        alive = alive_on_device(mask, self.device, self._masks)
+        # the caller's work so far (the batch, a state of tensors, a copied
+        # mask): every task of the step makes its stream wait for it
         host = record_fence(self.device)
         self._seed(state, t, host)
 
@@ -640,7 +660,7 @@ class StreamEngine:
         def upd_wait():
             grads = use_here(*board.take("grads", t, timeout))
             return (self._wait_plane(t), here(opt_ref), here(fifo_ref),
-                    grads, here(theta_ref), t)
+                    grads, here(theta_ref), t, here(alive))
 
         def upd_signals(out, fence):
             for g in gnames:
@@ -679,7 +699,8 @@ class StreamEngine:
                      if self.fused else None)
                 resid = here(resid_ref[g]) if int8 else None
                 out = use_here(outs[g]) if self.fused else None
-                return (x, lane_out, resid, here(w_ref), sh, out)
+                return (x, lane_out, resid, here(w_ref), sh, out,
+                        here(alive))
 
             def mix_signals(out, fence, g=g):
                 board.put_signal(self._plane_slot(g), t + 1, (out[0], fence))
@@ -698,14 +719,15 @@ class StreamEngine:
         def clock_wait():
             return (here(w_ref), here(versions_ref),
                     tuple(lo.result() for lo in losses), upd_stale.result(),
-                    skips.result(), t, sh)
+                    skips.result(), t, sh, here(alive), mask)
 
         clock_task = self._task("clock", t, wait_fn=clock_wait,
                                 run_fn=self._group_stages["clock"])
         self._gossip.submit(clock_task)
         metric_keys = ["loss", "update_staleness", "weight_sum",
                        "nonfinite_skips", "layer_staleness",
-                       "staleness_mean"]
+                       "staleness_mean"] + (["peers_live"]
+                                            if mask is not None else [])
         metrics = {k: TaskOutput(clock_task, (lambda r, k=k: r[2][k]))
                    for k in metric_keys}
 
@@ -719,6 +741,8 @@ class StreamEngine:
                                   for g, tk in mix_tasks.items()}
         if self.compensate > 0.0:
             new_state["theta"] = new_theta
+        if mask is not None:
+            new_state["alive"] = mask
         return new_state, metrics
 
     def submit_aux(self, stage: str, fn: Callable, arg_refs: tuple,
@@ -735,15 +759,22 @@ class StreamEngine:
     # -- lifecycle ---------------------------------------------------------
 
     def materialize(self, tree):
-        """Resolve every :class:`TaskOutput` leaf, safe to use on the
-        current stream."""
-        return resolve_refs(tree)
+        """Resolve every :class:`TaskOutput` leaf, safe to use, and to write
+        in place, on the current stream: every task submitted so far has
+        launched first, and the current stream then waits for all of the
+        engine's streams (so for the tasks that only read the tensors too,
+        such as the drift metric). The next step's tasks wait for the
+        current stream in turn."""
+        self._drain()
+        out = resolve_refs(tree)
+        if self.device.type == "cuda":
+            cur = torch.cuda.current_stream(self.device)
+            for s in self._streams:
+                cur.wait_stream(s.cuda)
+        return out
 
-    def finalize(self) -> None:
-        """Wait until every submitted task has launched and its work on the
-        card is done, record the spans, then re-raise the first failure.
-        Every task is drained first, so no thread is left waiting when the
-        exception surfaces."""
+    def _drain(self) -> None:
+        """Wait until every submitted task has launched (or failed)."""
         with self._cv:
             while self._pending:
                 left = self._pending
@@ -752,6 +783,14 @@ class StreamEngine:
                     raise TimeoutError(
                         f"{left} stream tasks made no progress in "
                         f"{self.wait_timeout_s}s")
+
+    def finalize(self) -> None:
+        """Wait until every submitted task has launched and its work on the
+        card is done, record the spans, then re-raise the first failure.
+        Every task is drained first, so no thread is left waiting when the
+        exception surfaces."""
+        self._drain()
+        with self._cv:
             first, self._failure = self._failure, None
         for s in self._streams:
             s.flush_spans(block=True)

@@ -27,11 +27,20 @@ gradient by ``g + λ·g⊙g⊙(s·(θ − θ_prev))`` with ``θ_prev`` one more 
 the measured staleness (DESIGN.md §14).
 
 Then the read plane adopts the mixed write plane and each group's clock is
-stamped ``t + φ_g``. The pipeline and stream engines
-(``repro_torch.launch.pipeline``, ``.streams``) run the same lanes split
-into stages (``forward_slice_lane`` is one forward slice). Everything stays on the device: push-sum weights,
-α/β, FIFO stamps and metrics are device tensors, and a step makes no host
-synchronisation of its own.
+stamped ``t + φ_g``.
+
+Membership (``faults=``, DESIGN.md §15) adds ``state["alive"]``, the chaos
+controller's host mask. While every peer is alive the step is the
+fault-free one, bit for bit; while a peer is dead it is alive-gated
+(:func:`_ring_exchange`, :func:`gate_update`, :func:`stamp_live`,
+:func:`live_loss`).
+
+The pipeline and stream engines (``repro_torch.launch.pipeline``,
+``.streams``) run the same lanes split into stages
+(``forward_slice_lane`` is one forward slice). Everything stays on the
+device: push-sum weights, α/β, FIFO stamps and metrics are device tensors
+(``peers_live``, counted from the host mask, is a host one), and a step
+makes no host synchronisation of its own.
 
 A step CONSUMES the state it is given, as the reference's jitted step
 donates it (``donate_argnums=(0,)``): the optimizer state, the applied FIFO
@@ -267,19 +276,51 @@ def fifo_init(plane_single: Dict[str, torch.Tensor], update_delay: int,
 # ---------------------------------------------------------------------------
 
 
-def _ring_exchange(w, shift_idx, shifts: Sequence[int]):
+def _ring_exchange(w, shift_idx, shifts: Sequence[int], alive=None):
     """One push-sum ring hop on the stacked plane: worker ``i`` sends its
     buffers and half its weight to worker ``i + s mod M``, i.e. row ``j``
     receives row ``j − s`` (``torch.roll(buf, s, 0)``).
 
-    Returns ``(hop, w_keep, rw)``. ``hop(buf)`` makes the received copy of
-    one stacked buffer, so a caller holds one group's copy at a time, and
+    Returns ``(hop, w_keep, rw, use)``. ``hop(buf)`` makes the received copy
+    of one stacked buffer, so a caller holds one group's copy at a time, and
     every buffer of a round (an int8 group's q and its scales) moves by the
-    same shift."""
+    same shift.
+
+    ``alive`` (an ``(M,)`` 0/1 float32 device mask, DESIGN.md §15) gates
+    the exchange for fault-tolerant membership: mass is sent only when
+    both endpoints are alive (``w_sent = w/2 · a_self · a_tgt``: a dead
+    target would absorb it, leaking Σw out of the live set; a dead sender
+    must not inject its stale plane), so Σw over the live peers is
+    conserved exactly every round. ``use`` (bool ``(M,)``, ``None``
+    without ``alive``) is true only where both a row and its hop's source
+    are alive; a row where it is false must not read what it received.
+    With every peer alive the gated weights are the ungated ones bit for
+    bit (``w − w/2 == w/2``)."""
     s = int(shifts[int(shift_idx)])
-    w_keep = w * 0.5
-    rw = torch.roll(w * 0.5, s, 0)
-    return (lambda buf: torch.roll(buf, s, 0)), w_keep, rw
+    hop = lambda buf: torch.roll(buf, s, 0)  # noqa: E731
+    if alive is None:
+        return hop, w * 0.5, torch.roll(w * 0.5, s, 0), None
+    a_tgt = torch.roll(alive, -s, 0)
+    w_sent = w * 0.5 * (alive * a_tgt)
+    w_keep = w - w_sent
+    use = (torch.roll(alive, s, 0) * alive) > 0.0
+    return hop, w_keep, torch.roll(w_sent, s, 0), use
+
+
+def _mix_weights(w_keep, rw, use):
+    """``(new_w, denom, α, β)`` of a hop: ``new_w = w_keep + rw``,
+    ``α = w_keep/denom``, ``β = rw/denom``. On a gated hop (``use`` not
+    None) a dead peer's weight is 0 on both sides, so ``denom`` guards the
+    0/0 with 1 (its buffers are never read again)."""
+    new_w = w_keep + rw
+    denom = new_w if use is None else torch.where(
+        new_w > 0.0, new_w, torch.ones_like(new_w))
+    return new_w, denom, w_keep / denom, rw / denom
+
+
+def _rows_mask(use, x):
+    """``use`` shaped to broadcast over the rows of a stacked buffer."""
+    return use.reshape((-1,) + (1,) * (x.dim() - 1))
 
 
 def _check_wire(wire: str, compensate: float) -> None:
@@ -304,39 +345,47 @@ def gossip_plane_lane(part: FlatPartition, M: int, shifts: Sequence[int], *,
     ``quantize_plane_ref`` and ``dequant_mix_ref``). The signature becomes
     ``mix(plane, resid, w, shift_idx) -> (plane, resid, w)``; the residual
     is updated in place. At M == 1 it is the identity: nothing crosses the
-    wire, nothing is quantized."""
+    wire, nothing is quantized.
+
+    ``alive=`` (a device mask, see :func:`_ring_exchange`) gates the hop:
+    a row whose source or self is dead keeps its own buffer (a select, so
+    nothing it received is read)."""
     _check_wire(wire, 0.0)
     if wire == "int8":
         if M == 1:
-            return lambda plane, resid, w, shift_idx: (plane, resid, w)
+            return lambda plane, resid, w, shift_idx, alive=None: (
+                plane, resid, w)
 
-        def mix_q(plane, resid, w, shift_idx):
-            hop, w_keep, rw = _ring_exchange(w, shift_idx, shifts)
-            new_w = w_keep + rw
-            alpha, beta = w_keep / new_w, rw / new_w
+        def mix_q(plane, resid, w, shift_idx, alive=None):
+            hop, w_keep, rw, use = _ring_exchange(w, shift_idx, shifts,
+                                                  alive)
+            new_w, _, alpha, beta = _mix_weights(w_keep, rw, use)
             mixed = {}
             for name, mine in plane.items():
                 q, s, _ = quantize_plane_ref(mine, resid[name],
                                              out_resid=resid[name])
-                mixed[name] = dequant_mix_ref(mine, hop(q), hop(s), None,
-                                              alpha, beta)
+                mx = dequant_mix_ref(mine, hop(q), hop(s), None, alpha, beta)
                 del q, s
+                mixed[name] = mx if use is None else torch.where(
+                    _rows_mask(use, mine), mx, mine)
             return mixed, resid, new_w
 
         return mix_q
     if M == 1:
-        return lambda plane, w, shift_idx: (plane, w)
+        return lambda plane, w, shift_idx, alive=None: (plane, w)
 
-    def mix(plane, w, shift_idx):
-        hop, w_keep, rw = _ring_exchange(w, shift_idx, shifts)
-        new_w = w_keep + rw
+    def mix(plane, w, shift_idx, alive=None):
+        hop, w_keep, rw, use = _ring_exchange(w, shift_idx, shifts, alive)
+        new_w, denom, _, _ = _mix_weights(w_keep, rw, use)
         mixed = {}
         for name, mine in plane.items():
             r = hop(mine)
             mf = (w_keep[:, None] * mine.to(torch.float32)
-                  + rw[:, None] * r.to(torch.float32)) / new_w[:, None]
-            mixed[name] = mf.to(mine.dtype)
+                  + rw[:, None] * r.to(torch.float32)) / denom[:, None]
             del r
+            mx = mf.to(mine.dtype)
+            mixed[name] = mx if use is None else torch.where(
+                _rows_mask(use, mine), mx, mine)
         return mixed, new_w
 
     return mix
@@ -363,7 +412,14 @@ def gossip_fused_lane(part: FlatPartition, M: int, shifts: Sequence[int], *,
     ``α·x + β·(q·s) + upd``. Only one group's ``q`` and its received copy
     are alive at a time. The signature becomes ``mix_apply(plane, resid,
     updates, w, shift_idx) -> (plane, resid, w)``; at M == 1 the residual
-    passes through untouched."""
+    passes through untouched.
+
+    ``alive=`` (a device mask, see :func:`_ring_exchange`) gates the hop.
+    The mix writes in place, so the gate goes into its operands, not a
+    select after it: a degraded row (``use`` false) receives its own
+    buffer with ``α = 1, β = 0`` and computes ``op(x, x, u, 1, 0)``, its
+    own update and nothing of the dead source's row; on the int8 wire its
+    received scales are zeroed instead."""
     _check_wire(wire, 0.0)
     op = ops.gossip_mix if use_pallas else gossip_mix_ref
 
@@ -372,22 +428,34 @@ def gossip_fused_lane(part: FlatPartition, M: int, shifts: Sequence[int], *,
         return {name: op(x, x, updates[name], one, zero, out=out[name])
                 for name, x in plane.items()}
 
+    def weights(w, shift_idx, alive):
+        hop, w_keep, rw, use = _ring_exchange(w, shift_idx, shifts, alive)
+        new_w, _, alpha, beta = _mix_weights(w_keep, rw, use)
+        if use is not None:
+            # a degraded row applies its own update and mixes nothing in
+            alpha = torch.where(use, alpha, torch.ones_like(alpha))
+            beta = torch.where(use, beta, torch.zeros_like(beta))
+        return hop, use, new_w, alpha, beta
+
     if wire == "int8":
         qfn = ops.quantize_plane if use_pallas else quantize_plane_ref
         dqfn = ops.dequant_mix if use_pallas else dequant_mix_ref
 
-        def mix_apply_q(plane, resid, updates, w, shift_idx, out=None):
+        def mix_apply_q(plane, resid, updates, w, shift_idx, out=None,
+                        alive=None):
             out = plane if out is None else out
             if M == 1:
                 return apply_m1(plane, updates, w, out), resid, w
-            hop, w_keep, rw = _ring_exchange(w, shift_idx, shifts)
-            new_w = w_keep + rw
-            alpha, beta = w_keep / new_w, rw / new_w
+            hop, use, new_w, alpha, beta = weights(w, shift_idx, alive)
             mixed = {}
             for name, x in plane.items():
                 q, s, _ = qfn(x, resid[name], out_resid=resid[name])
                 q_recv, s_recv = hop(q), hop(s)
                 del q, s
+                if use is not None:
+                    # a degraded row reads zero scales: β·(q·0) = 0
+                    s_recv = torch.where(_rows_mask(use, s_recv), s_recv,
+                                         torch.zeros_like(s_recv))
                 mixed[name] = dqfn(x, q_recv, s_recv, updates[name], alpha,
                                    beta, out=out[name])
                 del q_recv, s_recv
@@ -395,16 +463,17 @@ def gossip_fused_lane(part: FlatPartition, M: int, shifts: Sequence[int], *,
 
         return mix_apply_q
 
-    def mix_apply(plane, updates, w, shift_idx, out=None):
+    def mix_apply(plane, updates, w, shift_idx, out=None, alive=None):
         out = plane if out is None else out
         if M == 1:
             return apply_m1(plane, updates, w, out), w
-        hop, w_keep, rw = _ring_exchange(w, shift_idx, shifts)
-        new_w = w_keep + rw
-        alpha, beta = w_keep / new_w, rw / new_w
+        hop, use, new_w, alpha, beta = weights(w, shift_idx, alive)
         mixed = {}
         for name, x in plane.items():
             r = hop(x)
+            if use is not None:
+                # a degraded row receives its own buffer: op(x, x, u, 1, 0)
+                torch.where(_rows_mask(use, x), r, x, out=r)
             mixed[name] = op(x, r, updates[name], alpha, beta, out=out[name])
             del r
         return mixed, new_w
@@ -415,6 +484,53 @@ def gossip_fused_lane(part: FlatPartition, M: int, shifts: Sequence[int], *,
 # ---------------------------------------------------------------------------
 # the decoupled step
 # ---------------------------------------------------------------------------
+
+
+def alive_on_device(alive, device, cache: Dict[tuple, torch.Tensor]):
+    """The device copy of a host membership mask (``state["alive"]``, numpy
+    float32) when some peer is dead, else ``None`` (the ungated route: with
+    every peer alive the gated step gives the same bits, and costs
+    plane-sized selects). One copy to the device per distinct mask, kept in
+    ``cache``: a step reads no mask back from the device."""
+    if alive is None or bool((np.asarray(alive) > 0).all()):
+        return None
+    key = tuple(float(v) for v in np.asarray(alive))
+    if key not in cache:
+        cache[key] = torch.tensor(key, dtype=torch.float32, device=device)
+    return cache[key]
+
+
+def gate_update(lane_out, write, alive) -> Dict[str, torch.Tensor]:
+    """A dead peer applies no updates. ``lane_out`` is the update lane's
+    output: the deltas (``write`` is None: the fused route), zeroed in
+    place for dead rows, or the updated plane, whose dead rows keep
+    ``write``'s. Both are selects, never a multiply by the mask (Inf·0 is
+    NaN)."""
+    keep = alive > 0.0
+    if write is None:
+        for u in lane_out.values():
+            u.masked_fill_(~_rows_mask(keep, u), 0.0)
+        return lane_out
+    return {k: torch.where(_rows_mask(keep, v), v, write[k])
+            for k, v in lane_out.items()}
+
+
+def live_loss(losses: Sequence[torch.Tensor], alive):
+    """The mean of the per-worker losses; over the live peers only when a
+    device mask is given (a dead peer's loss must not drag the mean)."""
+    stacked = torch.stack(list(losses))
+    if alive is None:
+        return stacked.mean()
+    return (stacked * alive).sum() / alive.sum()
+
+
+def stamp_live(versions, stamp, alive):
+    """Each group's clock stamped ``t + φ_g``; a dead peer's clocks freeze
+    at its last live generation."""
+    stamped = stamp_groups(versions, stamp)
+    if alive is None:
+        return stamped
+    return torch.where((alive > 0.0)[:, None], stamped, versions)
 
 
 def _decoupled_worker_fn(part: FlatPartition, fwd: Callable, upd: Callable,
@@ -435,14 +551,23 @@ def _decoupled_worker_fn(part: FlatPartition, fwd: Callable, upd: Callable,
     plane through the gossip lane, whose signature then takes it; one with
     ``"theta"`` (``compensate > 0``) threads θ through the update lane,
     which must have been built with ``compensate > 0``. Both are consumed
-    in place like the rest of the state."""
+    in place like the rest of the state.
+
+    A state with ``"alive"`` (membership, DESIGN.md §15: the host mask of
+    the chaos controller) adds ``peers_live`` to the metrics; while a peer
+    is dead the step is alive-gated: a dead peer applies no updates, its
+    clocks freeze, the gossip hop is gated, and the loss is averaged over
+    the live peers."""
     phi = send_fractions(part.num_groups)
     phi_on: Dict[torch.device, torch.Tensor] = {}  # φ copied once per device
+    masks: Dict[tuple, torch.Tensor] = {}  # device copies of host masks
 
     def step(state, batch, step_idx, shift_idx):
         read, write = state["read"], state["write"]
         opt_state, w, versions = state["opt"], state["w"], state["versions"]
         fifo = state.get("fifo", ())
+        alive_host = state.get("alive")
+        alive = alive_on_device(alive_host, w.device, masks)
         grads = {k: torch.empty_like(v) for k, v in read.items()}
         losses = []
         for m in range(M):
@@ -462,17 +587,21 @@ def _decoupled_worker_fn(part: FlatPartition, fwd: Callable, upd: Callable,
         if theta is not None:
             theta = upd_out[5]
         del upd_out
+        if alive is not None:
+            lane_out = gate_update(
+                lane_out, None if fused_mix is not None else write, alive)
         int8 = resid is not None
         if fused_mix is not None:
             if int8:
                 write, resid, w = fused_mix(write, resid, lane_out, w,
-                                            shift_idx)
+                                            shift_idx, alive=alive)
             else:
-                write, w = fused_mix(write, lane_out, w, shift_idx)
+                write, w = fused_mix(write, lane_out, w, shift_idx,
+                                     alive=alive)
         elif int8:
-            write, resid, w = mix(lane_out, resid, w, shift_idx)
+            write, resid, w = mix(lane_out, resid, w, shift_idx, alive=alive)
         else:
-            write, w = mix(lane_out, w, shift_idx)
+            write, w = mix(lane_out, w, shift_idx, alive=alive)
         del lane_out
         read = write
         if M > 1:
@@ -480,8 +609,8 @@ def _decoupled_worker_fn(part: FlatPartition, fwd: Callable, upd: Callable,
                 phi_on[versions.device] = torch.from_numpy(phi).to(
                     versions.device)
             stamp = phi_on[versions.device] + float(np.float32(step_idx))
-            versions = stamp_groups(versions, stamp)
-        loss = torch.stack(losses).mean()
+            versions = stamp_live(versions, stamp, alive)
+        loss = live_loss(losses, alive)
         new_state = {"read": read, "write": write, "opt": opt_state, "w": w,
                      "versions": versions}
         if D > 0:
@@ -490,8 +619,10 @@ def _decoupled_worker_fn(part: FlatPartition, fwd: Callable, upd: Callable,
             new_state["resid"] = resid
         if theta is not None:
             new_state["theta"] = theta
+        if alive_host is not None:
+            new_state["alive"] = alive_host
         return new_state, _decoupled_metrics(w, versions, loss, upd_stale,
-                                             step_idx, skips)
+                                             step_idx, skips, alive_host)
 
     return step
 
@@ -499,14 +630,17 @@ def _decoupled_worker_fn(part: FlatPartition, fwd: Callable, upd: Callable,
 def make_decoupled_state(params_stacked, optimizer: Optimizer, *,
                          update_delay: int = 0,
                          part: Optional[FlatPartition] = None,
-                         wire: str = "param", compensate: float = 0.0):
+                         wire: str = "param", compensate: float = 0.0,
+                         membership: bool = False):
     """Initial step state: the params packed ONCE into the stacked plane,
     as two separate copies (read, write), optimizer state in plane layout,
     push-sum weights ``1/M``, zero version clocks and, with D > 0, a zero
     gradient FIFO with stamps −1. ``wire="int8"`` adds the zero
     error-feedback residual plane ``"resid"`` (the plane's dtypes);
     ``compensate > 0`` adds ``"theta"``, a third copy of the initial plane
-    (the θ_prev of step 0)."""
+    (the θ_prev of step 0); ``membership`` adds ``"alive"``, the host
+    membership mask (numpy float32, all ones; the chaos controller replaces
+    it at fault events, DESIGN.md §15)."""
     _check_wire(wire, compensate)
     leaves, _ = tree_flatten(params_stacked)
     M = leaves[0].shape[0]
@@ -537,12 +671,19 @@ def make_decoupled_state(params_stacked, optimizer: Optimizer, *,
         state["resid"] = {k: torch.zeros_like(v) for k, v in read.items()}
     if theta is not None:
         state["theta"] = theta
+    if membership:
+        state["alive"] = np.ones((M,), np.float32)
     return state
 
 
-def _decoupled_metrics(w, versions, loss, upd_stale, step_idx, skips):
+def _decoupled_metrics(w, versions, loss, upd_stale, step_idx, skips,
+                       alive=None):
     out = {"loss": loss, "update_staleness": upd_stale,
            "weight_sum": torch.sum(w), "nonfinite_skips": skips}
+    if alive is not None:
+        # the host mask's count, a host tensor: no read from the device
+        out["peers_live"] = torch.tensor(float(np.sum(alive)),
+                                         dtype=torch.float32)
     out.update(version_metrics(versions, step_idx))
     return out
 
@@ -574,7 +715,8 @@ def make_decoupled_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
                                    measure_drift: bool = False,
                                    use_pallas: bool = False,
                                    wire: str = "param",
-                                   compensate: float = 0.0):
+                                   compensate: float = 0.0,
+                                   membership: bool = False):
     """Decoupled LayUp over a params dict + ``loss_fn``: the engine behind
     the ``"prod"`` backend. ``M`` workers are stacked on ``device`` (the
     reference takes a mesh with M devices on its worker axis).
@@ -584,7 +726,8 @@ def make_decoupled_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
     fused Alg. 1 route through the kernels (:func:`gossip_fused_lane`); the
     default applies the update and then mixes in plain PyTorch
     (:func:`gossip_plane_lane`). ``wire`` (``"param"`` or ``"int8"``) and
-    ``compensate=λ ≥ 0`` are the options of DESIGN.md §14.
+    ``compensate=λ ≥ 0`` are the options of DESIGN.md §14; ``membership``
+    adds the alive mask to the state (DESIGN.md §15).
 
     Returns ``(init_fn, step_fn, shifts, box)`` as the reference does:
     ``init_fn(rng, params_single) -> state``, ``step_fn(state, batch,
@@ -630,7 +773,8 @@ def make_decoupled_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
             part_box["step"], part_box["part"] = build(params_single)
         return make_decoupled_state(stacked, optimizer, update_delay=D,
                                     part=part_box["part"], wire=wire,
-                                    compensate=compensate)
+                                    compensate=compensate,
+                                    membership=membership)
 
     def step_fn(state, batch, step_idx, shift_idx):
         if "step" not in part_box:

@@ -593,7 +593,8 @@ def _decoder_run(engine_kw, *, steps=ENGINE_STEPS, wrap=None, **kw):
             hist.append(m)
         hist = [{k: float(m[k]) for k in ("loss", "update_staleness",
                                           "weight_sum", "disagreement",
-                                          "staleness_mean") if k in m}
+                                          "staleness_mean", "nonfinite_skips",
+                                          "peers_live") if k in m}
                 for m in hist]
         read = st["read"]
         if hasattr(be.engine, "materialize"):
@@ -654,3 +655,102 @@ def test_stream_mix_never_writes_a_plane_a_forward_reads(cuda_device):
     assert len(watch["w"].pairs) == 24 * 2 * 2  # steps x workers x slices
     assert watch["w"].changed() == 0
     assert summary["exec_overlap_s"] > 0.0
+
+
+# ---------------------------------------------------------------------------
+# chaos injection and membership on the card
+# ---------------------------------------------------------------------------
+
+CHAOS = ("crash:peer=1,step=2,recover=6;nan:step=4,peer=0,group=0;"
+         "corrupt:step=5,group=1")
+CHAOS_COUNTERS = ("faults_injected", "rounds_degraded", "peers_dead",
+                  "resyncs", "nan_injections", "rounds_sealed",
+                  "checksum_rejects", "resends", "nonfinite_skips",
+                  "peers_live", "time_to_detect_steps",
+                  "time_to_resync_steps")
+
+
+def _chaos_run(device, M, **kw):
+    """A 2-layer decoder at GPT-2 Medium's width, M workers, R=2, D=1,
+    sequences of 64, ``faults=CHAOS``, 8 steps on ``device``: each step's
+    loss, Σw and ``peers_live``, and the summary."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.backend import make_backend
+    from repro_torch.models import build_model
+    from repro_torch.optim import constant, momentum
+
+    cfg = get_config("gpt2-medium").with_(num_layers=2)
+    model = build_model(cfg)
+    be = make_backend("prod", "layup", M=M, loss_fn=model.loss_fn,
+                      optimizer=momentum(0.9), schedule=constant(3e-3),
+                      fb_ratio=2, update_delay=1, use_pallas=True,
+                      device=device, wait_timeout_s=120.0, faults=CHAOS,
+                      **kw)
+    rng = np.random.default_rng(0)
+    toks = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (M, 2, 65)))
+            .to(device) for _ in range(8)]
+    try:
+        # the same weights on both devices: made on the CPU, copied by init
+        st = be.init(None, model.init(seed=0, device="cpu"))
+        hist = []
+        for t in toks:
+            st, m = be.step(st, {"tokens": t[..., :-1], "labels": t[..., 1:]})
+            hist.append({k: float(m[k]) for k in ("loss", "weight_sum",
+                                                  "peers_live")})
+        return hist, be.summary()
+    finally:
+        if hasattr(be.engine, "close"):
+            be.engine.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [2, 4])
+def test_chaos_run_on_card_as_on_cpu(cuda_device, M):
+    """The same faulted run on CPU tensors (plain attention and mix) and on
+    the card (the kernels): finite loss and Σw, the same membership
+    history and controller counters, losses within 1e-3."""
+    import numpy as np
+
+    cpu_hist, cpu_sum = _chaos_run("cpu", M)
+    gpu_hist, gpu_sum = _chaos_run("cuda", M)
+    for h in gpu_hist:
+        assert np.isfinite(h["loss"]) and abs(h["weight_sum"] - 1.0) < 1e-5
+    assert [h["peers_live"] for h in gpu_hist] == \
+        [h["peers_live"] for h in cpu_hist]
+    assert {k: gpu_sum.get(k) for k in CHAOS_COUNTERS} == \
+        {k: cpu_sum.get(k) for k in CHAOS_COUNTERS}
+    assert gpu_sum["resyncs"] == 1 and gpu_sum["nonfinite_skips"] >= 1.0
+    np.testing.assert_allclose([h["loss"] for h in gpu_hist],
+                               [h["loss"] for h in cpu_hist], rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine_kw", [{}, dict(overlap=True, streams=3)],
+                         ids=["monolithic", "streams3"])
+def test_chaos_empty_plan_bit_identical_on_card(monolithic_runs, engine_kw):
+    """``faults=""`` gives the fault-free step's bits on the card."""
+    want = monolithic_runs["param"]
+    hist, read, summary = _decoder_run(engine_kw, faults="")
+    assert [{k: v for k, v in h.items() if k != "peers_live"}
+            for h in hist] == want[0]
+    assert all(h["peers_live"] == 2.0 for h in hist)
+    for k in want[1]:
+        assert torch.equal(read[k], want[1][k]), k
+    assert summary["faults_injected"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wire", ["param", "int8"])
+def test_chaos_streams_match_monolithic_on_card(cuda_device, wire):
+    """A faulted run on three streams gives the monolithic step's bits
+    (crash, NaN, corrupt; M=2, 8 steps)."""
+    kw = dict(faults=CHAOS, steps=8)
+    if wire == "int8":
+        kw["wire"] = "int8"
+    want = _decoder_run({}, **kw)
+    got = _decoder_run(dict(overlap=True, streams=3), **kw)
+    assert got[0] == want[0]
+    for k in want[1]:
+        assert torch.equal(got[1][k], want[1][k]), k
+    assert got[2]["resyncs"] == want[2]["resyncs"] == 1

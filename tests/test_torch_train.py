@@ -135,14 +135,13 @@ def test_default_device_needs_cuda():
         to_torch(np_tree(jparams))
 
 
-# ids as they were before the item-8 (int8 wire, compensation) and item-9
-# (the engines) cases left
+# ids as they were before the item-8 (int8 wire, compensation), item-9
+# (the engines) and item-10 (faults) cases left
 @pytest.mark.parametrize("kw,item", [
-    pytest.param(dict(faults=""), "item 10", id="kw4-item 10"),
-    pytest.param(dict(overlap=True, faults=""), "item 10",
-                 id="kw7-item 10"),
     pytest.param(dict(publisher=object()), "item 11", id="kw5-item 11"),
-    pytest.param(dict(tuning="x.json"), "item 12", id="kw6-item 12")])
+    pytest.param(dict(tuning="x.json"), "item 12", id="kw6-item 12"),
+    pytest.param(dict(mesh=object()), "item 15", id="kw8-item 15"),
+    pytest.param(dict(flat=False), "item 15", id="kw9-item 15")])
 def test_unported_options_name_their_roadmap_item(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         make_backend("prod", "layup", M=2, loss_fn=torch_mlp_loss,

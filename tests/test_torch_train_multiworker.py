@@ -5,14 +5,19 @@ the JAX prod backend at (R, D) = (2, 1) on the MLP fixture and on the
 ``_bench_cfg`` decoder, 3 steps each, and writes an ``.npz`` (params,
 batches, metrics, final read planes) that the port, run on the CPU from the
 same params and batches, is held to. Two cases run the int8 wire (one with
-delay compensation λ=0.5). The rest of the (R, D) × M grid is behind
-``slow``. Tolerances: see ``_torch_parity.py``; on the int8 wire the
+delay compensation λ=0.5). One case runs a fault plan at M=4 (peer 1
+crashes at step 2, is declared dead at step 3 and re-synced from peer 0 at
+step 6; 8 steps): the port's ``peers_live`` and ``nonfinite_skips``
+histories must equal the reference's, its other metrics and planes within
+the same tolerances. The rest of the (R, D) × M grid and the faulted int8,
+compensated and decoder variants are behind ``slow``. Tolerances: see ``_torch_parity.py``; on the int8 wire the
 planes may also differ, in at most 0.1% of the elements, by one int8
 level: the interpret-mode Pallas quantizer and the port's plain one round
 ``v − q·s`` differently in the last bit, and a later round can then put an
 element whose ``v / s`` sits at a half on the other side of it.
 """
 import os
+import re
 
 import pytest
 
@@ -43,6 +48,7 @@ os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 sys.path[:0] = [{repo!r}, os.path.join({repo!r}, "tests")]
 import jax, jax.numpy as jnp, numpy as np
 from _fixtures import mlp_problem
+import re
 from benchmarks.table3_lm import _bench_cfg
 from repro.core.backend import make_backend
 from repro.data.synthetic import SyntheticLM, make_worker_batches
@@ -67,25 +73,27 @@ def flat(prefix, tree):
 
 out = {{}}
 for case in {cases!r}:
-    problem, M, R, D, pallas, wire, comp = tuple(case) + (
-        ("param", 0.0)[len(case) - 5:])
-    tag = "-".join(map(str, case)) + "/"
+    problem, M, R, D, pallas, wire, comp, faults = (tuple(case) + (
+        "param", 0.0, None)[len(case) - 5:])
+    tag = re.sub(r"[^A-Za-z0-9.-]", "_", "-".join(map(str, case))) + "/"
+    steps = 3 if faults is None else 8
+    metrics = {metrics!r} + (() if faults is None else {fault_metrics!r})
     if problem == "mlp":
         loss_fn, params = mlp_problem()
         rng = np.random.default_rng(M)
         batches = [{{"x": rng.standard_normal((M, 8, 16)).astype(np.float32),
                     "labels": rng.integers(0, 10, (M, 8)).astype(np.int32)}}
-                   for _ in range(3)]
+                   for _ in range(steps)]
     else:
         model = build_model(_bench_cfg())
         params = model.init(jax.random.PRNGKey(0))
         loss_fn = lambda p, b: model.loss_fn(p, b, block_k=16)
         ds = SyntheticLM(vocab=128, seq_len=16, temperature=1.2, seed=0)
-        batches = [make_worker_batches(ds, M, 4, t) for t in range(3)]
+        batches = [make_worker_batches(ds, M, 4, t) for t in range(steps)]
     be = make_backend("prod", "layup", M=M, loss_fn=loss_fn,
                       optimizer=momentum(0.9), schedule=constant(0.05),
                       fb_ratio=R, update_delay=D, use_pallas=pallas,
-                      wire=wire, compensate=comp)
+                      wire=wire, compensate=comp, faults=faults)
     st = be.init(jax.random.PRNGKey(0), params)
     out.update(flat(tag + "params/", params))
     for t, b in enumerate(batches):
@@ -93,7 +101,7 @@ for case in {cases!r}:
                         jax.random.PRNGKey(t))
         for k, v in b.items():
             out[tag + f"batch{{t}}/{{k}}"] = v
-        for k in {metrics!r}:
+        for k in metrics:
             out[tag + f"metric{{t}}/{{k}}"] = np.asarray(m[k])
     for k, v in st["read"].items():
         out[tag + "read/" + k] = np.asarray(v)
@@ -102,10 +110,23 @@ print("ok")
 """
 
 
+# the membership metrics of a faulted run, held equal to the reference's
+FAULT_METRICS = ("peers_live", "nonfinite_skips")
+
+
 def _run_reference(path, cases):
     run_sub(_REF_CODE.format(repo=REPO, cases=cases, metrics=METRICS,
-                             path=str(path)), timeout=900)
+                             fault_metrics=FAULT_METRICS, path=str(path)),
+            timeout=900)
     return dict(np.load(path))
+
+
+def _parse_case(case):
+    """``(problem, M, R, D, use_pallas, wire, compensate, faults, tag)`` of a
+    case tuple (wire, compensate and faults may be left off)."""
+    full = tuple(case) + ("param", 0.0, None)[len(case) - 5:]
+    tag = re.sub(r"[^A-Za-z0-9.-]", "_", "-".join(map(str, case))) + "/"
+    return full + (tag,)
 
 
 def _bench_torch_cfg():
@@ -136,11 +157,10 @@ def _int8_close(got, want, rtol):
 
 
 def _check_case(ref, case):
-    problem, M, R, D, pallas, wire, comp = tuple(case) + (
-        ("param", 0.0)[len(case) - 5:])
-    tag = "-".join(map(str, case)) + "/"
+    problem, M, R, D, pallas, wire, comp, faults, tag = _parse_case(case)
+    steps = 3 if faults is None else 8
     params = unflatten_npz(ref, tag + "params")
-    batches = [unflatten_npz(ref, tag + f"batch{t}") for t in range(3)]
+    batches = [unflatten_npz(ref, tag + f"batch{t}") for t in range(steps)]
     if problem == "mlp":
         loss_fn, rtol = torch_mlp_loss, 1e-5
     else:
@@ -155,13 +175,20 @@ def _check_case(ref, case):
     be = make_backend("prod", "layup", M=M, loss_fn=loss_fn,
                       optimizer=momentum(0.9), schedule=constant(0.05),
                       fb_ratio=R, update_delay=D, use_pallas=pallas,
-                      wire=wire, compensate=comp, device="cpu")
+                      wire=wire, compensate=comp, device="cpu",
+                      faults=faults)
+    exact = () if faults is None else FAULT_METRICS
     out = drive(be, batches, None, to_torch(params, "cpu"),
-                history_keys=METRICS)
-    for t in range(3):
+                history_keys=METRICS + exact)
+    for t in range(steps):
         jm = {k: ref[tag + f"metric{t}/{k}"] for k in METRICS}
         tm = {k: out["history"][k][t] for k in METRICS}
         compare_metrics(tm, jm, t)
+        for k in exact:
+            assert float(out["history"][k][t]) == float(
+                ref[tag + f"metric{t}/{k}"]), (k, t)
+    if faults is not None:
+        assert out["resyncs"] == 1 and out["peers_dead"] == 0
     want = unflatten_npz(ref, tag + "read")
     if wire == "int8":
         _int8_close(out["state"]["read"], want, rtol)
@@ -169,13 +196,20 @@ def _check_case(ref, case):
         compare_planes(out["state"]["read"], want, rtol=rtol)
 
 
-# (problem, M, R, D, use_pallas[, wire, compensate])
+CRASH = "crash:peer=1,step=2,recover=6"
+# (problem, M, R, D, use_pallas[, wire, compensate[, faults]])
 FAST_CASES = [("mlp", 2, 2, 1, True), ("mlp", 4, 2, 1, True),
               ("mlp", 4, 2, 1, False), ("lm", 2, 2, 1, True),
               ("lm", 4, 2, 1, True), ("mlp", 4, 2, 1, True, "int8", 0.5),
-              ("lm", 2, 2, 1, True, "int8", 0.0)]
+              ("lm", 2, 2, 1, True, "int8", 0.0),
+              ("mlp", 4, 2, 1, True, "param", 0.0, CRASH)]
 SLOW_CASES = [("mlp", M, R, D, True) for M in (2, 4)
-              for R, D in ((1, 0), (1, 1))]
+              for R, D in ((1, 0), (1, 1))] + [
+    ("mlp", 4, 2, 1, True, "int8", 0.0, CRASH),
+    ("mlp", 4, 2, 1, True, "param", 0.5, CRASH),
+    ("mlp", 4, 2, 1, True, "int8", 0.5,
+     CRASH + ";nan:step=4,peer=0,group=0"),
+    ("lm", 4, 2, 1, True, "param", 0.0, CRASH)]
 
 
 @pytest.fixture(scope="module")
