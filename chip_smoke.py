@@ -124,6 +124,31 @@ not 0:
    its step times, peak device bytes, the host seconds of each fault
    event (``kill_s``, ``resync_s``, ``guard_round_s``, ``nan_s``) and the
    controller's counters.
+4e. serve: GPT-2 Medium (f32, seed-0 weights) through ``ServeLoop``
+   (8 slots, max_len 512): 16 requests, prompts of 16–128 tokens from
+   ``default_rng(5)``, 64 new tokens, no EOS; all complete, in fewer steps
+   than one after another, with no flash launch. ``prefill_fn`` (flash #2:
+   one forward launch a layer, no backward) against prefill-by-decode on 4
+   prompts (last logits to 1e-4, every layer's K/V to 1e-5 of the largest
+   |value|) and against the plain attention route (``ROUTE_RTOL``).
+   Readings: decode-step median and p99, tokens/s, the idle share of 10
+   full-batch steps (host clock, then torch.profiler), ``prefill_fn``'s
+   host ms and device busy ms at B=1 S=128, B=1 S=512 and B=8 S=512,
+   cache bytes, peak, ``stats()``. serve_ssm: Mamba2-780M (bf16), 8 slots, max_len 256,
+   prompts of 16–64, 32 new tokens; no kernel launch; on 4 prompts each
+   layer's chunked form (prefill) against its recurrence (decode) on the
+   same inputs to 2e-2 (state, conv tail), and prefill-by-decode against
+   ``prefill_fn`` end to end in float32 (the weights upcast) to 1e-4; the
+   bf16 end-to-end gaps as readings; the same readings as serve.
+4f. serve_live, serve_live_pipeline: train's run (monolithic, then
+   ``overlap=True``) with ``publisher=PlanePublisher()``; after each of its
+   6 steps ``LiveServer.run_until_idle()`` serves 2 requests on the same
+   thread. Held: histories, plane digests and launches identical to
+   train's; after each swap the served params equal worker 0's row of the
+   snapshot bit for bit; step 2's snapshot has the same SHA-256 two steps
+   later; every publish copied; at least 2 swaps. Readings: publish host
+   seconds, device ms between events around each publish (the clones) and
+   each unpack, the step's median against train's, peak.
 5. route: the same step at 2 layers, full width, M=4, 3 steps, through the
    kernels and through the plain route (``USE_PALLAS=False`` attention and
    ``gossip_mix_ref``) on the same CUDA tensors; losses and planes must
@@ -238,6 +263,26 @@ CHAOS_PLAN = ("crash:peer=1,step=2,recover=8;nan:step=5,peer=0,group=0;"
 CHAOS_STEPS = 12
 CHAOS_STREAMS_PLAN = "crash:peer=1,step=3,recover=9"
 CHAOS_STREAMS_STEPS = 14
+# serving (DESIGN.md §12): GPT-2 Medium, 16 requests over 8 slots, prompt
+# lengths in [16, 128] from default_rng(5), 64 new tokens; prefill_fn
+# (flash #2) against prefill-by-decode on SERVE_HOLD of the prompts,
+# logits to 1e-4 and K/V to 1e-5 of their largest |value|
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_REQUESTS = 8, 512, 16
+SERVE_PROMPT, SERVE_NEW, SERVE_HOLD = (16, 128), 64, 4
+SERVE_LOGIT_TOL, SERVE_KV_TOL = 1e-4, 1e-5
+# Mamba2-780M in bf16: the chunked and recurrent forms round to bf16 at
+# different points, so each layer's two forms on the same inputs agree to
+# 2e-2 of the largest |value| (state, tail). End to end these gaps compound
+# over the 48 layers (0.16-0.20 on the card; the reference's own forms
+# drift alike, tests/test_torch_decode.py), so the whole path is held in
+# float32 (the same weights upcast), to 1e-4 as GPT-2 Medium's logits
+SSM_SERVE_MAX_LEN, SSM_SERVE_PROMPT, SSM_SERVE_NEW = 256, (16, 64), 32
+SSM_SERVE_TOL, SSM_F32_TOL = 2e-2, 1e-4
+IDLE_STEPS = 10  # decode steps timed, then profiled, for the idle share
+# the live phases: 2 requests (8-token prompts, 4 new tokens) after each
+# training step; the snapshot of step LIVE_HOLD_STEP is digested again
+# two steps later
+LIVE_MAX_LEN, LIVE_PROMPT, LIVE_NEW, LIVE_HOLD_STEP = 64, 8, 4, 2
 
 
 def emit(phase: str, **kw) -> None:
@@ -1161,10 +1206,12 @@ def counted_drive(torch, backend, params, batches, resets,
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    allocs = alloc_counts(torch)
     for reset in resets:                            # main path starts
         reset()
     out = drive(backend, timed(batches), None, params, history_keys=keys)
     out["bytes_before_init"] = base
+    out["allocator"] = alloc_delta(allocs, alloc_counts(torch))
     settle(torch, backend)                          # main path ends
     stamps.append(time.perf_counter())
     hist = {k: [float(v) for v in out["history"][k]] for k in keys}
@@ -1195,18 +1242,30 @@ def step_launches() -> dict:
 
 
 def plane_digests(torch, plane, chunk: int = 1 << 26) -> dict:
-    """SHA-256 of each group buffer of a plane, its bytes copied to the host
-    a chunk at a time (so no second plane is kept on the card)."""
+    """A SHA-256 digest of each group buffer of a plane: its bytes copied
+    to the host a chunk at a time (so no second plane is kept on the card),
+    each chunk hashed on a thread of its own, and the group's digest the
+    SHA-256 of its chunks' digests in order (hashlib releases the
+    interpreter lock while it hashes, so the chunks hash in parallel)."""
     import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    def sha(b):
+        return hashlib.sha256(b).digest()
 
     out = {}
-    for g, buf in plane.items():
-        h = hashlib.sha256()
-        flat = buf.reshape(-1)
-        for lo in range(0, flat.numel(), chunk):
-            h.update(flat[lo:lo + chunk].contiguous().view(torch.uint8)
-                     .cpu().numpy())
-        out[g] = h.hexdigest()
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        for g, buf in plane.items():
+            flat = buf.reshape(-1)
+            parts, pending = [], []
+            for lo in range(0, flat.numel(), chunk):
+                host = (flat[lo:lo + chunk].contiguous().view(torch.uint8)
+                        .cpu().numpy())
+                pending.append(pool.submit(sha, host))
+                if len(pending) >= 8:  # at most 8 chunks on the host
+                    parts.append(pending.pop(0).result())
+            parts.extend(f.result() for f in pending)
+            out[g] = hashlib.sha256(b"".join(parts)).hexdigest()
     return out
 
 
@@ -1662,6 +1721,7 @@ def phase_train(torch, profile: bool, name: str = "train", **faults):
            "history": hist, "step_s": step_s, "median_step_s": med,
            "tokens_per_step": tokens, "tokens_per_s": tokens / med,
            "peak_bytes": peak, "bytes_before_init": out["bytes_before_init"],
+           "allocator": out["allocator"],
            "gossip_mix_launches": launches,
            "flash_launches": flash, "all_launches": every,
            "read_plane_sha256": digests,
@@ -2024,6 +2084,489 @@ def phase_route_int8(torch):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# serving (DESIGN.md §12): the decode path, ServeLoop and live swaps
+# ---------------------------------------------------------------------------
+
+
+def serve_prompts(vocab: int, n: int, lo: int, hi: int, seed: int):
+    """``n`` prompts of lengths drawn in [lo, hi], tokens from the same
+    generator."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lo, hi + 1, n)
+    return [rng.integers(0, vocab, int(L)).astype(np.int32) for L in lens]
+
+
+def prefill_by_decode(torch, model, params, prompts, max_len: int):
+    """The prompts fed one token a step through ``decode_fn`` in one batch
+    (as the serve loop feeds them). For each prompt, at its last token: the
+    float32 logits and a copy of its row of every cache leaf."""
+    from repro_torch.models.transformer import alloc_cache
+
+    B = len(prompts)
+    cache = alloc_cache(model.cache_specs(B, max_len), device="cuda")
+    out = [None] * B
+    for t in range(max(len(p) for p in prompts)):
+        toks = torch.tensor([[int(p[min(t, len(p) - 1)])] for p in prompts],
+                            device="cuda")
+        pos = torch.full((B,), t, dtype=torch.int64, device="cuda")
+        logits, cache = model.decode_fn(params, cache, toks, pos)
+        for b, p in enumerate(prompts):
+            if t == len(p) - 1:
+                out[b] = (logits[b, 0].clone(),
+                          {f"{s}/{k}": v[:, b].clone()
+                           for s, leaves in cache.items()
+                           for k, v in leaves.items()})
+    return out
+
+
+def rel_gap(torch, got, want) -> float:
+    """max |got − want| / max |want| (float32)."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def run_serve_loop(torch, loop, requests):
+    """Serve ``requests`` to completion, one host-timed step at a time (the
+    step's argmax copy synchronises it). Returns the step seconds and the
+    wall seconds."""
+    for r in requests:
+        loop.submit(r)
+    step_s = []
+    t_start = time.perf_counter()
+    while True:
+        t0 = time.perf_counter()
+        if not loop.step_once():
+            break
+        step_s.append(time.perf_counter() - t0)
+    return step_s, time.perf_counter() - t_start
+
+
+def cache_nbytes(cache) -> int:
+    return sum(v.numel() * v.element_size()
+               for leaves in cache.values() for v in leaves.values())
+
+
+def serve_readings(torch, model, params, loop, step_s, wall_s):
+    """Decode-step median and p99, tokens/s, the idle share of IDLE_STEPS
+    full-batch decode steps, prefill_fn's host ms and device busy ms at
+    B=1 S=128, B=1 S=512 and the loop's slots at S=512, the cache bytes and
+    stats()."""
+    import numpy as np
+    from repro_torch.launch.serve import Request
+
+    st = sorted(step_s)
+    p99 = st[min(len(st) - 1, int(math.ceil(0.99 * len(st))) - 1)]
+    out = {"decode_steps": len(step_s),
+           "decode_step_median_ms": 1e3 * statistics.median(step_s),
+           "decode_step_p99_ms": 1e3 * p99,
+           "decode_step_mean_ms": 1e3 * sum(step_s) / len(step_s),
+           "serve_wall_s": wall_s,
+           "tokens_per_s": loop.tokens_emitted / wall_s,
+           "cache_bytes": cache_nbytes(loop.cache), "stats": loop.stats()}
+    # the idle share: IDLE_STEPS steps of a full batch timed on the host,
+    # then the device's busy time (kernels merged) of as many more under
+    # torch.profiler (whose own host cost would inflate a profiled wall)
+    reqs = [Request(uid=1000 + i, prompt=np.asarray([1], np.int32),
+                    max_new_tokens=2 * IDLE_STEPS + 2)
+            for i in range(loop.num_slots)]
+    for r in reqs:
+        loop.submit(r)
+    loop.step_once()  # admit and warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(IDLE_STEPS):
+        loop.step_once()
+    wall = time.perf_counter() - t0
+    busy, _, kernels = profiled_busy(
+        torch, lambda: [loop.step_once() for _ in range(IDLE_STEPS)])
+    out.update(idle_steps=IDLE_STEPS, idle_wall_s=wall,
+               idle_device_busy_s=busy,
+               device_idle_share=1.0 - busy / wall,
+               kernels_per_step=kernels / IDLE_STEPS)
+    loop.run()
+    # prefill: host ms of a synchronised call (median of 5), and the
+    # device's busy ms in one call (torch.profiler); the call is
+    # host-bound, so events around it would time the host's dispatch
+    prefill = {}
+    for B, S in ((1, 128), (1, 512), (loop.num_slots, 512)):
+        toks = torch.randint(0, model.cfg.vocab_size, (B, S), device="cuda")
+
+        def call():
+            model.prefill_fn(params, {"tokens": toks})
+            torch.cuda.synchronize()
+
+        call()
+        host = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            call()
+            host.append(time.perf_counter() - t0)
+        busy, _, kernels = profiled_busy(torch, call)
+        prefill[f"B{B}_S{S}"] = {"host_ms": 1e3 * statistics.median(host),
+                                 "device_busy_ms": 1e3 * busy,
+                                 "kernels": kernels}
+    out["prefill"] = prefill
+    return out
+
+
+def alloc_counts(torch) -> dict:
+    """The caching allocator's device allocations, frees and retries so
+    far (``torch.cuda.memory_stats``)."""
+    st = torch.cuda.memory_stats()
+    return {k: st.get(k, 0) for k in ("num_device_alloc", "num_device_free",
+                                      "num_alloc_retries")}
+
+
+def alloc_delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in before}
+
+
+def phase_serve(torch):
+    """GPT-2 Medium (f32) through ServeLoop, and prefill_fn (flash #2)
+    against prefill-by-decode and against the plain attention route."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import Request, ServeLoop
+    from repro_torch.models import build_model
+    from repro_torch.models import layers
+
+    t_phase = time.perf_counter()
+    cfg = get_config("gpt2-medium")
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    prompts = serve_prompts(cfg.vocab_size, SERVE_REQUESTS, *SERVE_PROMPT,
+                            seed=5)
+    loop = ServeLoop(model, params, num_slots=SERVE_SLOTS,
+                     max_len=SERVE_MAX_LEN)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=SERVE_NEW)
+            for i, p in enumerate(prompts)]
+    fa.reset_launches()
+    step_s, wall = run_serve_loop(torch, loop, reqs)
+    decode_flash = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+    check(decode_flash == (0, 0, 0), f"serve decode flash {decode_flash}")
+    check(all(r.done and len(r.output) == SERVE_NEW for r in reqs),
+          "serve: a request did not complete with its tokens")
+    sequential = sum(len(p) + SERVE_NEW for p in prompts)
+    check(loop.steps_run < sequential,
+          f"serve steps {loop.steps_run} !< sequential {sequential}")
+    res = {"model": cfg.name, "dtype": "float32", "num_slots": SERVE_SLOTS,
+           "max_len": SERVE_MAX_LEN, "requests": SERVE_REQUESTS,
+           "prompt_lens": [len(p) for p in prompts],
+           "max_new_tokens": SERVE_NEW, "sequential_steps": sequential}
+    # prefill_fn (the flash forward) against prefill-by-decode
+    hold = prompts[:SERVE_HOLD]
+    by_decode = prefill_by_decode(torch, model, params, hold, SERVE_MAX_LEN)
+    fa.reset_launches()
+    gaps = []
+    for p, (dec_logits, dec_cache) in zip(hold, by_decode):
+        cache, logits = model.prefill_fn(
+            params, {"tokens": torch.from_numpy(p[None]).cuda()})
+        g = {"len": len(p),
+             "logits": rel_gap(torch, dec_logits, logits[0, 0])}
+        for key in ("k", "v"):
+            g[key] = rel_gap(torch, dec_cache[f"sub0/{key}"][:, :len(p)],
+                             cache["sub0"][key][:, 0])
+        check(g["logits"] <= SERVE_LOGIT_TOL and g["k"] <= SERVE_KV_TOL
+              and g["v"] <= SERVE_KV_TOL, f"serve prefill vs decode {g}")
+        gaps.append(g)
+    flash = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
+             "dkv": fa.dkv_launches}
+    want = {"fwd": cfg.num_layers * SERVE_HOLD, "dq": 0, "dkv": 0}
+    check(flash == want, f"prefill flash launches {flash} != {want}")
+    # the kernel route against the plain route (USE_PALLAS=False)
+    route = []
+    for p in hold:
+        toks = {"tokens": torch.from_numpy(p[None]).cuda()}
+        kc, kl = model.prefill_fn(params, toks)
+        layers.USE_PALLAS = False
+        try:
+            pc, pl = model.prefill_fn(params, toks)
+        finally:
+            layers.USE_PALLAS = True
+        r = {"logits": rel_gap(torch, kl, pl),
+             **{k: rel_gap(torch, kc["sub0"][k], pc["sub0"][k])
+                for k in ("k", "v")}}
+        check(max(r.values()) <= ROUTE_RTOL, f"prefill route {r}")
+        route.append(r)
+    del by_decode
+    res.update(prefill_vs_decode=gaps,
+               prefill_tol={"logits": SERVE_LOGIT_TOL, "kv": SERVE_KV_TOL},
+               prefill_route_vs_plain=route, route_rtol=ROUTE_RTOL,
+               serve_launches=flash,
+               **serve_readings(torch, model, params, loop, step_s, wall),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    emit("serve", phase_s=time.perf_counter() - t_phase, **res)
+    del loop, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def ssm_layer_local_gaps(torch, model, params, prompts):
+    """Each layer's chunked form against its recurrence on the same
+    inputs: the hidden states entering a layer in each prompt's prefill
+    are fed one token a step through ``ssm_sublayer_decode``, the prompts
+    as one batch (a prompt's last input repeated once it has ended). Per
+    prompt and layer, the gaps of the final state and conv tail (read at
+    the prompt's last token) to what its prefill collected."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cfg = model.cfg
+    lens = [len(p) for p in prompts]
+    steps = torch.arange(max(lens), device="cuda")
+    gaps = [[] for _ in prompts]
+    with torch.inference_mode():
+        hs = [L.embed_apply(params["embed"],
+                            torch.from_numpy(p[None]).cuda())
+              for p in prompts]
+        for _, sub in T.decoder_layers(params):
+            padded = torch.stack([h[0, torch.clamp(steps, max=n - 1)]
+                                  for h, n in zip(hs, lens)])
+            outs, finals = [], []
+            for h in hs:
+                h, st = T.ssm_sublayer(sub["ssm"], h, cfg, return_state=True)
+                outs.append(h)
+                finals.append(st)
+            c = {"state": torch.zeros((len(prompts),) + finals[0][0].shape[1:],
+                                      dtype=finals[0][0].dtype, device="cuda"),
+                 "conv_tail": torch.zeros(
+                     (len(prompts),) + finals[0][1].shape[1:],
+                     dtype=finals[0][1].dtype, device="cuda")}
+            for t in range(max(lens)):
+                T.ssm_sublayer_decode(sub["ssm"], padded[:, t:t + 1], cfg, c)
+                for b, n in enumerate(lens):
+                    if t == n - 1:
+                        gaps[b].append({
+                            "state": rel_gap(torch, c["state"][b],
+                                             finals[b][0][0]),
+                            "conv_tail": rel_gap(torch, c["conv_tail"][b],
+                                                 finals[b][1][0])})
+            if "mlp" in sub:
+                outs = [T.mlp_residual(sub["mlp"], h, cfg) for h in outs]
+            hs = outs
+    return gaps
+
+
+def ssm_prefill_gaps(torch, model, params, prompts, max_len):
+    """Prefill-by-decode against ``prefill_fn``, end to end: the last
+    logits, and the final state and conv tail at every layer (the largest
+    gap over the layers, and each layer's state gap)."""
+    out = []
+    for p, (dec_logits, dec_cache) in zip(
+            prompts, prefill_by_decode(torch, model, params, prompts,
+                                       max_len)):
+        cache, logits = model.prefill_fn(
+            params, {"tokens": torch.from_numpy(p[None]).cuda()})
+        ref = {k: cache["sub0"][k][:, 0] for k in ("state", "conv_tail")}
+        out.append({
+            "len": len(p),
+            "logits": rel_gap(torch, dec_logits, logits[0, 0]),
+            **{k: rel_gap(torch, dec_cache[f"sub0/{k}"], v)
+               for k, v in ref.items()},
+            "state_by_layer": [rel_gap(torch, a, b) for a, b in zip(
+                dec_cache["sub0/state"], ref["state"])]})
+    return out
+
+
+def phase_serve_ssm(torch):
+    """Mamba2-780M (bf16) through ServeLoop, and prefill_fn (chunked SSD,
+    final state and conv tail) against prefill-by-decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.launch.serve import Request, ServeLoop
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    cfg = get_config("mamba2-780m")
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    prompts = serve_prompts(cfg.vocab_size, SERVE_REQUESTS,
+                            *SSM_SERVE_PROMPT, seed=5)
+    loop = ServeLoop(model, params, num_slots=SERVE_SLOTS,
+                     max_len=SSM_SERVE_MAX_LEN)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=SSM_SERVE_NEW)
+            for i, p in enumerate(prompts)]
+    for reset in (fa.reset_launches, rk.reset_launches, sk.reset_launches):
+        reset()
+    step_s, wall = run_serve_loop(torch, loop, reqs)
+    launches = {"flash": fa.fwd_launches + fa.dq_launches + fa.dkv_launches,
+                "rmsnorm": rk.launches, "ssd_scan": sk.launches}
+    check(launches == {"flash": 0, "rmsnorm": 0, "ssd_scan": 0},
+          f"serve_ssm launches {launches}")
+    check(all(r.done and len(r.output) == SSM_SERVE_NEW for r in reqs),
+          "serve_ssm: a request did not complete")
+    hold = prompts[:SERVE_HOLD]
+    # bf16: each layer's chunked form against its recurrence on the same
+    # inputs, held to SSM_SERVE_TOL; end to end the two forms' bf16
+    # roundings compound over the 48 layers (the reference's too), so the
+    # end-to-end gaps are readings, and float32 holds the whole path
+    local = ssm_layer_local_gaps(torch, model, params, hold)
+    worst = max(max(g.values()) for per in local for g in per)
+    check(worst <= SSM_SERVE_TOL, f"serve_ssm layer-local gap {worst}")
+    e2e = ssm_prefill_gaps(torch, model, params, hold, SSM_SERVE_MAX_LEN)
+    check(all(math.isfinite(g["logits"]) for g in e2e), "serve_ssm e2e")
+    model32 = build_model(cfg.with_(dtype=torch.float32))
+    params32 = tree_map(lambda x: x.float(), params)
+    e2e32 = ssm_prefill_gaps(torch, model32, params32, hold,
+                             SSM_SERVE_MAX_LEN)
+    for g in e2e32:
+        check(max(g["logits"], g["state"], g["conv_tail"])
+              <= SSM_F32_TOL, f"serve_ssm f32 prefill vs decode {g}")
+    del model32, params32
+    res = {"model": cfg.name, "dtype": "bfloat16", "num_slots": SERVE_SLOTS,
+           "max_len": SSM_SERVE_MAX_LEN, "requests": SERVE_REQUESTS,
+           "prompt_lens": [len(p) for p in prompts],
+           "max_new_tokens": SSM_SERVE_NEW, "launches": launches,
+           "layer_local_max_gap": worst,
+           "layer_local_by_layer": [
+               max(max(per[l].values()) for per in local)
+               for l in range(cfg.num_layers)],
+           "prefill_vs_decode_bf16": e2e, "prefill_vs_decode_f32": e2e32,
+           "prefill_tol": {"bf16_layer_local": SSM_SERVE_TOL,
+                           "f32": SSM_F32_TOL},
+           **serve_readings(torch, model, params, loop, step_s, wall),
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    emit("serve_ssm", phase_s=time.perf_counter() - t_phase, **res)
+    del loop, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def served_equals_row(torch, part, params, snap, worker: int = 0) -> bool:
+    """The served tree against worker ``worker``'s row of the snapshot,
+    unpacked (views, no copy), leaf by leaf, bit for bit."""
+    from repro_torch.core.pytree import tree_leaves
+
+    want = part.unpack({g: b[worker] for g, b in snap.plane.items()})
+    return all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(params), tree_leaves(want)))
+
+
+def phase_serve_live(torch, name, train, **engine):
+    """train's run (same model, weights, batches, options) with
+    ``publisher=PlanePublisher()``, each step followed by
+    ``LiveServer.run_until_idle()`` over 2 requests on one thread; held
+    bit-identical to train."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.backend import make_backend
+    from repro_torch.launch.serve import Request, ServeLoop
+    from repro_torch.models import build_model
+    from repro_torch.optim import constant, momentum
+    from repro_torch.serving import LiveServer, PlanePublisher
+
+    t_phase = time.perf_counter()
+    cfg = get_config("gpt2-medium")
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    pub = PlanePublisher()
+    backend = make_backend("prod", "layup", M=M, loss_fn=model.loss_fn,
+                           optimizer=momentum(0.9), schedule=constant(LR),
+                           fb_ratio=R, update_delay=1, use_pallas=True,
+                           device="cuda", publisher=pub, **engine)
+    batches = lm_batches(torch, cfg.vocab_size, TRAIN_STEPS, seed=0)
+    publish_s, clone_ev, unpack_ev = [], [], []
+
+    def timed(fn, events, host=None):
+        def run(*a, **kw):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if host is not None:
+                host.append(time.perf_counter() - t0)
+            e1.record()
+            events.append((e0, e1))
+            return out
+        return run
+
+    pub.publish = timed(pub.publish, clone_ev, publish_s)
+    loop = ServeLoop(model, params, num_slots=2, max_len=LIVE_MAX_LEN)
+    prompts = serve_prompts(cfg.vocab_size, 2 * TRAIN_STEPS,
+                            LIVE_PROMPT, LIVE_PROMPT, seed=6)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    allocs = alloc_counts(torch)
+    for reset in launch_resets():                   # main path starts
+        reset()
+    state = backend.init(None, params)
+    srv = LiveServer(loop, backend.part, pub)
+    srv._unpack = timed(srv._unpack, unpack_ev)
+    hist = {k: [] for k in HISTORY_KEYS}
+    step_s, held = [], None
+    for t, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = backend.step(state, b)
+        settle(torch, backend)
+        step_s.append(time.perf_counter() - t0)
+        for k in HISTORY_KEYS:
+            hist[k].append(float(m[k]))
+        snap = pub.latest()
+        check(snap is not None and snap.step == t, f"{name}: no snapshot")
+        if t == LIVE_HOLD_STEP:
+            held = (snap, plane_digests(torch, snap.plane))
+        for i in (2 * t, 2 * t + 1):
+            loop.submit(Request(uid=i, prompt=prompts[i],
+                                max_new_tokens=LIVE_NEW))
+        srv.run_until_idle()
+        check(loop.params_version == (snap.seq, snap.step),
+              f"{name}: serving {loop.params_version}, published "
+              f"{(snap.seq, snap.step)}")
+        check(served_equals_row(torch, backend.part, loop.params, snap),
+              f"{name}: served params != worker 0's row of snapshot "
+              f"{snap.seq}")
+        if t == LIVE_HOLD_STEP + 2:
+            check(plane_digests(torch, held[0].plane) == held[1],
+                  f"{name}: snapshot {held[0].seq} changed after two "
+                  "more steps")
+            held = None
+    settle(torch, backend)                          # main path ends
+    every = step_launches()
+    peak = torch.cuda.max_memory_allocated()
+    allocs = alloc_delta(allocs, alloc_counts(torch))
+    digests = plane_digests(torch, state["read"])
+    check_history(hist, cfg.vocab_size, name)
+    res = {"model": cfg.name, "M": M, "fb_ratio": R, "update_delay": 1,
+           **engine, "steps": TRAIN_STEPS, "history": hist,
+           "all_launches": every, "read_plane_sha256": digests,
+           "step_s": step_s, "median_step_s": statistics.median(step_s[1:]),
+           "median_step_vs_train": statistics.median(step_s[1:])
+           / train["median_step_s"],
+           "peak_bytes": peak, "bytes_before_init": base,
+           "allocator": allocs, "train_allocator": train["allocator"],
+           "publisher": vars(pub.stats).copy(), "live": srv.stats(),
+           "snapshot_held_step": LIVE_HOLD_STEP,
+           "publish_host_s": publish_s,
+           "publish_device_ms": [a.elapsed_time(b) for a, b in clone_ev],
+           "unpack_device_ms": [a.elapsed_time(b) for a, b in unpack_ev],
+           "plane_bytes": backend.part.plane_nbytes() * M}
+    hold_engine(name, res, train, "train", keys=HISTORY_KEYS)
+    check(pub.stats.copied_planes == pub.stats.published == TRAIN_STEPS,
+          f"{name} publisher {pub.stats}")
+    check(srv.swap_count >= 2, f"{name} swaps {srv.swap_count}")
+    res["held_against"] = "train"
+    emit(name, phase_s=time.perf_counter() - t_phase, **res)
+    del state, params, loop, srv, pub, snap
+    if backend.engine is not None:
+        backend.engine.reset()
+    del backend
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main(argv) -> int:
     # the step's transients are plane-sized (GBs): growable segments keep
     # the caching allocator from stranding them as fragments
@@ -2109,6 +2652,11 @@ def main(argv) -> int:
     phase_train_chaos(torch)
     phase_train_chaos_streams_int8(torch)
     ssm = phase_train_ssm(torch, profile="--profile" in argv)
+    serve = phase_serve(torch)
+    phase_serve_ssm(torch)
+    live = {n: phase_serve_live(torch, n, train, **kw)["all_launches"]
+            for n, kw in (("serve_live", {}),
+                          ("serve_live_pipeline", {"overlap": True}))}
     phase_route(torch)
     phase_route_int8(torch)
     fused = kern["timing"]["fused"]
@@ -2121,19 +2669,27 @@ def main(argv) -> int:
         "max_abs_err": kern["main_max_abs_err"],
         "ms": fused["ms"], "plain_ms": fused["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
-        "library_ms": None}]
+        "library_ms": None,
+        "live_launches": {n: c["gossip_mix"] for n, c in live.items()}}]
     # the trainable Function launches the forward and both backward kernels
-    for name, replaces, n in (
+    for name, replaces, keys in (
             ("flash_attention", "src/repro/kernels/flash_attention.py:85",
-             launches["fwd"]),
+             ("fwd",)),
             ("flash_attention_bwd", "src/repro/kernels/flash_attention.py:232",
-             launches["dq"] + launches["dkv"]),
+             ("dq", "dkv")),
             ("flash_attention_trainable",
              "src/repro/kernels/flash_attention.py:322",
-             sum(launches.values()))):
+             ("fwd", "dq", "dkv"))):
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/csrc/flash_attention.cu",
-                     "replaces": replaces, "launches": n, **flash[name]})
+                     "replaces": replaces,
+                     "launches": sum(launches[k] for k in keys),
+                     **flash[name],
+                     "live_launches": {
+                         n: sum(c[f"flash_{k}"] for k in keys)
+                         for n, c in live.items()}})
+    # prefill_fn's forward launches on the serve phase (SERVE_HOLD calls)
+    rows[1]["serve_launches"] = serve["serve_launches"]["fwd"]
     # the int8 wire's kernels, launched on train_int8 (dequant_mix with the
     # update is the main path's variant)
     for name, replaces, key in (

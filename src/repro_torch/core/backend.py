@@ -74,9 +74,14 @@ class ProdTrainerBackend:
     step while a peer is dead, ``peers_live`` in the metrics, and the
     controller's counters (with a cumulative ``nonfinite_skips``) in
     ``summary()``. ``faults=""`` injects nothing and gives the same bits as
-    ``faults=None``. The options still to port (``mesh``, ``flat=False``,
-    ``publisher``, ``tuning``) raise ``NotImplementedError`` naming the
-    ROADMAP item that ports them."""
+    ``faults=None``.
+
+    ``publisher`` (a :class:`repro_torch.serving.PlanePublisher`) gets the
+    read plane after every step on the monolithic step and ``overlap=True``
+    (a device copy, ``stable=False``: both lanes write the read plane in
+    place later); ``streams > 1`` with a publisher raises ``ValueError``.
+    The options still to port (``mesh``, ``flat=False``, ``tuning``) raise
+    ``NotImplementedError`` naming the ROADMAP item that ports them."""
 
     kind = "prod"
 
@@ -95,8 +100,6 @@ class ProdTrainerBackend:
         if int(streams) > 1 and not overlap:
             raise ValueError("streams > 1 is a property of the stage-graph "
                              "pipeline; it requires overlap=True")
-        if publisher is not None:
-            raise not_ported("publisher (live serving)", 11)
         if tuning is not None:
             raise not_ported("tuning (the stage autotuner)", 12)
         if not flat:
@@ -113,6 +116,7 @@ class ProdTrainerBackend:
         self.streams = int(streams)
         self.compensate = float(compensate)
         self.update_delay = int(update_delay)
+        self.publisher = publisher
         self.device = resolve_device(device)
         self.membership = faults is not None
         self._faults = faults
@@ -127,7 +131,7 @@ class ProdTrainerBackend:
                       straggler_delays=straggler_delays,
                       measure_drift=measure_drift, use_pallas=use_pallas,
                       wire=wire, compensate=compensate,
-                      membership=self.membership)
+                      membership=self.membership, publisher=publisher)
         if overlap:
             self.timeline = StageTimeline()
             self._init_fn, self._step_fn, self._shifts, self._engine_box = \

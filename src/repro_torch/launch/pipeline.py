@@ -761,13 +761,22 @@ def make_pipeline_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
     ``membership`` adds the alive mask to the state (DESIGN.md §15); the
     engines thread it into the update and gossip stages.
 
+    ``publisher`` (a :class:`repro_torch.serving.PlanePublisher`, with
+    ``streams=1``) receives the read plane after every step. Unlike the
+    reference's engine, this one writes its read plane in place (the fused
+    gossip stage mixes into it), so the publish is ``stable=False``: the
+    publisher copies the plane on the device, on the engine's stream.
+
     Returns ``(init_fn, step_fn, shifts, box)``: ``box["engine"]`` holds
     the engine and ``box["part"]`` the FlatPartition once ``init_fn`` has
     seen the params."""
     if not flat:
         raise not_ported("flat=False (the legacy per-leaf tree state)", 15)
-    if publisher is not None:
-        raise not_ported("publisher (live serving)", 11)
+    if streams > 1 and publisher is not None:
+        raise ValueError("publisher is not supported with streams > 1: "
+                         "the stream engine's read plane is a future, not "
+                         "a stable handle to publish (serve from a "
+                         "streams=1 engine, or materialize snapshots)")
     _check_wire(wire, compensate)
     device = resolve_device(device)
     R, D = int(fb_ratio), int(update_delay)
@@ -852,6 +861,11 @@ def make_pipeline_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
                     int(step_idx))
             else:
                 metrics["disagreement"] = drift(state["read"], state["w"])
+        if publisher is not None:
+            publisher.publish(state["read"], state["versions"], state["w"],
+                              int(step_idx),
+                              drift=metrics.get("disagreement"),
+                              stable=False)
         return state, metrics
 
     return init_fn, step_fn, shifts, box

@@ -716,7 +716,8 @@ def make_decoupled_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
                                    use_pallas: bool = False,
                                    wire: str = "param",
                                    compensate: float = 0.0,
-                                   membership: bool = False):
+                                   membership: bool = False,
+                                   publisher=None):
     """Decoupled LayUp over a params dict + ``loss_fn``: the engine behind
     the ``"prod"`` backend. ``M`` workers are stacked on ``device`` (the
     reference takes a mesh with M devices on its worker axis).
@@ -728,6 +729,11 @@ def make_decoupled_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
     (:func:`gossip_plane_lane`). ``wire`` (``"param"`` or ``"int8"``) and
     ``compensate=λ ≥ 0`` are the options of DESIGN.md §14; ``membership``
     adds the alive mask to the state (DESIGN.md §15).
+
+    ``publisher`` (a :class:`repro_torch.serving.PlanePublisher`) receives
+    the read plane, version clocks, push-sum weights and drift after every
+    step. The step consumes its state in place, so the publish is
+    ``stable=False``: the publisher copies the plane on the device.
 
     Returns ``(init_fn, step_fn, shifts, box)`` as the reference does:
     ``init_fn(rng, params_single) -> state``, ``step_fn(state, batch,
@@ -781,7 +787,13 @@ def make_decoupled_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
             raise RuntimeError("call init_fn before step_fn")
         batch = to_torch(batch, device)
         with torch.no_grad():
-            return part_box["step"](state, batch, int(step_idx),
-                                    int(shift_idx))
+            new_state, metrics = part_box["step"](state, batch, int(step_idx),
+                                                  int(shift_idx))
+        if publisher is not None:
+            publisher.publish(new_state["read"], new_state["versions"],
+                              new_state["w"], int(step_idx),
+                              drift=metrics.get("disagreement"),
+                              stable=False)
+        return new_state, metrics
 
     return init_fn, step_fn, shifts, part_box

@@ -103,6 +103,25 @@ def _rope_freqs(head_dim: int, fraction: float, theta: float):
     return rot_dim, inv  # (rot_dim//2,) float32
 
 
+# (rot_dim, theta, device) -> the inverse frequencies on that device. A copy
+# from pageable host memory waits for the device's queue, so a copy per call
+# would stall the host at every attention layer; each device gets one.
+_ROPE_INV = {}
+
+
+def _rope_inv(rot_dim: int, inv: np.ndarray, theta: float,
+              device: torch.device) -> torch.Tensor:
+    key = (rot_dim, theta, device)
+    if key not in _ROPE_INV:
+        with torch.inference_mode(False):  # usable by training too
+            t = torch.from_numpy(inv).to(device)
+        if t.device.type == "cuda":
+            # visible to every stream before first use
+            torch.cuda.current_stream(t.device).synchronize()
+        _ROPE_INV[key] = t
+    return _ROPE_INV[key]
+
+
 def apply_rope(x, positions, *, theta=1e4, fraction=1.0):
     """x: (..., S, H, D); positions: broadcastable to (..., S)."""
     head_dim = x.shape[-1]
@@ -111,7 +130,7 @@ def apply_rope(x, positions, *, theta=1e4, fraction=1.0):
     rot_dim, inv = _rope_freqs(head_dim, fraction, theta)
     if rot_dim == 0:
         return x
-    inv = torch.from_numpy(inv).to(x.device)
+    inv = _rope_inv(rot_dim, inv, theta, x.device)
     ang = positions[..., :, None].to(torch.float32) * inv  # (..., S, rd/2)
     sin, cos = torch.sin(ang)[..., None, :], torch.cos(ang)[..., None, :]
     x_rot, x_pass = x[..., :rot_dim], x[..., rot_dim:]
@@ -170,6 +189,40 @@ def attention(q, k, v, *, causal=True, window=0):
     else:
         out = attention_ref(qh, kh, vh, causal=causal, window=window)
     return out.transpose(1, 2)
+
+
+NEG_INF = -1e30
+
+
+def decode_attention(q, k_cache, v_cache, *, q_position, k_positions,
+                     window=0, causal=True):
+    """Single-token attention over a (possibly ring-buffered) cache, in
+    plain PyTorch on every device (the reference computes it outside any
+    kernel too).
+
+    q: (B, 1, Hq, D); caches: (B, Sc, Hkv, D); q_position: (B,);
+    k_positions: (B, Sc) absolute positions per slot (negative = empty).
+    Scores and the PV product are summed in float32; the output is in q's
+    dtype.
+    """
+    B, _, Hq, D = q.shape
+    _, Sc, Hkv, _ = k_cache.shape
+    G = Hq // Hkv
+    scale = D ** -0.5
+    qh = (q * scale).reshape(B, Hkv, G, D)
+    s = torch.einsum("bhgd,bshd->bhgs", qh.to(torch.float32),
+                     k_cache.to(torch.float32))
+    mask = k_positions >= 0
+    if causal:
+        mask = mask & (k_positions <= q_position[:, None])
+    if window > 0:
+        mask = mask & ((q_position[:, None] - k_positions) < window)
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd",
+                       p.to(v_cache.dtype).to(torch.float32),
+                       v_cache.to(torch.float32))
+    return out.reshape(B, 1, Hq, D).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

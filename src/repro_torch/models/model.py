@@ -1,10 +1,19 @@
 """Model API (port of ``repro/models/model.py``, the dense and SSM
 decoders).
 
-``build_model(cfg)`` returns a ``Model`` bundle whose ``loss_fn(params,
-batch) -> (loss, aux)`` matches the JAX package's teacher-forced LM loss on a
-params dict of the same tree. ``DecoderLM`` wraps the same function as an
-``nn.Module`` for callers that want parameters registered on a module.
+``build_model(cfg)`` returns a ``Model`` bundle of functions over a params
+dict of the JAX package's tree:
+
+  loss_fn(params, batch)   (scalar loss, metrics dict), teacher-forced LM
+  prefill_fn(params, batch) -> (cache, last_logits)
+  decode_fn(params, cache, token, position) -> (logits, cache)
+  cache_specs(B, seq_len)  ``CacheSpec`` tree (``transformer.alloc_cache``
+                           makes the zeros on a named device)
+
+``prefill_fn`` and ``decode_fn`` run under ``torch.inference_mode()``;
+``decode_fn`` writes ``cache`` in place and returns it. ``DecoderLM``
+wraps ``loss_fn`` as an ``nn.Module`` for callers that want parameters
+registered on a module.
 """
 from __future__ import annotations
 
@@ -25,6 +34,9 @@ class Model:
     cfg: ModelConfig
     specs: Any
     loss_fn: Callable
+    prefill_fn: Callable
+    decode_fn: Callable
+    cache_specs: Callable
 
     def init(self, seed: int = 0, *, device=None, dtype=None):
         return L.init_params(self.specs, seed=seed,
@@ -51,7 +63,37 @@ def _build_decoder_model(cfg: ModelConfig) -> Model:
         loss = ce + cfg.router_aux_weight * aux
         return loss, {"ce": ce, "aux": aux}
 
-    return Model(cfg, specs, loss_fn)
+    @torch.inference_mode()
+    def prefill_fn(params, batch):
+        """The full-sequence path over ``batch["tokens"]`` (B, S): the
+        attention goes through ``layers.attention`` (the flash forward on
+        a CUDA tensor). Returns the cache of the S positions and the last
+        position's float32 logits (B, 1, V)."""
+        h, positions = _decoder_embed_inputs(params, batch, cfg)
+        h, _, cache = T.decoder_forward(params, h, cfg, positions=positions,
+                                        collect_cache=True)
+        h = L.rmsnorm(h[:, -1:], params["final_norm"], cfg.norm_eps)
+        logits = L.unembed_apply(params["embed"], h, cfg.tie_embeddings)
+        return cache, logits
+
+    @torch.inference_mode()
+    def decode_fn(params, cache, token, position):
+        """One token a sequence: token (B, 1), position (B,) the cache
+        position it is written at. Returns float32 logits (B, 1, V) and
+        ``cache``, updated in place."""
+        h = L.embed_apply(params["embed"], token)
+        h, cache = T.decoder_decode_step(params, h, cfg, cache,
+                                         position=position,
+                                         window=cfg.sliding_window)
+        h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+        logits = L.unembed_apply(params["embed"], h, cfg.tie_embeddings)
+        return logits, cache
+
+    def cache_specs(B, seq_len, dtype=None):
+        return T.decoder_cache_specs(cfg, B, seq_len, cfg.sliding_window,
+                                     dtype)
+
+    return Model(cfg, specs, loss_fn, prefill_fn, decode_fn, cache_specs)
 
 
 def build_model(cfg: ModelConfig) -> Model:

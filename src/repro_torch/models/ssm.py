@@ -1,7 +1,8 @@
 """Mamba2-style SSD (state-space duality) block (port of
-``repro/models/ssm.py``, the train path).
+``repro/models/ssm.py``).
 
-Chunked "dual form" for training, exact recurrence as its oracle. The
+Chunked "dual form" for training and prefill, exact recurrence for
+single-token decode and as the chunked form's oracle. The
 chunked form is the function the ``ssd_scan`` kernel computes; the model
 runs it in plain PyTorch, as the reference's model runs its jnp form.
 
@@ -218,3 +219,18 @@ def ssm_block_apply(p, x, cfg, *, init_state=None, conv_tail=None,
     if return_state:
         return out, (state, new_tail)
     return out
+
+
+def ssm_block_decode(p, x, cfg, state, conv_tail):
+    """Single-token decode: the recurrence instead of the chunked form.
+    x: (B, 1, d); state (B, H, N, P); conv_tail (B, K-1, conv_dim).
+    Returns (out, (new_state, new_tail)), the new state as the recurrence
+    leaves it (a float32 decay times the state promotes it to float32);
+    the caller stores it in its cache's dtype."""
+    x_ssm, dt, A, Bm, Cm, z, new_tail = ssm_mixer_inputs(
+        p, x, cfg, conv_tail=conv_tail)
+    y, new_state = ssd_recurrent_step(state, x_ssm[:, 0], dt[:, 0], A,
+                                      Bm[:, 0], Cm[:, 0])
+    y = rmsnorm(ssm_gate_input(p, y[:, None], x_ssm, z), p["gate_norm"],
+                cfg.norm_eps)
+    return y @ p["out_proj"], (new_state, new_tail)

@@ -18,6 +18,18 @@ METRICS = ("loss", "update_staleness", "layer_staleness", "weight_sum",
            "disagreement", "staleness_mean")
 
 
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_cfg(jcfg):
+    """The port's ModelConfig of a JAX package's config, field for field."""
+    from repro_torch.configs.base import ModelConfig
+
+    kw = {f: getattr(jcfg, f) for f in jcfg.__dataclass_fields__}
+    kw["dtype"] = _TORCH_DTYPES[np.dtype(jcfg.dtype).name]
+    return ModelConfig(**kw)
+
+
 def torch_mlp_loss(p, b):
     h = torch.tanh(b["x"] @ p["l1"])
     logits = h @ p["l2"]

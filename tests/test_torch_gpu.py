@@ -754,3 +754,194 @@ def test_chaos_streams_match_monolithic_on_card(cuda_device, wire):
     for k in want[1]:
         assert torch.equal(got[1][k], want[1][k]), k
     assert got[2]["resyncs"] == want[2]["resyncs"] == 1
+
+
+# ---------------------------------------------------------------------------
+# serving on the card: the decode path, prefill, live swaps across streams
+# ---------------------------------------------------------------------------
+
+def _serve_model(name):
+    """A 2-layer model at a cut width, with weights made on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    if name == "gpt2-medium":
+        cfg = get_config(name).with_(num_layers=2, d_model=256, num_heads=4,
+                                     num_kv_heads=4, d_ff=512,
+                                     vocab_size=512)
+    else:
+        cfg = get_config(name).with_(num_layers=2, d_model=256,
+                                     vocab_size=512, ssm_state=16,
+                                     ssm_head_dim=32)
+    model = build_model(cfg)
+    return model, model.init(seed=0, device="cpu")
+
+
+def _gap(got, want):
+    got, want = got.float().cpu(), want.float().cpu()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["gpt2-medium", "mamba2-780m"])
+def test_serve_decode_and_prefill_on_card_as_on_cpu(cuda_device, name):
+    """prefill_fn (the flash forward on the card, the plain attention on
+    the CPU) and 12 steps of decode_fn, the same weights on both devices:
+    logits and caches within 1e-4 of their largest |value| in float32,
+    2e-2 in bf16 (Mamba2). The prefill launches the flash forward once per
+    layer and neither backward kernel."""
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.models.transformer import alloc_cache
+
+    model, cpu_params = _serve_model(name)
+    gpu_params = tree_map(lambda x: x.to(cuda_device), cpu_params)
+    tol = 2e-2 if model.cfg.dtype == torch.bfloat16 else 1e-4
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, model.cfg.vocab_size, (2, 12), generator=gen)
+    fa_kernel.reset_launches()
+    gc, gl = model.prefill_fn(gpu_params, {"tokens": toks.to(cuda_device)})
+    torch.cuda.synchronize()
+    attn = "k" in gc["sub0"]
+    assert (fa_kernel.fwd_launches, fa_kernel.dq_launches,
+            fa_kernel.dkv_launches) == ((2 if attn else 0), 0, 0)
+    cc, cl = model.prefill_fn(cpu_params, {"tokens": toks})
+    assert _gap(gl, cl) <= tol
+    for k in cc["sub0"]:
+        assert _gap(gc["sub0"][k], cc["sub0"][k]) <= tol, k
+    caches = {d: alloc_cache(model.cache_specs(2, 16), device=d)
+              for d in ("cpu", cuda_device)}
+    params = {"cpu": cpu_params, cuda_device: gpu_params}
+    for t in range(12):
+        pos = torch.tensor([t, max(t - 2, 0)])
+        out = {}
+        for d in caches:
+            out[d], caches[d] = model.decode_fn(
+                params[d], caches[d], toks[:, t:t + 1].to(d), pos.to(d))
+        assert _gap(out[cuda_device], out["cpu"]) <= tol, t
+    for k in caches["cpu"]["sub0"]:
+        assert _gap(caches[cuda_device]["sub0"][k],
+                    caches["cpu"]["sub0"][k]) <= tol, k
+
+
+@pytest.mark.gpu
+def test_serve_prefill_kernel_route_matches_plain_route(cuda_device):
+    """prefill_fn through the flash forward against USE_PALLAS=False (the
+    plain attention) on the same CUDA tensors: logits and K/V to 1e-5 of
+    their largest |value|."""
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.models import layers
+
+    model, params = _serve_model("gpt2-medium")
+    params = tree_map(lambda x: x.to(cuda_device), params)
+    toks = {"tokens": torch.randint(0, 512, (3, 77), device=cuda_device)}
+    kc, kl = model.prefill_fn(params, toks)
+    layers.USE_PALLAS = False
+    try:
+        pc, pl = model.prefill_fn(params, toks)
+    finally:
+        layers.USE_PALLAS = True
+    assert _gap(kl, pl) <= 1e-5
+    for k in ("k", "v"):
+        assert _gap(kc["sub0"][k], pc["sub0"][k]) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_serve_live_swap_across_streams(cuda_device):
+    """The trainer and the server on two threads, each on a CUDA stream of
+    its own: every snapshot the server swaps in is unpacked, bit for bit,
+    into the params it serves (worker 0's row), over 20 swaps. The trainer
+    starts a step once the server has polled every earlier snapshot, so
+    none is skipped; the server's copy of a row runs on its stream while
+    the trainer's next step runs on the other."""
+    import threading
+    import time
+
+    import numpy as np
+    from repro_torch.core.backend import make_backend
+    from repro_torch.core.pytree import tree_leaves, tree_map
+    from repro_torch.launch.serve import Request, ServeLoop
+    from repro_torch.optim import constant, momentum
+    from repro_torch.serving import LiveServer, PlanePublisher
+
+    model, params = _serve_model("gpt2-medium")
+    params = tree_map(lambda x: x.to(cuda_device), params)
+    pub = PlanePublisher()
+    be = make_backend("prod", "layup", M=2, loss_fn=model.loss_fn,
+                      optimizer=momentum(0.9), schedule=constant(3e-3),
+                      fb_ratio=2, update_delay=1, use_pallas=True,
+                      device=cuda_device, publisher=pub)
+    st = be.init(None, params)
+    loop = ServeLoop(model, params, num_slots=2, max_len=64,
+                     device=cuda_device)
+    srv = LiveServer(loop, be.part, pub)
+    snaps, errors, steps = {}, [], 21
+    publish = pub.publish
+
+    def keep(*a, **kw):
+        snap = publish(*a, **kw)
+        snaps[snap.seq] = snap
+        return snap
+
+    pub.publish = keep
+    rng = np.random.default_rng(0)
+    toks = [torch.from_numpy(rng.integers(0, 512, (2, 2, 33)))
+            for _ in range(steps)]
+    train_stream, serve_stream = torch.cuda.Stream(), torch.cuda.Stream()
+    done = threading.Event()
+    torch.cuda.synchronize()  # init's work, on the default stream
+
+    def train():
+        nonlocal st
+        try:
+            with torch.cuda.stream(train_stream):
+                for t in range(steps):
+                    # the server has polled every earlier snapshot
+                    while len(srv.decisions) < t and not errors:
+                        time.sleep(1e-4)
+                    b = {k: v.to(cuda_device) for k, v in
+                         (("tokens", toks[t][..., :-1]),
+                          ("labels", toks[t][..., 1:]))}
+                    st, _ = be.step(st, b)
+        except Exception as e:  # reported by the test thread
+            errors.append(e)
+        finally:
+            done.set()
+
+    def serve():
+        checked = 0
+        try:
+            with torch.cuda.stream(serve_stream):
+                uid = 0
+                while not (done.is_set() and srv.poll() is None
+                           and srv.swap_count == checked):
+                    if all(s.req is None for s in loop.slots):
+                        loop.submit(Request(uid=uid,
+                                            prompt=np.asarray([1, 2, 3]),
+                                            max_new_tokens=4))
+                        uid += 1
+                    srv.step()
+                    if srv.swap_count > checked:
+                        seq, _ = loop.params_version
+                        while seq not in snaps:  # set just after publish
+                            time.sleep(1e-4)
+                        snap = snaps[seq]
+                        want = be.part.unpack(
+                            {g: b[0] for g, b in snap.plane.items()})
+                        for a, w in zip(tree_leaves(loop.params),
+                                        tree_leaves(want)):
+                            if not torch.equal(a, w):
+                                raise AssertionError(f"swap {seq} differs")
+                        checked = srv.swap_count
+                    if errors:
+                        return
+        except Exception as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=f) for f in (train, serve)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    assert not errors, errors
+    assert srv.swap_count >= 20
+    assert pub.stats.copied_planes == pub.stats.published == steps

@@ -444,9 +444,9 @@ def test_pipeline_step_wraps_the_engine():
         ps.lower()
 
 
-# ids as they were before the item-10 (membership) case left
+# ids as they were before the item-10 (membership) and item-11
+# (publisher) cases left
 @pytest.mark.parametrize("kw,item", [
-    pytest.param(dict(publisher=object()), "item 11", id="kw0-item 11"),
     pytest.param(dict(flat=False), "item 15", id="kw2-item 15")])
 def test_unported_engine_options_name_their_roadmap_item(kw, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -136,9 +136,8 @@ def test_default_device_needs_cuda():
 
 
 # ids as they were before the item-8 (int8 wire, compensation), item-9
-# (the engines) and item-10 (faults) cases left
+# (the engines), item-10 (faults) and item-11 (publisher) cases left
 @pytest.mark.parametrize("kw,item", [
-    pytest.param(dict(publisher=object()), "item 11", id="kw5-item 11"),
     pytest.param(dict(tuning="x.json"), "item 12", id="kw6-item 12"),
     pytest.param(dict(mesh=object()), "item 15", id="kw8-item 15"),
     pytest.param(dict(flat=False), "item 15", id="kw9-item 15")])
