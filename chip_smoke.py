@@ -157,7 +157,32 @@ not 0:
    the quantize kernels and through their plain versions
    (``gossip_fused_lane(use_pallas=False, wire="int8")``), attention on the
    flash kernels on both: losses, planes, residuals and θ bit-identical.
-6. the kernels line, the card's ``nvidia-smi`` line, and last the result.
+5c. sim: the sim trainer on GPT-2 Medium (f32, M=4, the train phase's
+   batches, momentum 0.9, lr 3e-3), each of the nine registered
+   algorithms for 4 steps (layup, layup-hypercube, gosgd at R=2, D=1; the
+   rest at R=1, D=0; localsgd, slowmo and co2 sync every 2 steps): finite
+   loss near ln V, Σw with the block queue's mass in flight = 1 ± 1e-5,
+   DDP's replicas identical, and the prod step's flash launches a step.
+   Median step (steps 1-2), tokens/s, peak, and the idle share from a
+   profiled 4th step. event: the event backend in lock-step with each
+   run, on a ``HardwareModel`` of the card's measured forward time and
+   backward ratio: modeled iteration time, utilization and MFU.
+5d. sim_prod: the sim ``layup-hypercube`` against the prod ``layup`` at
+   M=1, (R, D) in {(1, 0), (2, 1)}, 4 steps: staleness equal, losses
+   within 1e-5.
+5e. tune: the autotuner over the pipeline engine (``overlap=True``,
+   ``use_pallas=True``, M=4): the default candidate, then R in {1, 2} x D
+   in {0, 1}; 3 steps each for the timeline, then every stage cutout timed
+   alone (CUDA events; warmup 1, reps 3; fresh inputs each call) with the
+   card's floors; the record saved under ``build/tune``, loaded by key,
+   and a fresh ``make_backend(..., tuning=path)`` must take its R, D and
+   max_inflight_steps, train a step and launch gossip_mix.
+5f. checkpoint: the prod state of GPT-2 Medium at M=1, R=2, D=1 saved and
+   restored into a fresh state (read plane SHA-256s, every leaf equal);
+   two more steps from each, the restored one after ``resume``,
+   identical; save and restore seconds, bytes on disk.
+6. the kernels line (with ``sim_launches`` and ``tune_launches``), the
+   card's ``nvidia-smi`` line, and last the result.
 
 TF32 is off for matrix products and cuDNN (both set below), so float32 is
 float32 throughout. ``CUBLAS_WORKSPACE_CONFIG`` is fixed before CUDA
@@ -1396,10 +1421,12 @@ def profiled_busy(torch, fn):
     with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
         fn()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    union, end = 0.0, None
+    # the raw events (ns), not ``prof.events()``: building its Python event
+    # objects costs seconds a training step (~20k kernels)
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA)
+    union, end = 0, None
     for a, b in spans:
         if end is None or a > end:
             union += b - a
@@ -1407,7 +1434,7 @@ def profiled_busy(torch, fn):
         elif b > end:
             union += b - end
             end = b
-    return union / 1e6, sum(b - a for a, b in spans) / 1e6, len(spans)
+    return union / 1e9, sum(b - a for a, b in spans) / 1e9, len(spans)
 
 
 def phase_profile_engines(torch, backends, batches):
@@ -2567,6 +2594,496 @@ def phase_serve_live(torch, name, train, **engine):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the sim trainer, the event simulator, the tuner and checkpoints
+# ---------------------------------------------------------------------------
+
+# (algorithm, R, D, algorithm kwargs): the nine registered algorithms of
+# the sim phase; the periodic ones sync every 2 steps, so twice in 4 steps
+SIM_RUNS = (("layup", 2, 1, {}), ("layup-hypercube", 2, 1, {}),
+            ("gosgd", 2, 1, {}), ("layup-block", 1, 0, {}),
+            ("adpsgd", 1, 0, {}), ("ddp", 1, 0, {}),
+            ("localsgd", 1, 0, {"sync_every": 2}),
+            ("slowmo", 1, 0, {"sync_every": 2}),
+            ("co2", 1, 0, {"sync_every": 2}))
+SIM_STEPS = 4  # steps 1-2 timed, step 3 profiled for the idle share
+SIM_PROD_POINTS, SIM_PROD_STEPS = ((1, 0), (2, 1)), 4
+TUNE_STEPS, TUNE_WARMUP, TUNE_REPS = 3, 1, 3
+CKPT_STEPS = 2  # steps before the save, and again after it
+
+
+def kernel_launches() -> dict:
+    """Every kernel's launches since the counters' reset (the training
+    step's, and the norm and SSD kernels')."""
+    from repro_torch.kernels import rmsnorm, ssd_scan
+
+    return {**step_launches(), "rmsnorm": rmsnorm.launches,
+            "ssd_scan": ssd_scan.launches}
+
+
+def reset_kernel_launches() -> None:
+    from repro_torch.kernels import rmsnorm, ssd_scan
+
+    for reset in launch_resets() + (rmsnorm.reset_launches,
+                                    ssd_scan.reset_launches):
+        reset()
+
+
+def add_counts(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+
+def row_launches(counts: dict, name: str) -> int:
+    """A kernels-line row's launches out of ``kernel_launches()``."""
+    keys = {"gossip_mix": ("gossip_mix",), "flash_attention": ("flash_fwd",),
+            "flash_attention_bwd": ("flash_dq", "flash_dkv"),
+            "flash_attention_trainable": ("flash_fwd", "flash_dq",
+                                          "flash_dkv")}.get(name, (name,))
+    return sum(counts.get(k, 0) for k in keys)
+
+
+def gpt2_medium(torch):
+    """GPT-2 Medium, its seed-0 parameters on the card and its loss."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("gpt2-medium")
+    model = build_model(cfg)
+    return cfg, model, model.init(seed=0, device="cuda")
+
+
+def fwd_bwd_times(torch, model, params, batch):
+    """Device seconds of one worker's forward on its batch (no grad) and the
+    backward's ratio to it (forward + backward through autograd, minus the
+    forward, over the forward): CUDA events, median of 3 after a warm-up."""
+    from repro_torch.launch.train import forward_slice_lane
+
+    b = {k: v[0] for k, v in batch.items()}
+    lane = forward_slice_lane(model.loss_fn)
+
+    def fwd():
+        with torch.no_grad():
+            model.loss_fn(params, b)
+
+    t_f = time_ms(torch, fwd, reps=3, warmup=1) / 1e3
+    t_fb = time_ms(torch, lambda: lane(params, b), reps=3, warmup=1) / 1e3
+    return t_f, (t_fb - t_f) / t_f
+
+
+def in_flight(extras) -> float:
+    """The push-sum mass a block-mode queue holds (0 for the others)."""
+    if isinstance(extras, dict) and "q0" in extras:
+        return float(extras["q0"]["w"].sum() + extras["q1"]["w"].sum())
+    return 0.0
+
+
+def sim_run(torch, cfg, model, params, batches, hw, algo, R_, D_, kw):
+    """One algorithm on the sim backend, 4 steps, and the event backend in
+    lock-step. Held: finite loss near ln V, Σw (with the block queue's mass
+    in flight) = 1 ± 1e-5, DDP's replicas identical, and the flash launches
+    of the prod step (R·M·L forward, M·L each backward, a step)."""
+    from repro_torch.core.api import get_algorithm
+    from repro_torch.core.backend import make_backend
+    from repro_torch.optim import constant, momentum
+
+    be = make_backend("sim", get_algorithm(algo, **kw), M=M,
+                      loss_fn=model.loss_fn, optimizer=momentum(0.9),
+                      schedule=constant(LR), fb_ratio=R_, update_delay=D_,
+                      device="cuda")
+    ev = make_backend("event", algo, M=M, hw=hw, fb_ratio=R_,
+                      update_delay=D_, sync_every=kw.get("sync_every", 8))
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_launches()                         # main path starts
+    state = be.init(0, params)
+    es = ev.init()
+    hist = {k: [] for k in ("loss", "weight_sum", "mass", "update_staleness",
+                            "staleness_mean", "disagreement")}
+    modeled, step_s, busy = [], [], None
+    for t, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if t == len(batches) - 1:  # the last step under the profiler
+
+            def run(b=b):
+                nonlocal state, m
+                state, m = be.step(state, b)
+
+            m = None
+            busy, _, _ = profiled_busy(torch, run)
+        else:
+            state, m = be.step(state, b)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        es, em = ev.step(es)
+        modeled.append(em["iter_time"])
+        for k in hist:
+            if k != "mass":
+                hist[k].append(float(m[k]))
+        hist["mass"].append(hist["weight_sum"][-1] + in_flight(state.extras))
+    torch.cuda.synchronize()                        # main path ends
+    counts = kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    what = f"sim {algo}"
+    check(all(math.isfinite(v) for v in hist["loss"]), f"{what} {hist}")
+    check(abs(hist["loss"][0] - math.log(cfg.vocab_size)) < 0.5,
+          f"{what} first loss {hist['loss'][0]} far from ln(V)")
+    check(all(abs(v - 1.0) <= 1e-5 for v in hist["mass"]),
+          f"{what} push-sum mass {hist['mass']}")
+    steps, L = len(batches), cfg.num_layers
+    flash = {"fwd": counts["flash_fwd"], "dq": counts["flash_dq"],
+             "dkv": counts["flash_dkv"]}
+    want = {"fwd": steps * R_ * M * L, "dq": steps * M * L,
+            "dkv": steps * M * L}
+    check(flash == want, f"{what} flash launches {flash} != {want}")
+    check(counts["gossip_mix"] == 0, f"{what} launched gossip_mix")
+    if algo == "ddp":
+        for g, p in state.params.items():
+            check(all(torch.equal(p[0], p[i]) for i in range(1, M)),
+                  f"sim ddp replicas differ in {g}")
+    med = statistics.median(step_s[1:])
+    tokens = M * BATCH_PER_WORKER * SEQ
+    summary = ev.summary()
+    row = {"algo": algo, "fb_ratio": R_, "update_delay": D_, **kw,
+           "history": hist, "step_s": step_s, "median_step_s": med,
+           "tokens_per_s": tokens / med, "peak_bytes": peak,
+           "bytes_before_init": base, "device_s_profiled_step": busy,
+           "idle_share": 1.0 - busy / med,
+           "flash_launches_per_step": {k: v / steps
+                                       for k, v in flash.items()},
+           "modeled": {"label": "modeled by the event simulator from the "
+                                "card's measured forward time and "
+                                "backward ratio",
+                       "iter_time_s": modeled,
+                       "total_time_s": summary["total_time"],
+                       "utilization": summary["utilization"],
+                       "mfu": summary["mfu"],
+                       "fwd_passes_per_s": summary["fwd_passes_per_s"]}}
+    emit("sim_algo", **row)
+    del state, be
+    torch.cuda.empty_cache()
+    return row, counts
+
+
+def phase_sim(torch):
+    """The sim trainer on GPT-2 Medium (f32, M=4, the train phase's
+    batches) for each of the nine algorithms, with the event backend in
+    lock-step on a HardwareModel of the card's measured forward time and
+    backward ratio. Returns the phase's launches and the model's rows."""
+    from repro_torch.core.simulator import HardwareModel
+    from repro_torch.core.pytree import tree_leaves
+
+    cfg, model, params = gpt2_medium(torch)
+    batches = lm_batches(torch, cfg.vocab_size, SIM_STEPS, seed=0)
+    t_fwd, bwd_ratio = fwd_bwd_times(torch, model, params, batches[0])
+    plane_bytes = sum(p.numel() * p.element_size()
+                      for p in tree_leaves(params))
+    hw = HardwareModel(fwd_time=t_fwd, bwd_ratio=bwd_ratio,
+                       num_layers=cfg.num_layers, model_bytes=plane_bytes)
+    emit("sim_hardware_model", fwd_time_s=t_fwd, bwd_ratio=bwd_ratio,
+         num_layers=cfg.num_layers, model_bytes=plane_bytes,
+         bandwidth=hw.bandwidth, allreduce_bandwidth=hw.allreduce_bandwidth,
+         kernel_mfu=hw.kernel_mfu,
+         note="fwd_time and bwd_ratio measured on the card (one worker's "
+              "4 x 256 batch); the link rates and kernel_mfu are the "
+              "simulator's defaults, not measured")
+    total, rows = {}, []
+    for algo, R_, D_, kw in SIM_RUNS:
+        row, counts = sim_run(torch, cfg, model, params, batches, hw, algo,
+                              R_, D_, kw)
+        rows.append(row)
+        total = add_counts(total, counts)
+    emit("event", label="modeled by the event simulator from the card's "
+         "measured forward time and backward ratio (sim_hardware_model), "
+         "stepped in lock-step with each algorithm's sim run",
+         **{r["algo"]: {k: r["modeled"][k] for k in (
+             "iter_time_s", "total_time_s", "utilization", "mfu")}
+            for r in rows})
+    emit("sim", algorithms=[r["algo"] for r in rows],
+         median_step_s={r["algo"]: r["median_step_s"] for r in rows},
+         peak_bytes={r["algo"]: r["peak_bytes"] for r in rows},
+         idle_share={r["algo"]: r["idle_share"] for r in rows},
+         modeled_total_time_s={r["algo"]: r["modeled"]["total_time_s"]
+                               for r in rows},
+         launches=total)
+    del params
+    torch.cuda.empty_cache()
+    return {"launches": total, "rows": rows}
+
+
+def phase_sim_prod(torch):
+    """The sim ``layup-hypercube`` against the prod ``layup`` at M=1 (one
+    worker sends nothing), GPT-2 Medium, (R, D) in SIM_PROD_POINTS, 4
+    steps each: layer_staleness and update_staleness equal, the losses
+    within 1e-5 (``tests/test_torch_sim.py::test_sim_prod_parity`` on the
+    card)."""
+    from repro_torch.core.backend import make_backend
+    from repro_torch.optim import constant, momentum
+
+    cfg, model, params = gpt2_medium(torch)
+    batches = [{k: v[:1] for k, v in b.items()} for b in
+               lm_batches(torch, cfg.vocab_size, SIM_PROD_STEPS, seed=0)]
+    out = []
+    for R_, D_ in SIM_PROD_POINTS:
+        kw = dict(M=1, loss_fn=model.loss_fn, optimizer=momentum(0.9),
+                  schedule=constant(LR), fb_ratio=R_, update_delay=D_,
+                  device="cuda")
+        prod = make_backend("prod", "layup", use_pallas=True, **kw)
+        sim = make_backend("sim", "layup-hypercube", **kw)
+        ps, ss = prod.init(None, params), sim.init(0, params)
+        gaps = []
+        for t, b in enumerate(batches):
+            ps, pm = prod.step(ps, b)
+            ss, sm = sim.step(ss, b)
+            gaps.append(abs(float(pm["loss"]) - float(sm["loss"])))
+            check(gaps[-1] <= 1e-5, f"sim_prod R={R_} D={D_} step {t} "
+                  f"loss gap {gaps[-1]}")
+            check(torch.equal(pm["layer_staleness"], sm["layer_staleness"]),
+                  f"sim_prod R={R_} D={D_} layer_staleness differs")
+            check(float(pm["update_staleness"])
+                  == float(sm["update_staleness"]),
+                  f"sim_prod R={R_} D={D_} update_staleness differs")
+        out.append({"fb_ratio": R_, "update_delay": D_, "loss_gaps": gaps,
+                    "update_staleness": float(sm["update_staleness"])})
+        del ps, ss, prod, sim
+        torch.cuda.empty_cache()
+    emit("sim_prod", M=1, steps=SIM_PROD_STEPS, points=out)
+    del params
+    torch.cuda.empty_cache()
+
+
+def tune_floors(cfg, groups: dict):
+    """Per-stage floors of a candidate on the card, from its own rates:
+    ``fwd`` the mean over the R forward slices of the products each does
+    (slice 0 forward and backward, 3x; the others forward) at the float32
+    rate (TF32 is off); ``update`` the bytes of the update stage (momentum
+    and gradient read, momentum and update written, the FIFO slot read
+    when D > 0; each plane M x the f32 model) at the HBM rate; ``gossip``
+    ``mix_bound_ms`` of the fused mix over the plane."""
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.models.transformer import decoder_specs
+
+    n = sum(groups.values())
+    tokens = M * BATCH_PER_WORKER * SEQ
+    d, L = cfg.d_model, cfg.num_layers
+    # matmul parameters: the blocks' matrices (stacked over the layers, so
+    # 3-D) and the tied head; and causal attention's two products a layer
+    # (half of S x S)
+    mm = sum(math.prod(s.shape) for s in tree_leaves(
+        decoder_specs(cfg)["blocks"]) if len(s.shape) >= 3)
+    mm += d * cfg.vocab_size
+    fwd_flops = 2 * mm * tokens + L * 2 * 2 * (SEQ * SEQ // 2) * d * (
+        tokens // SEQ)
+    gossip_s = mix_bound_ms([M * v for v in groups.values()], 4, True,
+                            M)[0] / 1e3
+
+    def floors(cand):
+        slice_flops = fwd_flops / cand.R
+        mean_flops = (3 * slice_flops + (cand.R - 1) * slice_flops) / cand.R
+        planes = 4 + (1 if cand.D > 0 else 0)
+        return {"fwd": mean_flops / F32_FLOPS_PER_S,
+                "update": planes * M * n * 4 / HBM_BYTES_PER_S,
+                "gossip": gossip_s}
+
+    return floors
+
+
+def phase_tune(torch):
+    """The stage autotuner on GPT-2 Medium, M=4, the pipeline engine
+    (``overlap=True``, ``use_pallas=True``): the default candidate, then R
+    in {1, 2} x D in {0, 1} at ``max_inflight_steps=3``. Each candidate: 3
+    steps for the timeline, its state dropped, then every cutout timed
+    (warmup 1, reps 3, CUDA-event clock; fresh inputs each call). Then
+    ``build_record`` with the card's floors, save under ``build/``,
+    ``load_tuning(key=...)``, and a fresh ``make_backend("prod", ...,
+    tuning=path)`` must take the record's R, D and max_inflight_steps,
+    train a step and launch gossip_mix."""
+    from repro_torch.core.backend import make_backend
+    from repro_torch.launch import tuner
+    from repro_torch.optim import constant, momentum
+
+    cfg, model, params = gpt2_medium(torch)
+    batches = lm_batches(torch, cfg.vocab_size, TUNE_STEPS + 1, seed=0)
+    groups = gpt2_medium_groups()
+    floors = tune_floors(cfg, groups)
+    harness = tuner.CutoutHarness(warmup=TUNE_WARMUP, reps=TUNE_REPS)
+    grid = [tuner.DEFAULT_CANDIDATE] + [
+        tuner.Candidate(R=r, D=d, max_inflight_steps=3)
+        for r in (1, 2) for d in (0, 1)]
+    kw = dict(M=M, loss_fn=model.loss_fn, optimizer=momentum(0.9),
+              schedule=constant(LR), use_pallas=True, device="cuda")
+    measured, entries, rows, launches = {}, [], [], {}
+    for cand in grid:
+        if cand in measured:  # the default again: the same measurement
+            entries.append((cand,) + measured[cand])
+            continue
+        be = make_backend("prod", "layup", overlap=True, fb_ratio=cand.R,
+                          update_delay=cand.D,
+                          max_inflight_steps=cand.max_inflight_steps, **kw)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = be.init(None, params)
+        for b in batches[:TUNE_STEPS]:
+            state, m = be.step(state, b)
+        settle(torch, be)
+        loss = float(m["loss"])
+        check(math.isfinite(loss), f"tune {cand.label()} loss {loss}")
+        be.summary()  # finalizes the timeline
+        tl = be.timeline.summary()
+        step_peak = torch.cuda.max_memory_allocated()
+        part = be.part
+        del state, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_launches()                     # cutouts start
+        timings = harness.time_engine(be.engine)
+        torch.cuda.synchronize()                    # cutouts end
+        launches = add_counts(launches, kernel_launches())
+        cut_peak = torch.cuda.max_memory_allocated()
+        times = tuner.stage_times_from_cutouts(timings)
+        measured[cand] = (times, tl)
+        entries.append((cand, times, tl))
+        rows.append({"label": cand.label(), "cutout_s": timings,
+                     "stage_times_s": times,
+                     "engine_stage_s": tl.get("stage_s"),
+                     "timeline_wall_s": tl["wall_s"],
+                     "floors_s": floors(cand), "loss": loss,
+                     "step_peak_bytes": step_peak,
+                     "cutout_peak_bytes": cut_peak})
+        emit("tune_candidate", **rows[-1])
+        del be
+        gc.collect()
+        torch.cuda.empty_cache()
+    key = tuner.make_key(tuner.problem_descriptor(part),
+                         tuner.mesh_descriptor("cuda", M), "param")
+    rec = tuner.build_record(entries, key=key, floors=floors,
+                             meta={"steps": TUNE_STEPS, "warmup": TUNE_WARMUP,
+                                   "reps": TUNE_REPS})
+    path = rec.save(str(HERE / "build" / "tune" / "tuning.json"))
+    loaded = tuner.load_tuning(path, key=key)
+    check(loaded is not None and loaded.to_dict() == rec.to_dict(),
+          "tune record did not load back")
+    best = loaded.best_candidate()
+    reset_kernel_launches()                         # tuned backend starts
+    be = make_backend("prod", "layup", tuning=path, **kw)
+    check(be.overlap and be.tuning is not None, "tuned backend not tuned")
+    state = be.init(None, params)
+    eng = be.engine
+    check((eng.R, eng.D, eng.max_inflight_steps)
+          == (best.R, best.D, best.max_inflight_steps),
+          f"tuned engine {(eng.R, eng.D, eng.max_inflight_steps)} != "
+          f"record {best.label()}")
+    state, m = be.step(state, batches[-1])
+    settle(torch, be)                               # tuned backend ends
+    tuned = kernel_launches()
+    loss = float(m["loss"])
+    check(math.isfinite(loss), f"tuned backend loss {loss}")
+    check(tuned["gossip_mix"] == len(groups),
+          f"tuned step gossip_mix launches {tuned['gossip_mix']}")
+    launches = add_counts(launches, tuned)
+    emit("tune", key=key, best=rec.best, score=rec.score, table=rec.table,
+         record_path=os.path.relpath(path, HERE),
+         tuned_engine={"R": eng.R, "D": eng.D,
+                       "max_inflight_steps": eng.max_inflight_steps},
+         tuned_loss=loss, tuned_step_launches=tuned, launches=launches)
+    del state, be, m, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def phase_checkpoint(torch):
+    """The prod state of GPT-2 Medium at M=1, R=2, D=1 (read, write,
+    momentum, FIFO) after 2 steps, saved under ``build/`` and restored into
+    a fresh ``init`` state: the read plane's SHA-256s and every other leaf
+    equal; then 2 more steps from each (the restored run after
+    ``resume(2)``) give identical histories, digests and leaves. The
+    directory is deleted afterwards."""
+    import shutil
+
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.core.backend import make_backend
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.optim import constant, momentum
+
+    cfg, model, params = gpt2_medium(torch)
+    batches = [{k: v[:1] for k, v in b.items()} for b in
+               lm_batches(torch, cfg.vocab_size, 2 * CKPT_STEPS, seed=0)]
+
+    def backend():
+        return make_backend("prod", "layup", M=1, loss_fn=model.loss_fn,
+                            optimizer=momentum(0.9), schedule=constant(LR),
+                            fb_ratio=2, update_delay=1, use_pallas=True,
+                            device="cuda")
+
+    def same(a, b) -> bool:
+        la, lb = tree_leaves(a), tree_leaves(b)
+        return len(la) == len(lb) and all(
+            (x.dtype == y.dtype and torch.equal(x, y))
+            if isinstance(x, torch.Tensor) else bool((x == y).all())
+            for x, y in zip(la, lb))
+
+    def run(be, st):
+        hist = []
+        for b in batches[CKPT_STEPS:]:
+            st, m = be.step(st, b)
+            hist.append([float(m[k]) for k in ("loss", "weight_sum",
+                                                 "update_staleness")])
+        return hist, st
+
+    directory = HERE / "build" / "ckpt_smoke"
+    shutil.rmtree(directory, ignore_errors=True)
+    be = backend()
+    st = be.init(None, params)
+    for b in batches[:CKPT_STEPS]:
+        st, _ = be.step(st, b)
+    torch.cuda.synchronize()
+    digest = plane_digests(torch, st["read"])
+    state_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(st)
+                      if isinstance(x, torch.Tensor))
+    try:
+        os.makedirs(directory, exist_ok=True)
+        free = shutil.disk_usage(directory).free
+        check(free > 2 * state_bytes,
+              f"checkpoint: {free} B free under build/, need "
+              f"{2 * state_bytes}")
+        t0 = time.perf_counter()
+        path = save_checkpoint(str(directory), CKPT_STEPS, st)
+        save_s = time.perf_counter() - t0
+        on_disk = os.path.getsize(path)
+        be2 = backend()
+        fresh = be2.init(None, params)
+        t0 = time.perf_counter()
+        back = restore_checkpoint(str(directory), None, fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del fresh
+        check(plane_digests(torch, back["read"]) == digest,
+              "restored read plane's SHA-256 differs")
+        check(same(back, st), "restored state differs")
+        be2.resume(CKPT_STEPS)
+        h1, st = run(be, st)
+        h2, back = run(be2, back)
+        check(h1 == h2, f"resumed history {h2} != uninterrupted {h1}")
+        d1, d2 = plane_digests(torch, st["read"]), plane_digests(
+            torch, back["read"])
+        check(d1 == d2 and same(st, back),
+              "resumed planes differ from the uninterrupted run's")
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    emit("checkpoint", M=1, fb_ratio=2, update_delay=1, steps=CKPT_STEPS,
+         state_bytes=state_bytes, bytes_on_disk=on_disk, save_s=save_s,
+         restore_s=restore_s, history=h1, read_plane_sha256=d1,
+         disk_free_bytes=free)
+    del st, back, be, be2, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main(argv) -> int:
     # the step's transients are plane-sized (GBs): growable segments keep
     # the caching allocator from stranding them as fragments
@@ -2659,6 +3176,19 @@ def main(argv) -> int:
                           ("serve_live_pipeline", {"overlap": True}))}
     phase_route(torch)
     phase_route_int8(torch)
+    new_s = {}
+    t1 = time.perf_counter()
+    sim = phase_sim(torch)
+    new_s["sim"] = time.perf_counter() - t1
+    for name, fn in (("sim_prod", phase_sim_prod), ("tune", phase_tune),
+                     ("checkpoint", phase_checkpoint)):
+        t1 = time.perf_counter()
+        res = fn(torch)
+        new_s[name] = time.perf_counter() - t1
+        if name == "tune":
+            tune = res
+    # the event phase runs in lock-step inside sim (sim_algo's "modeled")
+    emit("slice_phases", seconds=new_s, total_s=sum(new_s.values()))
     fused = kern["timing"]["fused"]
     launches = train["flash_launches"]
     rows = [{
@@ -2713,6 +3243,11 @@ def main(argv) -> int:
                      "launches": ssm["step_launches"][name],
                      "probe_launches": ssm["probe"]["launches"][name],
                      **norm_ssd[name]})
+    # the sim phase's launches (#2-#4: the loss) and the tune phase's (the
+    # cutouts and the tuned backend's step: #1-#4), on every row
+    for row in rows:
+        row["sim_launches"] = row_launches(sim["launches"], row["name"])
+        row["tune_launches"] = row_launches(tune["launches"], row["name"])
     print(json.dumps({"kernels": rows}), flush=True)
     emit("done", wall_s=time.perf_counter() - t0)
     print(smi, flush=True)

@@ -1,32 +1,52 @@
-"""The prod TrainerBackend on one CUDA device (port of the ``"prod"`` kind
-of ``repro/core/backend.py``).
+"""TrainerBackend — one protocol over the port's three execution backends
+(port of ``repro/core/backend.py``).
 
-``ProdTrainerBackend`` runs the decoupled PD-ASGD step of
-``repro_torch.launch.train`` behind the one-step-per-iteration protocol:
-``init(rng, params_single) → state`` then ``step(state, batch, rng) →
-(state, metrics)``, plus ``summary()``. Batches use the sim layout (leading
-``(M,)`` worker axis). The M workers are stacked on one device, the
-reference's mesh of M devices. The per-step gossip shift is drawn by a host
-numpy generator seeded at init, the same draws as the reference's.
+* the **sim trainer** (``repro_torch.core.api.make_sim_trainer``): real
+  numerics, any registered algorithm, M workers stacked on one device;
+  losses, drift and staleness metrics;
+* the **event-driven simulator** (``repro_torch.core.simulator``): no
+  numerics, the wall-clock schedule (barriers, NIC serialization,
+  decoupled lanes); iteration times, utilization and MFU;
+* the **prod decoupled lane** (``repro_torch.launch.train``): the PD-ASGD
+  step of the layup family, the M workers stacked on one CUDA device.
 
-Metrics are device tensors (with ``streams > 1``, futures of them);
+All three follow the :class:`TrainerBackend` protocol: ``init(rng,
+params_single) → state``, then ``step(state, batch, rng) → (state,
+metrics)`` once per update iteration, and ``summary()``.
+``make_backend(kind, algo, ...)`` is the one entry point, and ``drive``
+runs any of them over a sequence of batches. Batches use the sim layout
+(leading ``(M,)`` worker axis) on every numeric backend.
+
+Metrics are device tensors (the stream engine's: futures of them);
 ``summary()`` and ``drive``'s history read them on the host.
 
-``faults=`` (a spec string or a ``FaultPlan``; ``""`` is the empty plan)
-turns on membership and chaos injection (``repro_torch.chaos``, DESIGN.md
-§15): a fresh ``ChaosController`` per ``init`` applies the plan's faults
-at the host step boundary before each step.
+``ProdTrainerBackend``: the per-step gossip shift is drawn by a host numpy
+generator seeded at init, the same draws as the reference's. ``faults=``
+(a spec string or a ``FaultPlan``; ``""`` is the empty plan) turns on
+membership and chaos injection (``repro_torch.chaos``, DESIGN.md §15).
+``tuning=`` (a ``TuningRecord`` or the path of one,
+``repro_torch.launch.tuner``) replaces the hand-picked schedule defaults
+(DESIGN.md §16).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import (Any, Callable, Dict, Optional, Protocol, Tuple,
+                    runtime_checkable)
 
 import numpy as np
+import torch
 
+from repro_torch.core.api import (DistAlgorithm, get_algorithm,
+                                  make_sim_trainer)
+from repro_torch.core.simulator import EventSimulator, HardwareModel, SimResult
 from repro_torch.device import not_ported, resolve_device
 from repro_torch.launch.pipeline import (StageTimeline,
                                          make_pipeline_backend_trainer)
 from repro_torch.launch.train import make_decoupled_backend_trainer
+
+# event-time model for algorithms whose numeric semantics differ from their
+# schedule: block-mode LayUp times like GoSGD, hypercube like LayUp
+_EVENT_ALIAS = {"layup-block": "gosgd", "layup-hypercube": "layup"}
 
 _NUMERIC_SUMMARY_KEYS = ("loss", "disagreement", "staleness_mean",
                          "update_staleness", "weight_sum", "nonfinite_skips",
@@ -43,6 +63,137 @@ def _numeric_summary(steps: int, last: Dict[str, Any]) -> Dict[str, float]:
 
 def _add_skips(total, skips):
     return skips.clone() if total is None else total + skips
+
+
+def _algo_name(algo) -> str:
+    return algo.name if isinstance(algo, DistAlgorithm) else str(algo)
+
+
+@runtime_checkable
+class TrainerBackend(Protocol):
+    """One update iteration at a time, identically for every backend."""
+
+    name: str
+    kind: str  # "sim" or "prod" (numeric), "event" (wall-clock)
+
+    def init(self, rng, params_single) -> Any: ...
+
+    def step(self, state, batch, rng) -> Tuple[Any, Dict[str, Any]]: ...
+
+    def summary(self) -> Dict[str, float]: ...
+
+
+def _generator(rng, device: torch.device) -> torch.Generator:
+    """A ``torch.Generator`` on ``device``: ``rng`` itself when it is one,
+    else a new one seeded with ``rng`` (an int; ``None`` is 0)."""
+    if isinstance(rng, torch.Generator):
+        if rng.device.type != device.type:
+            raise ValueError(f"generator on {rng.device}, state on {device}")
+        return rng
+    return torch.Generator(device=device).manual_seed(
+        0 if rng is None else int(rng))
+
+
+class SimTrainerBackend:
+    """Numeric backend: the sim trainer, any registered algorithm.
+
+    ``init(rng, params)`` also sets ``self.generator`` (a
+    ``torch.Generator`` on ``device``: ``rng`` itself, or one seeded with
+    the int ``rng``), which ``step`` draws from when its ``rng`` is None;
+    ``drive`` hands it to every step."""
+
+    kind = "sim"
+
+    def __init__(self, algo, loss_fn: Callable, optimizer, schedule,
+                 M: int, *, device=None, straggler_delays=None,
+                 measure_drift: bool = True, fb_ratio: int = 1,
+                 update_delay: int = 0):
+        if isinstance(algo, str):
+            algo = get_algorithm(algo)
+        self.algo: DistAlgorithm = algo
+        self.name = f"sim:{algo.name}"
+        self.M = M
+        self.device = resolve_device(device)
+        self._box: Dict[str, Any] = {}
+        self._init_fn, self._step_fn = make_sim_trainer(
+            algo, loss_fn, optimizer, schedule, M,
+            straggler_delays=straggler_delays, measure_drift=measure_drift,
+            fb_ratio=fb_ratio, update_delay=update_delay,
+            device=self.device, box=self._box)
+        self.generator: Optional[torch.Generator] = None
+        self._steps = 0
+        self._last: Dict[str, Any] = {}
+
+    @property
+    def part(self):
+        """The FlatPartition fixing the state's plane layout (after init)."""
+        return self._box.get("part")
+
+    def export_params(self, state):
+        """Stacked ``(M, ...)`` parameter tree view of the state's plane."""
+        if self.part is None:
+            raise RuntimeError("call init() before export_params()")
+        return self.part.unpack(state.params)
+
+    def init(self, rng, params_single):
+        self._steps = 0
+        self.generator = _generator(rng, self.device)
+        return self._init_fn(rng, params_single)
+
+    def step(self, state, batch, rng=None):
+        state, metrics = self._step_fn(
+            state, batch, self.generator if rng is None else rng)
+        self._steps += 1
+        self._last = metrics
+        return state, metrics
+
+    def summary(self) -> Dict[str, float]:
+        return _numeric_summary(self._steps, self._last)
+
+
+class EventSimBackend:
+    """Wall-clock backend: the event-driven simulator.
+
+    ``init`` ignores the params (no numerics) and returns the simulator as
+    the state; ``step`` ignores the batch and advances the event clock by
+    one update iteration."""
+
+    kind = "event"
+
+    def __init__(self, algo, M: int, *, hw: Optional[HardwareModel] = None,
+                 straggler_delays=None, sync_every: int = 8, seed: int = 0,
+                 fb_ratio: int = 1, update_delay: int = 0):
+        algo_name = _algo_name(algo)
+        self.name = f"event:{algo_name}"
+        self.M = M
+        self._kw = dict(
+            M=M, hw=hw or HardwareModel(), straggler_delays=straggler_delays,
+            sync_every=sync_every, seed=seed, fb_ratio=fb_ratio,
+            update_delay=update_delay)
+        self._event_algo = _EVENT_ALIAS.get(algo_name, algo_name)
+        self._sim: Optional[EventSimulator] = None
+        # validate eagerly so misconfiguration fails at build, not step time
+        EventSimulator(self._event_algo, **self._kw)
+
+    def init(self, rng=None, params_single=None):
+        self._sim = EventSimulator(self._event_algo, **self._kw)
+        return self._sim
+
+    def step(self, state: EventSimulator, batch=None, rng=None):
+        return state, state.step()
+
+    def result(self) -> SimResult:
+        if self._sim is None:
+            raise RuntimeError("call init() before result()")
+        return self._sim.result()
+
+    def summary(self) -> Dict[str, float]:
+        r = self.result()
+        return {"steps": float(r.iter_times.size),
+                "total_time": r.total_time, "utilization": r.utilization,
+                "mfu": r.mfu, "updates_per_s": r.updates_per_s,
+                "fwd_passes_per_s": r.fwd_passes_per_s,
+                "mean_grad_staleness": r.mean_grad_staleness}
 
 
 class ProdTrainerBackend:
@@ -80,7 +231,14 @@ class ProdTrainerBackend:
     read plane after every step on the monolithic step and ``overlap=True``
     (a device copy, ``stable=False``: both lanes write the read plane in
     place later); ``streams > 1`` with a publisher raises ``ValueError``.
-    The options still to port (``mesh``, ``flat=False``, ``tuning``) raise
+
+    ``tuning`` (a :class:`repro_torch.launch.tuner.TuningRecord` or the
+    path of its JSON) replaces the hand-picked schedule: a record that
+    loads sets ``overlap=True`` and fills ``fb_ratio``, ``update_delay`` and
+    ``max_inflight_steps`` where the caller left their defaults (kwargs
+    moved off their defaults win); one that fails to load warns and changes
+    nothing. The options still to port (``mesh``, ``flat=False``, which a
+    record whose best grouping is ``"legacy"`` asks for) raise
     ``NotImplementedError`` naming the ROADMAP item that ports them."""
 
     kind = "prod"
@@ -97,21 +255,37 @@ class ProdTrainerBackend:
                  wait_timeout_s: float = 600.0):
         if mesh is not None:
             raise not_ported("an explicit device mesh (multi-GPU ring)", 15)
+        # a tuning record (launch/tuner.py, DESIGN.md §16) replaces the
+        # hand-picked schedule defaults; kwargs the caller moved off their
+        # defaults always win, and a failed load warns and changes nothing
+        self.tuning = None
+        if tuning is not None:
+            from repro_torch.launch.tuner import apply_tuning, resolve_tuning
+            record = resolve_tuning(tuning)
+            if record is not None:
+                tuned = apply_tuning(record, fb_ratio=fb_ratio,
+                                     update_delay=update_delay, flat=flat,
+                                     max_inflight_steps=max_inflight_steps)
+                fb_ratio = tuned["fb_ratio"]
+                update_delay = tuned["update_delay"]
+                flat = tuned["flat"]
+                max_inflight_steps = tuned["max_inflight_steps"]
+                overlap = True
+                self.tuning = record
         if int(streams) > 1 and not overlap:
             raise ValueError("streams > 1 is a property of the stage-graph "
                              "pipeline; it requires overlap=True")
-        if tuning is not None:
-            raise not_ported("tuning (the stage autotuner)", 12)
         if not flat:
             raise not_ported("flat=False (the legacy per-leaf tree state)",
                              15)
-        algo_name = getattr(algo, "name", str(algo))
+        algo_name = _algo_name(algo)
         if not algo_name.startswith("layup"):
             raise ValueError(
                 f"prod backend implements the layup family only, not "
                 f"{algo_name!r} (the gossip ring is the algorithm)")
         self.name = f"prod:{algo_name}"
         self.M = M
+        self.overlap = bool(overlap)
         self.wire = str(wire)
         self.streams = int(streams)
         self.compensate = float(compensate)
@@ -198,6 +372,17 @@ class ProdTrainerBackend:
             self.chaos.attach(engine=eng, board=getattr(eng, "board", None))
         return state
 
+    def resume(self, step: int) -> None:
+        """Continue at ``step`` a run whose state was restored from a
+        checkpoint taken after ``step`` steps (``repro_torch.checkpoint``):
+        the schedule, the FIFO's stamps and the host's gossip-shift draws
+        go on where the saved run left off. Call it after ``init``."""
+        self._steps = 0
+        self._shift_rng = np.random.default_rng(0xC0FFEE)
+        for _ in range(int(step)):
+            self._shift_rng.integers(0, len(self._shifts))
+        self._steps = int(step)
+
     def step(self, state, batch, rng=None):
         # ``rng`` belongs to the TrainerBackend protocol; the ring's shift
         # schedule is drawn host-side
@@ -250,11 +435,23 @@ class ProdTrainerBackend:
 
 
 def make_backend(kind: str, algo, *, M: int, loss_fn: Callable = None,
-                 optimizer=None, schedule=None, **kw) -> ProdTrainerBackend:
-    """Entry point over the backends. The port has ``kind="prod"`` so far
-    (needs loss_fn, optimizer, schedule; ``device`` defaults to CUDA)."""
-    if kind in ("sim", "event"):
-        raise not_ported(f"the {kind!r} backend", 13)
+                 optimizer=None, schedule=None,
+                 hw: Optional[HardwareModel] = None, **kw) -> TrainerBackend:
+    """Single entry point over the three backends.
+
+    kind="sim":   needs loss_fn, optimizer, schedule; any registered algo.
+    kind="event": takes hw (default: the default HardwareModel).
+    kind="prod":  needs loss_fn, optimizer, schedule; the layup family.
+    Shared kwargs: straggler_delays, fb_ratio, update_delay; sim and prod
+    also take device (default CUDA) and measure_drift, event takes
+    sync_every and seed, prod the options of :class:`ProdTrainerBackend`.
+    """
+    if kind == "sim":
+        if loss_fn is None or optimizer is None or schedule is None:
+            raise ValueError("sim backend needs loss_fn, optimizer, schedule")
+        return SimTrainerBackend(algo, loss_fn, optimizer, schedule, M, **kw)
+    if kind == "event":
+        return EventSimBackend(algo, M, hw=hw, **kw)
     if kind == "prod":
         if loss_fn is None or optimizer is None or schedule is None:
             raise ValueError("prod backend needs loss_fn, optimizer, schedule")
@@ -272,12 +469,15 @@ def drive(backend, batches, rng=None, params_single=None,
     """Run a backend over an iterable of batches; collect metric history.
 
     Returns {"state": final_state, "history": {key: np.ndarray}, and the
-    backend's summary() entries}. Reading a history key copies that metric
-    to the host after each step."""
+    backend's summary() entries}. The event backend takes batches of
+    ``None``. The sim backend's steps draw from its ``generator`` (made by
+    ``init`` from ``rng``: a ``torch.Generator`` or an int seed). Reading a
+    history key copies that metric to the host after each step."""
     state = backend.init(rng, params_single)
+    step_rng = getattr(backend, "generator", rng)
     hist: Dict[str, list] = {k: [] for k in history_keys}
     for batch in batches:
-        state, metrics = backend.step(state, batch, rng)
+        state, metrics = backend.step(state, batch, step_rng)
         for k in history_keys:
             if k in metrics:
                 hist[k].append(_host(metrics[k]))

@@ -1,15 +1,21 @@
 """Layer-granular parameter views and the persistent flat plane.
 
-Port of ``repro/core/layerview.py`` (the parts the prod training step uses):
+Port of ``repro/core/layerview.py``:
 
 * ``LayerPartition`` splits a parameter tree into layer groups: the
   top-level key, or ``"<key>.<idx>"`` for per-layer containers (lists of
-  blocks). Group names are sorted.
+  blocks). Group names are sorted. ``split`` gives the ``{group: {path:
+  leaf}}`` mapping of a :class:`LayerView`, ``join`` the tree back.
 * ``FlatPartition`` fixes one contiguous buffer per layer group and dtype
   (leaves flattened in C order and concatenated in tree order; a group that
   mixes dtypes gets one ``"<group>:<dtype>"`` buffer per dtype). ``pack`` and
   ``unpack`` take any number of leading axes: ``(M, ...)`` worker stacks,
   ``(M, D, ...)`` FIFO stacks. ``unpack`` returns views (slice + reshape).
+* ``LayerView``: what the ``DistAlgorithm`` hooks receive, ``groups`` (a
+  tree whose leaves keep the stacked ``(M, ...)`` layout) and ``versions``,
+  the ``(M, G)`` float32 version clocks. The sim trainer
+  (``repro_torch.core.api``) hands the hooks the flat plane itself as
+  ``groups``: ``{buffer: (M, n)}``, one clock per group of ``names``.
 * The version-clock arithmetic (``send_fractions``, ``stamp_groups``,
   ``layer_staleness``, ``version_metrics``) on ``(M, G)`` float32 tensors.
 
@@ -19,7 +25,8 @@ the JAX package's plane exactly.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from dataclasses import dataclass, replace
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,14 +77,44 @@ class LayerPartition:
             self._index.append((label, leaf_key))
             seen.setdefault(label, None)
         self.names: Tuple[str, ...] = tuple(sorted(seen))
+        self._gidx = {n: i for i, n in enumerate(self.names)}
 
     @property
     def num_groups(self) -> int:
         return len(self.names)
 
+    def group_index(self, name: str) -> int:
+        return self._gidx[name]
+
+    def split(self, tree) -> Dict[str, Dict[str, Any]]:
+        """Tree → ``{group: {leaf_key: leaf}}`` (leaves not copied)."""
+        leaves = tree_leaves(tree)
+        if len(leaves) != len(self._index):
+            raise ValueError(
+                f"tree has {len(leaves)} leaves; partition expects "
+                f"{len(self._index)}")
+        groups: Dict[str, Dict[str, Any]] = {n: {} for n in self.names}
+        for (label, leaf_key), leaf in zip(self._index, leaves):
+            groups[label][leaf_key] = leaf
+        return groups
+
+    def join(self, groups: Dict[str, Dict[str, Any]]):
+        leaves = [groups[label][leaf_key] for label, leaf_key in self._index]
+        return tree_unflatten(self._treedef, leaves)
+
     def init_versions(self, M: int, device=None) -> torch.Tensor:
         return torch.zeros((M, self.num_groups), dtype=torch.float32,
                            device=device)
+
+    def view(self, tree, versions=None, M: Optional[int] = None
+             ) -> "LayerView":
+        if versions is None:
+            leaf = tree_leaves(tree)[0]
+            if M is None:
+                M = leaf.shape[0]
+            versions = self.init_versions(M, device=leaf.device)
+        return LayerView(groups=self.split(tree), versions=versions,
+                         names=self.names)
 
 
 class _LeafSlot(NamedTuple):
@@ -183,6 +220,25 @@ class FlatPartition(LayerPartition):
         return tree_unflatten(self._treedef, leaves)
 
 
+@dataclass
+class LayerView:
+    """Layer-grouped stacked parameters + per-group version clocks."""
+
+    groups: Any              # a tree of (M, ...) leaves
+    versions: torch.Tensor   # (M, G) float32 generation-time stamps
+    names: Tuple[str, ...] = ()
+
+    @property
+    def num_groups(self) -> int:
+        return len(self.names)
+
+    def with_groups(self, groups) -> "LayerView":
+        return replace(self, groups=groups)
+
+    def with_versions(self, versions) -> "LayerView":
+        return replace(self, versions=versions)
+
+
 # ---------------------------------------------------------------------------
 # version-clock arithmetic
 # ---------------------------------------------------------------------------
@@ -197,12 +253,19 @@ def send_fractions(G: int, bwd_ratio: float = 2.0) -> np.ndarray:
             / (1.0 + bwd_ratio)).astype(np.float32)
 
 
-def stamp_groups(versions: torch.Tensor, value) -> torch.Tensor:
+def stamp_groups(versions: torch.Tensor, value,
+                 worker_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Max-merge new generation-time stamps into the ``(M, G)`` clock.
-    ``value`` broadcasts against ``(M, G)``. Versions never move back."""
-    value = torch.as_tensor(value, dtype=torch.float32,
-                            device=versions.device).expand_as(versions)
-    return torch.maximum(versions, value)
+    ``value`` (a number or a tensor on the clock's device) broadcasts
+    against ``(M, G)``; ``worker_mask`` ((M,) bool) restricts the stamp to
+    the receiving workers. Versions never move back."""
+    if isinstance(value, torch.Tensor):
+        stamped = torch.maximum(versions, value.to(torch.float32))
+    else:
+        stamped = torch.clamp(versions, min=float(np.float32(value)))
+    if worker_mask is None:
+        return stamped
+    return torch.where(worker_mask.reshape(-1, 1), stamped, versions)
 
 
 def layer_staleness(versions: torch.Tensor, step) -> torch.Tensor:

@@ -114,3 +114,116 @@ def assert_runs_equal(got, want):
     for name in want[1]:
         for k in want[1][name]:
             assert torch.equal(got[1][name][k], want[1][name][k]), (name, k)
+
+
+# ---------------------------------------------------------------------------
+# the sim trainer against the JAX package's, step by step
+# ---------------------------------------------------------------------------
+
+SIM_METRICS = ("loss", "weight_sum", "update_staleness", "layer_staleness",
+               "staleness_mean", "disagreement", "lr")
+ALGO_METRICS = ("gossip_sends", "pairs", "synced")
+
+
+def inject_jax_draws(monkeypatch):
+    """Replace the port's two random draws (``api.draw_peers``,
+    ``adpsgd.draw_permutation``) by the JAX draws a test sets for the step
+    in the returned dict (``"peers"``, ``"perm"``)."""
+    from repro_torch.core import adpsgd, api
+
+    cur = {}
+    monkeypatch.setattr(api, "draw_peers",
+                        lambda rng, M, device: cur["peers"].to(device))
+    monkeypatch.setattr(adpsgd, "draw_permutation",
+                        lambda rng, M, device: cur["perm"].to(device))
+    return cur
+
+
+def jax_draws(cur, r, M):
+    """The draws the JAX sim step makes from its step key ``r``: its hooks
+    get ``r1 = split(r)[0]``."""
+    r1 = jax.random.split(r)[0]
+    cur["peers"] = torch.from_numpy(np.asarray(
+        jax.random.randint(r1, (M,), 0, M - 1)).astype(np.int64))
+    cur["perm"] = torch.from_numpy(np.asarray(
+        jax.random.permutation(r1, M)).astype(np.int64))
+
+
+def pack_np(part, tree):
+    """A numpy tree (stacked or single) packed into the port's plane."""
+    return part.pack(jax.tree.map(lambda a: torch.from_numpy(np.array(a)),
+                                  tree))
+
+
+def compare_sim_metrics(tm, jm, t, rtol=1e-5):
+    for k in SIM_METRICS + ALGO_METRICS:
+        if k not in jm:
+            assert k not in tm, k
+            continue
+        np.testing.assert_allclose(host(tm[k]), np.asarray(jm[k]),
+                                   rtol=rtol, atol=1e-6,
+                                   err_msg=f"{k} at step {t}")
+
+
+def compare_sim_state(be, ts, js, rtol, atol=1e-6):
+    """Planes, weights, version clocks and the algorithm's extras."""
+    part = be.part
+    compare_planes(ts.params, pack_np(part, js.params), rtol)
+    np.testing.assert_allclose(host(ts.weights), np.asarray(js.weights),
+                               rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(host(ts.versions), np.asarray(js.versions))
+    jx, tx = js.extras, ts.extras
+    if isinstance(jx, dict) and "q0" in jx:  # the block-mode queue
+        for q in ("q0", "q1"):
+            compare_planes(tx[q]["vals"], pack_np(part, jx[q]["vals"]), rtol)
+            np.testing.assert_allclose(host(tx[q]["w"]),
+                                       np.asarray(jx[q]["w"]), rtol=1e-6)
+            np.testing.assert_array_equal(host(tx[q]["valid"]),
+                                          np.asarray(jx[q]["valid"]))
+            assert float(tx[q]["stamp"]) == float(jx[q]["stamp"])
+    elif isinstance(jx, dict):  # SlowMo / CO2 single-worker buffers
+        assert sorted(tx) == sorted(jx)
+        for k in jx:
+            compare_planes(tx[k], pack_np(part, jx[k]), rtol)
+    else:
+        assert tx == () and jx == ()
+
+
+def run_sim_pair(monkeypatch, algo, M, R, D, *, jloss, tloss, params,
+                 batch_fn, steps=5, lr=0.05, rtol=1e-5, algo_kw=None,
+                 straggler_delays=None):
+    """The JAX sim trainer and the port's sim backend (CPU) on the same
+    numpy inputs and the same random draws, compared after every step:
+    metrics, then the final planes, weights, clocks and extras. Returns
+    the port's backend, state and metrics history."""
+    from repro.core import get_algorithm as jax_get_algorithm
+    from repro.core import make_sim_trainer as jax_make_sim_trainer
+    from repro.optim import constant as jax_constant
+    from repro.optim import momentum as jax_momentum
+    from repro_torch.core.backend import make_backend
+    from repro_torch.optim import constant, momentum
+
+    algo_kw = algo_kw or {}
+    kw = dict(fb_ratio=R, update_delay=D, straggler_delays=straggler_delays)
+    jinit, jstep = jax_make_sim_trainer(
+        jax_get_algorithm(algo, **algo_kw), jloss, jax_momentum(0.9),
+        jax_constant(lr), M, **kw)
+    from repro_torch.core.api import get_algorithm
+    be = make_backend("sim", get_algorithm(algo, **algo_kw), M=M,
+                      loss_fn=tloss, optimizer=momentum(0.9),
+                      schedule=constant(lr), device="cpu", **kw)
+    cur = inject_jax_draws(monkeypatch)
+    js = jinit(jax.random.PRNGKey(0), params)
+    ts = be.init(0, np_tree(params))
+    rng = jax.random.PRNGKey(2)
+    hist = []
+    for t in range(steps):
+        b = np_tree(batch_fn(t))
+        rng, r = jax.random.split(rng)
+        jax_draws(cur, r, M)
+        js, jm = jstep(js, jax.tree.map(jax.numpy.asarray, b), r)
+        ts, tm = be.step(ts, b)
+        compare_sim_metrics(tm, jm, t)
+        hist.append(tm)
+    compare_sim_state(be, ts, js, rtol)
+    return be, ts, hist

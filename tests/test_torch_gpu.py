@@ -945,3 +945,144 @@ def test_serve_live_swap_across_streams(cuda_device):
     assert not errors, errors
     assert srv.swap_count >= 20
     assert pub.stats.copied_planes == pub.stats.published == steps
+
+
+# ---------------------------------------------------------------------------
+# the sim trainer, the tuner's clock and checkpoints on the card
+# ---------------------------------------------------------------------------
+
+SIM_ALGOS = ("layup", "layup-block", "layup-hypercube", "gosgd", "adpsgd",
+             "ddp", "localsgd", "slowmo", "co2")
+
+
+def _sim_run(device, algo, monkeypatch, steps=3):
+    """Three sim steps of ``algo`` on a 2-layer cut GPT-2 decoder (M=4,
+    R=2, D=1; flash on the card, plain attention on the CPU), the random
+    draws made on the host from a seeded generator for both devices.
+    Returns per-step metrics and the final plane on the host."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import to_torch
+    from repro_torch.core import adpsgd, api
+    from repro_torch.core.api import get_algorithm
+    from repro_torch.core.backend import make_backend
+    from repro_torch.models import build_model
+    from repro_torch.optim import constant, momentum
+
+    host = torch.Generator().manual_seed(11)
+    monkeypatch.setattr(api, "draw_peers", lambda rng, M, dev: torch.randint(
+        0, M - 1, (M,), generator=host).to(dev))
+    monkeypatch.setattr(adpsgd, "draw_permutation",
+                        lambda rng, M, dev: torch.randperm(
+                            M, generator=host).to(dev))
+    cfg = get_config("gpt2-medium").with_(num_layers=2, d_model=128,
+                                          num_heads=2, num_kv_heads=2,
+                                          d_ff=256, vocab_size=256)
+    model = build_model(cfg)
+    # made on the CPU for both runs: a CUDA generator draws other numbers
+    params = to_torch(model.init(seed=0, device="cpu"), device)
+    kw = {"sync_every": 2} if algo in ("localsgd", "slowmo", "co2") else {}
+    be = make_backend("sim", get_algorithm(algo, **kw), M=4,
+                      loss_fn=model.loss_fn, optimizer=momentum(0.9),
+                      schedule=constant(3e-3), fb_ratio=2, update_delay=1,
+                      device=device)
+    st = be.init(0, params)
+    rng = np.random.default_rng(3)
+    hist = []
+    for _ in range(steps):
+        toks = rng.integers(0, cfg.vocab_size, (4, 4, 65))
+        st, m = be.step(st, {"tokens": toks[..., :-1],
+                             "labels": toks[..., 1:]})
+        hist.append({k: float(m[k]) for k in ("loss", "weight_sum",
+                                               "update_staleness",
+                                               "disagreement")})
+        hist[-1]["mass"] = hist[-1]["weight_sum"] + in_flight(st.extras)
+    return hist, {k: v.cpu() for k, v in st.params.items()}
+
+
+def in_flight(extras) -> float:
+    """The push-sum mass a block-mode queue holds (0 for the others)."""
+    if isinstance(extras, dict) and "q0" in extras:
+        return float(extras["q0"]["w"].sum() + extras["q1"]["w"].sum())
+    return 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", SIM_ALGOS)
+def test_sim_step_on_card_as_on_cpu(cuda_device, monkeypatch, algo):
+    """The same sim run on the card (flash kernels) and on the CPU (plain
+    attention), the same draws: losses and metrics within 1e-3, planes
+    within 1e-3 of their largest |value|, Σw = 1 (with the block modes'
+    mass in flight); flash launched on the
+    card (a step: 2 slices x 4 workers x 2 layers forward, 4 x 2 backward)."""
+    import numpy as np
+
+    fa_kernel.reset_launches()
+    gpu_hist, gpu_plane = _sim_run("cuda", algo, monkeypatch)
+    torch.cuda.synchronize()
+    assert fa_kernel.fwd_launches == 3 * 2 * 4 * 2
+    assert fa_kernel.dq_launches == fa_kernel.dkv_launches == 3 * 4 * 2
+    cpu_hist, cpu_plane = _sim_run("cpu", algo, monkeypatch)
+    for g, c in zip(gpu_hist, cpu_hist):
+        assert abs(g["mass"] - 1.0) < 1e-5
+        assert g["weight_sum"] == pytest.approx(c["weight_sum"], abs=1e-6)
+        assert g["update_staleness"] == c["update_staleness"]
+        np.testing.assert_allclose(g["loss"], c["loss"], rtol=1e-3)
+        np.testing.assert_allclose(g["disagreement"], c["disagreement"],
+                                   rtol=1e-3, atol=1e-6)
+    for k in cpu_plane:
+        scale = float(cpu_plane[k].abs().max())
+        torch.testing.assert_close(gpu_plane[k], cpu_plane[k], rtol=0,
+                                   atol=1e-3 * scale)
+
+
+@pytest.mark.gpu
+def test_tune_cuda_event_clock_against_scripted_duration(cuda_device):
+    """The tuner's default clock on the card reads CUDA events: between two
+    readings with a scripted 50 ms host pause (the stream idle) it reads
+    50 ms; a harness whose runner pauses 20 ms reports 20 ms a rep."""
+    import time
+
+    from repro_torch.launch import tuner
+
+    clock = tuner.default_clock(cuda_device)
+    assert isinstance(clock, tuner.CudaEventClock)
+    t0 = clock()
+    time.sleep(0.05)
+    dt = clock() - t0
+    assert 0.05 <= dt < 0.07, dt
+    cut = tuner.StageCutout("pause", None, (((4,), torch.float32),),
+                            cuda_device)
+    h = tuner.CutoutHarness(runner=lambda fn, args: time.sleep(0.02),
+                            warmup=0, reps=3)
+    t = h.time_cutout(cut)
+    assert 0.02 <= t["best_s"] <= t["mean_s"] < 0.03, t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_checkpoint_round_trip_of_cuda_tensors(cuda_device, dtype, tmp_path):
+    """CUDA tensors of either dtype save and restore bit for bit, onto the
+    device and dtype of ``like``."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    tree = {"plane": {"a": torch.randn((4, 1000), generator=gen,
+                                       device=cuda_device).to(dtype),
+                      "b": torch.randn((4, 7), generator=gen,
+                                       device=cuda_device).to(dtype)},
+            "w": torch.full((4,), 0.25, device=cuda_device),
+            "fifo": [torch.zeros(3, device=cuda_device, dtype=dtype)]}
+    save_checkpoint(str(tmp_path), 9, tree)
+    like = {"plane": {k: torch.zeros_like(v)
+                      for k, v in tree["plane"].items()},
+            "w": torch.zeros(4, device=cuda_device),
+            "fifo": [torch.ones(3, device=cuda_device, dtype=dtype)]}
+    got = restore_checkpoint(str(tmp_path), None, like)
+    for k, v in tree["plane"].items():
+        assert got["plane"][k].device == v.device
+        assert got["plane"][k].dtype == dtype
+        assert torch.equal(got["plane"][k], v)
+    assert torch.equal(got["w"], tree["w"])
+    assert torch.equal(got["fifo"][0], tree["fifo"][0])

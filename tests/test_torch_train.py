@@ -136,9 +136,9 @@ def test_default_device_needs_cuda():
 
 
 # ids as they were before the item-8 (int8 wire, compensation), item-9
-# (the engines), item-10 (faults) and item-11 (publisher) cases left
+# (the engines), item-10 (faults), item-11 (publisher) and item-12
+# (tuning) cases left
 @pytest.mark.parametrize("kw,item", [
-    pytest.param(dict(tuning="x.json"), "item 12", id="kw6-item 12"),
     pytest.param(dict(mesh=object()), "item 15", id="kw8-item 15"),
     pytest.param(dict(flat=False), "item 15", id="kw9-item 15")])
 def test_unported_options_name_their_roadmap_item(kw, item):
