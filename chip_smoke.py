@@ -28,7 +28,8 @@ not 0:
    same CUDA tensors, at the training step's attention shape (B=2, H=16,
    S=256, D=64, float32, causal; (B,S,H,D) tensors passed as (B,H,S,D)
    views), over a sweep (GQA, MQA, windows, bidirectional, bfloat16,
-   D=128, S not a multiple of the tile), at S=2048, 65 and 1, and on
+   D=128, S not a multiple of the tile, the MoE step's 32 heads of 128 on
+   4 in bf16), at S=2048, 65 and 1, and on
    misaligned views (storage offset 1, odd sequence stride: the kernels'
    element-by-element copies); two calls on the same inputs must give
    bit-identical o, lse, dq, dk and dv (float32 and bfloat16). Each
@@ -181,8 +182,33 @@ not 0:
    restored into a fresh state (read plane SHA-256s, every leaf equal);
    two more steps from each, the restored one after ``resume``,
    identical; save and restore seconds, bytes on disk.
-6. the kernels line (with ``sim_launches`` and ``tune_launches``), the
-   card's ``nvidia-smi`` line, and last the result.
+5g. train_moe: the MoE family's main path, train's entry points and
+   traffic with Qwen3-30B-A3B at full width (d 2048, 32 heads of 128 on 4
+   KV heads, qk_norm, 128 experts top-8 of d_ff 768 at capacity factor
+   1.25, vocab 151936 tied, bf16), its depth cut from 48 layers to 1:
+   ``gossip_mix`` once per group per step, flash once per layer, forward
+   slice and worker (48 forward, 24 dq, 24 dk/dv), the norm and SSD
+   kernels never; finite loss near ln V, Σw, a finite bf16 plane. After
+   the window, on worker 0's read plane: ``ce`` and ``aux`` of one
+   ``loss_fn`` call; its first slice's routing at the MoE, under the
+   seed-0 weights and under the read plane (the share of assignments
+   dropped, each expert's load, how far the tokens share one direction),
+   held to a plain numpy routing on the same logits; and ``gossip_mix`` on
+   the read plane's bf16 ``blocks`` group (M·n = 2.49e9 elements, past
+   2^31), fused and pure against its plain version (a chunk of columns at
+   a time) and in place bit-identical to out of place. train_moe_pipeline:
+   the same run through ``overlap=True``, held bit-identical (histories,
+   plane digests, launches): the MoE's dispatch and combine use no
+   floating-point atomics. serve_moe: the same model (seed-0 weights)
+   through ``ServeLoop`` (8 slots, max_len 256, 8 requests of 16–64 prompt
+   tokens from ``default_rng(5)``, 16 new tokens): all complete, no flash
+   launch in decode; ``prefill_fn`` (one flash forward a layer) against
+   prefill-by-decode on 4 prompts at capacity factor E/k = 16, where
+   nothing can drop, in float32 (weights upcast) to serve's tolerances,
+   the bf16 gaps as readings; serve's readings.
+6. the kernels line (with ``sim_launches``, ``tune_launches`` and
+   ``moe_launches``), the card's ``nvidia-smi`` line, and last the
+   result.
 
 TF32 is off for matrix products and cuDNN (both set below), so float32 is
 float32 throughout. ``CUBLAS_WORKSPACE_CONFIG`` is fixed before CUDA
@@ -234,6 +260,7 @@ FLASH_SWEEP = [  # (B, Hq, Hkv, S, D, causal, window, dtype)
     (2, 8, 8, 256, 128, True, 0, "float32"),     # D=128
     (2, 8, 4, 200, 64, True, 0, "float32"),      # S not a multiple of 64
     (1, 4, 2, 77, 128, False, 20, "bfloat16"),
+    (2, 32, 4, 256, 128, True, 0, "bfloat16"),   # the MoE step's (qwen3)
 ]
 # more flash cases (B, Hq, Hkv, S, D, causal, window, dtype): 32 trips round
 # the K/V ring, one row, and a full tile plus a ragged one. At S=1 the
@@ -900,7 +927,8 @@ def probe_ssm_kernels(torch, cfg, part, read, batch):
                 norms[f"layer{layer}_pre"] = (h, p["norm"])
                 norms[f"layer{layer}_gate"] = (
                     S.ssm_gate_input(p, y, x_ssm, z), p["gate_norm"])
-            h, _ = T.decoder_layer(sub, h, cfg, positions=positions)
+            h, _ = T.decoder_layer(sub, h, cfg, positions=positions,
+                                   use_moe=cfg.is_moe_layer(layer))
         norms["final"] = (h, params["final_norm"])
         torch.cuda.synchronize()
         rk.reset_launches()                         # the probe's path starts
@@ -1245,25 +1273,33 @@ def counted_drive(torch, backend, params, batches, resets,
 
 
 def launch_resets():
-    """The launch counters of the kernels a training step can launch."""
+    """The launch counters of every kernel of the port."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gossip_mix as gm_kernel
     from repro_torch.kernels import quantize as qk
+    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.kernels import ssd_scan as sk
 
-    return (gm_kernel.reset_launches, fa.reset_launches, qk.reset_launches)
+    return (gm_kernel.reset_launches, fa.reset_launches, qk.reset_launches,
+            rk.reset_launches, sk.reset_launches)
 
 
 def step_launches() -> dict:
-    """Every training-step kernel's launches since the counters' reset."""
+    """Every kernel's launches since the counters' reset (the norm and SSD
+    kernels' are 0 on a training step: the models run their plain
+    forms)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gossip_mix as gm_kernel
     from repro_torch.kernels import quantize as qk
+    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.kernels import ssd_scan as sk
 
     return {"gossip_mix": gm_kernel.launches,
             "flash_fwd": fa.fwd_launches, "flash_dq": fa.dq_launches,
             "flash_dkv": fa.dkv_launches,
             "quantize_plane": qk.quantize_launches,
-            "dequant_mix": qk.dequant_mix_launches}
+            "dequant_mix": qk.dequant_mix_launches,
+            "rmsnorm": rk.launches, "ssd_scan": sk.launches}
 
 
 def plane_digests(torch, plane, chunk: int = 1 << 26) -> dict:
@@ -1346,18 +1382,20 @@ def hold_engine(name: str, got: dict, ref: dict, ref_name: str,
           f"{name} read plane differs from {ref_name}'s")
 
 
-def phase_train_engine(torch, name, ref, *, int8: bool = False, **engine):
-    """The train phase's run (train_int8's with ``int8``) through an engine
-    (``engine``: ``overlap=True[, streams=n]``), timed as one window
-    (``window_drive``) and held against ``ref``, the monolithic run, when
-    given. Returns (result, backend); the backend's state is dropped and
-    its engine reset, so it holds no plane."""
+def phase_train_engine(torch, name, ref, *, int8: bool = False, cfg=None,
+                       **engine):
+    """The train phase's run (train_int8's with ``int8``; of ``cfg`` in
+    place of GPT-2 Medium where given) through an engine (``engine``:
+    ``overlap=True[, streams=n]``), timed as one window (``window_drive``)
+    and held against ``ref``, the monolithic run, when given. Returns
+    (result, backend); the backend's state is dropped and its engine
+    reset, so it holds no plane."""
     from repro_torch.configs import get_config
     from repro_torch.core.backend import make_backend
     from repro_torch.models import build_model
     from repro_torch.optim import constant, momentum
 
-    cfg = get_config("gpt2-medium")
+    cfg = cfg or get_config("gpt2-medium")
     model = build_model(cfg)
     params = model.init(seed=0, device="cuda")
     wire = dict(wire="int8", compensate=LAMBDA) if int8 else {}
@@ -1698,10 +1736,14 @@ def phase_train_chaos_streams_int8(torch):
     return runs
 
 
-def phase_train(torch, profile: bool, name: str = "train", **faults):
+def phase_train(torch, profile: bool, name: str = "train", cfg=None,
+                readings=None, **faults):
     """The train phase; with ``faults=""`` the same run with membership on
     (``name`` train_membership_empty), which the caller holds against
-    train."""
+    train. ``cfg`` runs another model than GPT-2 Medium through the same
+    entry points and traffic, and ``readings(model, backend, state,
+    batches)``, when given, adds its dict of readings (taken after the
+    counted window) to the result."""
     from repro_torch.configs import get_config
     from repro_torch.core.backend import make_backend
     from repro_torch.kernels import flash_attention as fa
@@ -1709,7 +1751,7 @@ def phase_train(torch, profile: bool, name: str = "train", **faults):
     from repro_torch.models import build_model
     from repro_torch.optim import constant, momentum
 
-    cfg = get_config("gpt2-medium")
+    cfg = cfg or get_config("gpt2-medium")
     model = build_model(cfg)
     params = model.init(seed=0, device="cuda")
     backend = make_backend("prod", "layup", M=M, loss_fn=model.loss_fn,
@@ -1730,18 +1772,21 @@ def phase_train(torch, profile: bool, name: str = "train", **faults):
     per_pass = TRAIN_STEPS * M * cfg.num_layers
     want = {"fwd": per_pass * R, "dq": per_pass, "dkv": per_pass}
     check(flash == want, f"flash launches {flash} != {want}")
+    check(every["rmsnorm"] == every["ssd_scan"] == 0,
+          f"{name}: norm or SSD kernel launched on the step {every}")
     check_history(hist, cfg.vocab_size, name)
     if faults:
         check(hist["peers_live"] == [float(M)] * TRAIN_STEPS,
               f"{name} peers_live {hist['peers_live']}")
     read = out["state"]["read"]
-    check(all(bool(torch.isfinite(v).all()) for v in read.values()),
-          "nonfinite plane")
+    check(all(v.dtype == cfg.dtype and bool(torch.isfinite(v).all())
+              for v in read.values()), f"{name}: nonfinite plane")
     digests = plane_digests(torch, read)
     med = statistics.median(step_s[1:])
     tokens = M * BATCH_PER_WORKER * SEQ
     res = {"model": cfg.name, "layers": cfg.num_layers,
            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "dtype": str(cfg.dtype).replace("torch.", ""),
            "params": sum(backend.part.group_sizes.values()), "M": M,
            "fb_ratio": R, "update_delay": 1, "seq": SEQ,
            "batch_per_worker": BATCH_PER_WORKER, "steps": TRAIN_STEPS,
@@ -1755,6 +1800,8 @@ def phase_train(torch, profile: bool, name: str = "train", **faults):
            "groups": dict(backend.part.group_sizes), **faults}
     if faults:
         res["chaos"] = chaos_counters(out)
+    if readings is not None:
+        res.update(readings(model, backend, out["state"], batches))
     emit(name, **res)
     if profile:
         phase_profile(torch, backend, out["state"], batches)
@@ -2251,46 +2298,56 @@ def alloc_delta(before: dict, after: dict) -> dict:
     return {k: after[k] - before[k] for k in before}
 
 
-def phase_serve(torch):
-    """GPT-2 Medium (f32) through ServeLoop, and prefill_fn (flash #2)
-    against prefill-by-decode and against the plain attention route."""
-    from repro_torch.configs import get_config
+def serve_run(torch, cfg, name, slots, max_len, n_requests, prompt, new):
+    """``cfg``'s model (seed-0 weights) through ServeLoop: ``n_requests``
+    prompts of ``prompt`` = (lo, hi) tokens from default_rng(5), ``new``
+    tokens each, over ``slots`` slots of ``max_len``. Checks that decode
+    launches no flash kernel, that every request completes with its tokens
+    and that the batched loop takes fewer steps than the requests one by
+    one. Returns (model, params, loop, prompts, step seconds, wall seconds,
+    result)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.serve import Request, ServeLoop
     from repro_torch.models import build_model
-    from repro_torch.models import layers
 
-    t_phase = time.perf_counter()
-    cfg = get_config("gpt2-medium")
     model = build_model(cfg)
     params = model.init(seed=0, device="cuda")
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
-    prompts = serve_prompts(cfg.vocab_size, SERVE_REQUESTS, *SERVE_PROMPT,
-                            seed=5)
-    loop = ServeLoop(model, params, num_slots=SERVE_SLOTS,
-                     max_len=SERVE_MAX_LEN)
-    reqs = [Request(uid=i, prompt=p, max_new_tokens=SERVE_NEW)
+    prompts = serve_prompts(cfg.vocab_size, n_requests, *prompt, seed=5)
+    loop = ServeLoop(model, params, num_slots=slots, max_len=max_len)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=new)
             for i, p in enumerate(prompts)]
     fa.reset_launches()
     step_s, wall = run_serve_loop(torch, loop, reqs)
     decode_flash = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
-    check(decode_flash == (0, 0, 0), f"serve decode flash {decode_flash}")
-    check(all(r.done and len(r.output) == SERVE_NEW for r in reqs),
-          "serve: a request did not complete with its tokens")
-    sequential = sum(len(p) + SERVE_NEW for p in prompts)
+    check(decode_flash == (0, 0, 0), f"{name} decode flash {decode_flash}")
+    check(all(r.done and len(r.output) == new for r in reqs),
+          f"{name}: a request did not complete with its tokens")
+    sequential = sum(len(p) + new for p in prompts)
     check(loop.steps_run < sequential,
-          f"serve steps {loop.steps_run} !< sequential {sequential}")
-    res = {"model": cfg.name, "dtype": "float32", "num_slots": SERVE_SLOTS,
-           "max_len": SERVE_MAX_LEN, "requests": SERVE_REQUESTS,
-           "prompt_lens": [len(p) for p in prompts],
-           "max_new_tokens": SERVE_NEW, "sequential_steps": sequential}
-    # prefill_fn (the flash forward) against prefill-by-decode
-    hold = prompts[:SERVE_HOLD]
-    by_decode = prefill_by_decode(torch, model, params, hold, SERVE_MAX_LEN)
+          f"{name} steps {loop.steps_run} !< sequential {sequential}")
+    res = {"model": cfg.name, "layers": cfg.num_layers,
+           "dtype": str(cfg.dtype).replace("torch.", ""),
+           "num_slots": slots, "max_len": max_len, "requests": n_requests,
+           "prompt_lens": [len(p) for p in prompts], "max_new_tokens": new,
+           "sequential_steps": sequential}
+    return model, params, loop, prompts, step_s, wall, res
+
+
+def prefill_hold(torch, model, params, prompts, max_len, name,
+                 hold: bool = True):
+    """prefill_fn (flash #2) against prefill-by-decode on ``prompts``: the
+    gaps of the last position's logits and of layer 0's K and V, held to
+    SERVE_LOGIT_TOL and SERVE_KV_TOL when ``hold``; and prefill_fn's
+    launches, one flash forward a layer a call. Returns (gaps,
+    launches)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    by_decode = prefill_by_decode(torch, model, params, prompts, max_len)
     fa.reset_launches()
     gaps = []
-    for p, (dec_logits, dec_cache) in zip(hold, by_decode):
+    for p, (dec_logits, dec_cache) in zip(prompts, by_decode):
         cache, logits = model.prefill_fn(
             params, {"tokens": torch.from_numpy(p[None]).cuda()})
         g = {"len": len(p),
@@ -2298,13 +2355,31 @@ def phase_serve(torch):
         for key in ("k", "v"):
             g[key] = rel_gap(torch, dec_cache[f"sub0/{key}"][:, :len(p)],
                              cache["sub0"][key][:, 0])
-        check(g["logits"] <= SERVE_LOGIT_TOL and g["k"] <= SERVE_KV_TOL
-              and g["v"] <= SERVE_KV_TOL, f"serve prefill vs decode {g}")
+        check(not hold or (g["logits"] <= SERVE_LOGIT_TOL
+                           and g["k"] <= SERVE_KV_TOL
+                           and g["v"] <= SERVE_KV_TOL),
+              f"{name} prefill vs decode {g}")
         gaps.append(g)
     flash = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
              "dkv": fa.dkv_launches}
-    want = {"fwd": cfg.num_layers * SERVE_HOLD, "dq": 0, "dkv": 0}
-    check(flash == want, f"prefill flash launches {flash} != {want}")
+    want = {"fwd": model.cfg.num_layers * len(prompts), "dq": 0, "dkv": 0}
+    check(flash == want, f"{name} prefill flash launches {flash} != {want}")
+    return gaps, flash
+
+
+def phase_serve(torch):
+    """GPT-2 Medium (f32) through ServeLoop, and prefill_fn (flash #2)
+    against prefill-by-decode and against the plain attention route."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+
+    t_phase = time.perf_counter()
+    model, params, loop, prompts, step_s, wall, res = serve_run(
+        torch, get_config("gpt2-medium"), "serve", SERVE_SLOTS,
+        SERVE_MAX_LEN, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW)
+    hold = prompts[:SERVE_HOLD]
+    gaps, flash = prefill_hold(torch, model, params, hold, SERVE_MAX_LEN,
+                               "serve")
     # the kernel route against the plain route (USE_PALLAS=False)
     route = []
     for p in hold:
@@ -2320,7 +2395,6 @@ def phase_serve(torch):
                 for k in ("k", "v")}}
         check(max(r.values()) <= ROUTE_RTOL, f"prefill route {r}")
         route.append(r)
-    del by_decode
     res.update(prefill_vs_decode=gaps,
                prefill_tol={"logits": SERVE_LOGIT_TOL, "kv": SERVE_KV_TOL},
                prefill_route_vs_plain=route, route_rtol=ROUTE_RTOL,
@@ -2374,7 +2448,8 @@ def ssm_layer_local_gaps(torch, model, params, prompts):
                             "conv_tail": rel_gap(torch, c["conv_tail"][b],
                                                  finals[b][1][0])})
             if "mlp" in sub:
-                outs = [T.mlp_residual(sub["mlp"], h, cfg) for h in outs]
+                outs = [T.mlp_sublayer(sub["mlp"], h, cfg,
+                                       use_moe=False)[0] for h in outs]
             hs = outs
     return gaps
 
@@ -2612,20 +2687,8 @@ TUNE_STEPS, TUNE_WARMUP, TUNE_REPS = 3, 1, 3
 CKPT_STEPS = 2  # steps before the save, and again after it
 
 
-def kernel_launches() -> dict:
-    """Every kernel's launches since the counters' reset (the training
-    step's, and the norm and SSD kernels')."""
-    from repro_torch.kernels import rmsnorm, ssd_scan
-
-    return {**step_launches(), "rmsnorm": rmsnorm.launches,
-            "ssd_scan": ssd_scan.launches}
-
-
 def reset_kernel_launches() -> None:
-    from repro_torch.kernels import rmsnorm, ssd_scan
-
-    for reset in launch_resets() + (rmsnorm.reset_launches,
-                                    ssd_scan.reset_launches):
+    for reset in launch_resets():
         reset()
 
 
@@ -2634,7 +2697,7 @@ def add_counts(a: dict, b: dict) -> dict:
 
 
 def row_launches(counts: dict, name: str) -> int:
-    """A kernels-line row's launches out of ``kernel_launches()``."""
+    """A kernels-line row's launches out of ``step_launches()``."""
     keys = {"gossip_mix": ("gossip_mix",), "flash_attention": ("flash_fwd",),
             "flash_attention_bwd": ("flash_dq", "flash_dkv"),
             "flash_attention_trainable": ("flash_fwd", "flash_dq",
@@ -2724,7 +2787,7 @@ def sim_run(torch, cfg, model, params, batches, hw, algo, R_, D_, kw):
                 hist[k].append(float(m[k]))
         hist["mass"].append(hist["weight_sum"][-1] + in_flight(state.extras))
     torch.cuda.synchronize()                        # main path ends
-    counts = kernel_launches()
+    counts = step_launches()
     peak = torch.cuda.max_memory_allocated()
     what = f"sim {algo}"
     check(all(math.isfinite(v) for v in hist["loss"]), f"{what} {hist}")
@@ -2942,7 +3005,7 @@ def phase_tune(torch):
         reset_kernel_launches()                     # cutouts start
         timings = harness.time_engine(be.engine)
         torch.cuda.synchronize()                    # cutouts end
-        launches = add_counts(launches, kernel_launches())
+        launches = add_counts(launches, step_launches())
         cut_peak = torch.cuda.max_memory_allocated()
         times = tuner.stage_times_from_cutouts(timings)
         measured[cand] = (times, tl)
@@ -2979,7 +3042,7 @@ def phase_tune(torch):
           f"record {best.label()}")
     state, m = be.step(state, batches[-1])
     settle(torch, be)                               # tuned backend ends
-    tuned = kernel_launches()
+    tuned = step_launches()
     loss = float(m["loss"])
     check(math.isfinite(loss), f"tuned backend loss {loss}")
     check(tuned["gossip_mix"] == len(groups),
@@ -3082,6 +3145,242 @@ def phase_checkpoint(torch):
     del st, back, be, be2, params
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# the MoE phases: Qwen3-30B-A3B at full width (d 2048, 32 heads of 128 on
+# 4 KV heads, qk_norm, 128 experts top-8 of d_ff 768, vocab 151936, bf16),
+# its depth cut from 48 layers to MOE_LAYERS so that M=4 planes fit one
+# card (934,287,616 parameters: a 7.47 GB bf16 plane at M=4); serving: 8
+# requests over 8 slots, prompts of 16-64 tokens, 16 new tokens
+MOE_NAME, MOE_LAYERS = "qwen3-moe-30b-a3b", 1
+MOE_SERVE_SLOTS, MOE_SERVE_MAX_LEN, MOE_SERVE_REQUESTS = 8, 256, 8
+MOE_SERVE_PROMPT, MOE_SERVE_NEW = (16, 64), 16
+
+
+def moe_config():
+    from repro_torch.configs import get_config
+
+    return get_config(MOE_NAME).with_(num_layers=MOE_LAYERS)
+
+
+def routing_witness(logits, k: int, C: int):
+    """The reference's routing written out plainly with numpy on one
+    group's router logits (T, E) float32: each token's k experts by
+    descending logit, ties to the lower index (softmax keeps the order of
+    the distinct bf16 logits, so this is the order of the probabilities);
+    then each assignment's rank within its expert, counted over the
+    assignments token-major, kept below the capacity ``C``. Returns
+    (gate_idx (T, k), keep (T·k,))."""
+    import numpy as np
+
+    gate_idx = np.argsort(-logits, axis=1, kind="stable")[:, :k]
+    seen = np.zeros(logits.shape[1], np.int64)
+    keep = np.zeros(gate_idx.size, bool)
+    for a, e in enumerate(gate_idx.reshape(-1)):
+        keep[a] = seen[e] < C
+        seen[e] += 1
+    return gate_idx, keep
+
+
+def moe_routing(torch, cfg, params, tokens) -> dict:
+    """Layer 0's routing of ``tokens`` (one forward slice) under
+    ``params``, as the step dispatches it (``moe._dispatch_group`` on the
+    MLP input ``xt``), held to ``routing_witness`` on the card's logits:
+    the same experts and the same kept assignments. A second product of
+    the same xt and router, on the host in float64 rounded to the model's
+    dtype, must agree with the card's logits to TOL of their largest
+    |value| (the card may sum in another order and precision); the
+    witness's dropped share on it is a reading. Readings: the share of
+    assignments dropped, the load each expert was given, and how far the
+    tokens share one direction (the cosine of each row of xt with their
+    mean; the share of the logits' energy in their mean over tokens)."""
+    import numpy as np
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MoE
+    from repro_torch.models import transformer as T
+
+    E, k = cfg.num_experts, cfg.experts_per_token
+    with torch.no_grad():
+        positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+        _, sub = next(T.decoder_layers(params))
+        h, _ = T.attn_sublayer(sub["attn"],
+                               L.embed_apply(params["embed"], tokens), cfg,
+                               positions=positions,
+                               window=cfg.sliding_window)
+        xt = L.rmsnorm(h, sub["mlp"]["norm"], cfg.norm_eps).reshape(
+            -1, cfg.d_model)
+        C = MoE.capacity(xt.shape[0], E, k, cfg.capacity_factor)
+        _, meta, _ = MoE._dispatch_group(xt, sub["mlp"], cfg, C)
+        router = sub["mlp"]["router"]
+        logits = (xt @ router).float()
+        load = torch.bincount(meta.gate_idx.reshape(-1), minlength=E).float()
+        xf = xt.float()
+        cos = torch.nn.functional.cosine_similarity(
+            xf, xf.mean(0, keepdim=True), dim=1)
+        common = (logits.mean(0).square().sum()
+                  / logits.square().sum(1).mean())
+    host = logits.cpu().numpy()
+    gate_idx, keep = routing_witness(host, k, C)
+    check(np.array_equal(meta.gate_idx.cpu().numpy(), gate_idx),
+          "moe routing: experts differ from the witness's")
+    check(np.array_equal(meta.keep.cpu().numpy(), keep),
+          "moe routing: kept assignments differ from the witness's")
+    f64 = (xt.cpu().double() @ router.cpu().double()).to(
+        xt.dtype).float().numpy()
+    off = np.abs(host - f64)
+    tol = TOL[str(xt.dtype).replace("torch.", "")]
+    check(off.max() <= tol * np.abs(f64).max(),
+          f"moe routing: card logits off the host's by {off.max()}")
+    _, host_keep = routing_witness(f64, k, C)
+    mean = xt.shape[0] * k / E
+    return {"tokens": xt.shape[0], "experts": E, "top_k": k,
+            "capacity": C, "capacity_factor": cfg.capacity_factor,
+            "dropped_share": 1.0 - meta.keep.float().mean().item(),
+            "witness_dropped_share": 1.0 - float(keep.mean()),
+            "host_dropped_share": 1.0 - float(host_keep.mean()),
+            "logits_off_host": int((off > 0).sum()),
+            "logits_off_host_max": float(off.max()),
+            "logits_host_max": float(np.abs(f64).max()),
+            "load_mean": mean, "load_max": load.max().item(),
+            "load_min": load.min().item(),
+            "load_max_over_mean": load.max().item() / mean,
+            "load_cv": (load.std() / mean).item(),
+            "experts_over_capacity": int((load > C).sum()),
+            "xt_cos_to_mean_median": cos.median().item(),
+            "xt_cos_to_mean_min": cos.min().item(),
+            "logits_common_share": common.item()}
+
+
+def hold_plane_mix(torch, read, group: str = "blocks",
+                   chunk: int = 1 << 24) -> dict:
+    """gossip_mix (#1) on the MoE step's largest buffer, the read plane's
+    bf16 ``group`` stacked over the M workers (past 2^31 elements), with
+    its ring hop (the roll the step makes) and a third operand (the roll
+    by two): the fused and pure variants against gossip_mix_ref, which
+    runs a chunk of columns at a time so that no float32 copy of the
+    buffer is made; then the fused variant in place (the step's form)
+    bit-identical to out of place. Launches here are not the main path's
+    (its counts were read before)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import gossip_mix_ref
+
+    x = read[group]
+    rows = x.shape[0]
+    x = x.reshape(rows, -1)
+    n = x.shape[1]
+    gen = torch.Generator(device=x.device).manual_seed(1234)
+    w = torch.rand(rows, generator=gen, device=x.device) + 0.5
+    rw = torch.roll(w, 1)
+    alpha, beta = w / (w + rw), rw / (w + rw)
+    recv, upd = torch.roll(x, 1, 0), torch.roll(x, 2, 0)
+    out = torch.empty_like(x)
+    dn = str(x.dtype).replace("torch.", "")
+    res = {"group": group, "rows": rows, "n": n, "elements": x.numel(),
+           "dtype": dn, "tol": TOL[dn]}
+    for variant, u in (("fused", upd), ("pure", None)):
+        ops.gossip_mix(x, recv, u, alpha, beta, out=out)
+        err = scale = 0.0
+        for lo in range(0, n, chunk):
+            cols = slice(lo, lo + chunk)
+            want = gossip_mix_ref(x[:, cols], recv[:, cols],
+                                  None if u is None else u[:, cols],
+                                  alpha, beta).float()
+            err = max(err, (out[:, cols].float() - want).abs().max().item())
+            scale = max(scale, want.abs().max().item())
+        check(err <= TOL[dn] * max(scale, 1.0),
+              f"gossip_mix {variant} on {group} ({x.numel()} elements): "
+              f"error {err} > {TOL[dn]} x {scale}")
+        res[f"max_abs_err_{variant}"] = err
+    res["ms"] = time_ms(torch, lambda: ops.gossip_mix(
+        x, recv, upd, alpha, beta, out=out), reps=5, warmup=1)
+    res["bound_ms"] = mix_bound_ms([x.numel()], x.element_size(), True,
+                                   rows)[0]
+    ops.gossip_mix(recv, x, upd, alpha, beta, out=out)
+    ops.gossip_mix(recv, x, upd, alpha, beta, out=recv)  # in place
+    res["in_place_bit_identical"] = bool(torch.equal(recv, out))
+    check(res["in_place_bit_identical"],
+          f"gossip_mix in place on {group} differs from out of place")
+    del recv, upd, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def moe_readings(model, backend, state, batches) -> dict:
+    """After the counted window: ``ce`` and ``aux`` of one ``loss_fn``
+    call on worker 0's read plane and first batch; layer 0's routing of
+    that batch's first forward slice (``moe_routing``) under the seed-0
+    weights the run started from and under that read plane; and
+    ``hold_plane_mix`` on the read plane."""
+    import torch
+
+    cfg = model.cfg
+    params = backend.part.unpack({n: v[0] for n, v in state["read"].items()})
+    batch = {n: v[0] for n, v in batches[0].items()}
+    tokens = batch["tokens"][:BATCH_PER_WORKER // R]
+    with torch.no_grad():
+        _, metrics = model.loss_fn(params, batch)
+    init = model.init(seed=0, device="cuda")
+    out = {"ce": metrics["ce"].item(), "aux": metrics["aux"].item(),
+           "routing_init": moe_routing(torch, cfg, init, tokens),
+           "routing": moe_routing(torch, cfg, params, tokens)}
+    del init, params
+    out["blocks_mix"] = hold_plane_mix(torch, state["read"])
+    return out
+
+
+def phase_train_moe(torch, profile: bool):
+    """train_moe: the MoE family through train's entry points and traffic
+    (``moe_config()``; ``profile`` as train's); train_moe_pipeline: the
+    same run through the stage-graph engine (``overlap=True``), held to it
+    bit for bit (histories, read plane digests, launches). Returns
+    train_moe's result."""
+    cfg = moe_config()
+    res, backend = phase_train(torch, profile=profile, name="train_moe",
+                               cfg=cfg, readings=moe_readings)
+    del backend
+    res["phase"] = "train_moe"
+    _, backend = phase_train_engine(torch, "train_moe_pipeline", res,
+                                    cfg=cfg, overlap=True)
+    del backend
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_serve_moe(torch):
+    """The MoE model (``moe_config()``, bf16, seed-0 weights) through
+    ServeLoop; then ``prefill_fn`` against prefill-by-decode at
+    ``capacity_factor`` = E/k, where no assignment can drop (a prompt of T
+    tokens gets T slots an expert), in float32 (the same weights upcast)
+    to phase serve's tolerances; the bf16 gaps as readings."""
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    cfg = moe_config()
+    model, params, loop, prompts, step_s, wall, res = serve_run(
+        torch, cfg, "serve_moe", MOE_SERVE_SLOTS, MOE_SERVE_MAX_LEN,
+        MOE_SERVE_REQUESTS, MOE_SERVE_PROMPT, MOE_SERVE_NEW)
+    free = cfg.num_experts / cfg.experts_per_token
+    gaps = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        hold_params = tree_map(lambda t: t.to(dtype), params)
+        gaps[name], flash = prefill_hold(
+            torch, build_model(cfg.with_(capacity_factor=free, dtype=dtype)),
+            hold_params, prompts[:SERVE_HOLD], MOE_SERVE_MAX_LEN,
+            f"serve_moe ({name})", hold=dtype == torch.float32)
+        del hold_params
+    res.update(hold_capacity_factor=free, prefill_vs_decode=gaps,
+               prefill_tol_float32={"logits": SERVE_LOGIT_TOL,
+                                    "kv": SERVE_KV_TOL},
+               prefill_launches=flash,
+               **serve_readings(torch, model, params, loop, step_s, wall),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    emit("serve_moe", phase_s=time.perf_counter() - t_phase, **res)
+    del loop, params
+    torch.cuda.empty_cache()
+    return res
 
 
 def main(argv) -> int:
@@ -3189,6 +3488,14 @@ def main(argv) -> int:
             tune = res
     # the event phase runs in lock-step inside sim (sim_algo's "modeled")
     emit("slice_phases", seconds=new_s, total_s=sum(new_s.values()))
+    moe_s = {}
+    t1 = time.perf_counter()
+    moe = phase_train_moe(torch, profile=profile)
+    moe_s["train_moe"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    serve_moe = phase_serve_moe(torch)
+    moe_s["serve_moe"] = time.perf_counter() - t1
+    emit("moe_phases", seconds=moe_s, total_s=sum(moe_s.values()))
     fused = kern["timing"]["fused"]
     launches = train["flash_launches"]
     rows = [{
@@ -3248,6 +3555,13 @@ def main(argv) -> int:
     for row in rows:
         row["sim_launches"] = row_launches(sim["launches"], row["name"])
         row["tune_launches"] = row_launches(tune["launches"], row["name"])
+    # the MoE step's launches (train_moe: #1-#4) and prefill_fn's on
+    # serve_moe's hold (#2; one hold a dtype, the same count each)
+    for row in rows[:4]:
+        row["moe_launches"] = row_launches(moe["all_launches"], row["name"])
+    rows[1]["moe_serve_launches"] = serve_moe["prefill_launches"]["fwd"]
+    # #1 on the MoE step's own bf16 blocks buffer (past 2^31 elements)
+    rows[0]["moe_blocks"] = moe["blocks_mix"]
     print(json.dumps({"kernels": rows}), flush=True)
     emit("done", wall_s=time.perf_counter() - t0)
     print(smi, flush=True)

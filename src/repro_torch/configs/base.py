@@ -2,9 +2,10 @@
 
 ``ModelConfig`` keeps every field of the JAX package's config, so a config
 ports field for field; ``dtype`` is a ``torch.dtype``. The registry holds
-the configs the port can build: the dense decoders and the SSM family
-(Mamba2). The other families of the JAX package's zoo are named here so
-that asking for one says what is missing.
+the configs the port can build: the dense decoders, the SSM family
+(Mamba2) and the mixture-of-experts family. The other families of the JAX
+package's zoo are named here so that asking for one says what is missing.
+``reduced`` derives the small same-family variant the tests build.
 """
 from __future__ import annotations
 
@@ -149,13 +150,13 @@ class ModelConfig:
 _REGISTRY: Dict[str, ModelConfig] = {}
 
 _ARCH_MODULES = ["gpt2_medium", "gpt2_xl", "granite_8b", "mamba2_780m",
+                 "mixtral_8x7b", "moonshot_v1_16b_a3b", "qwen3_moe_30b_a3b",
                  "stablelm_1_6b", "yi_34b"]
 
 # configs of the JAX package whose families the port cannot build yet
 _NOT_PORTED = {
-    "jamba-v0.1-52b": "hybrid", "mixtral-8x7b": "moe",
-    "moonshot-v1-16b-a3b": "moe", "qwen2-vl-2b": "vlm",
-    "qwen3-moe-30b-a3b": "moe", "whisper-large-v3": "audio",
+    "jamba-v0.1-52b": "hybrid", "qwen2-vl-2b": "vlm",
+    "whisper-large-v3": "audio",
 }
 
 
@@ -174,8 +175,9 @@ def get_config(name: str) -> ModelConfig:
     _ensure_loaded()
     if name in _NOT_PORTED:
         raise NotImplementedError(
-            f"{name!r} is a {_NOT_PORTED[name]} model; the port builds dense "
-            "and SSM decoders only so far (ROADMAP queue 1, item 14)")
+            f"{name!r} is a {_NOT_PORTED[name]} model; the port builds "
+            "dense, SSM and MoE decoders only so far (ROADMAP queue 1, "
+            "item 14)")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
@@ -184,3 +186,34 @@ def get_config(name: str) -> ModelConfig:
 def list_configs():
     _ensure_loaded()
     return sorted(_REGISTRY)
+
+
+def reduced(cfg: ModelConfig) -> ModelConfig:
+    """Tiny same-family variant: <=2 layers, d_model <= 512, <=4 experts
+    (a copy of ``repro/configs/base.py::reduced``)."""
+    kw: Dict[str, Any] = dict(
+        name=cfg.name + "-reduced",
+        num_layers=2,
+        d_model=256,
+        d_ff=512,
+        vocab_size=512,
+        head_dim=32,
+        num_heads=4,
+        num_kv_heads=(min(cfg.num_kv_heads, 2)
+                      if cfg.num_kv_heads < cfg.num_heads else 4),
+        dtype=torch.float32,
+    )
+    if cfg.num_experts:
+        kw.update(num_experts=4,
+                  experts_per_token=min(cfg.experts_per_token, 2),
+                  moe_d_ff=128)
+    if cfg.ssm_state:
+        kw.update(ssm_state=16, ssm_head_dim=32)
+    if cfg.attn_layer_period:
+        # keep the hybrid interleave visible with 2 layers: attn at layer 1
+        kw.update(attn_layer_period=2)
+    if cfg.enc_dec:
+        kw.update(enc_layers=2, enc_seq=16)
+    if cfg.sliding_window:
+        kw.update(sliding_window=16)
+    return cfg.with_(**kw)

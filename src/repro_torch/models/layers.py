@@ -1,5 +1,5 @@
 """Shared neural-net building blocks (port of ``repro/models/layers.py``,
-the dense-decoder parts).
+the decoder parts).
 
 Parameters are declared as ``ParamSpec`` trees (shape + logical axes +
 initializer); ``init_params`` instantiates them with a ``torch.Generator``.
@@ -160,7 +160,7 @@ def attention_specs(cfg, prefix_layers: Tuple[int, ...] = ()):
     L = prefix_layers
     La = tuple("layers" for _ in L)
     sc = 0.02
-    return {
+    out = {
         "wq": ParamSpec(L + (d, hq, hd), La + ("embed", "heads", "hd"),
                         scale=sc),
         "wk": ParamSpec(L + (d, hkv, hd), La + ("embed", "kv", "hd"),
@@ -171,6 +171,10 @@ def attention_specs(cfg, prefix_layers: Tuple[int, ...] = ()):
                         init="scaled",
                         scale=sc / np.sqrt(max(2 * cfg.num_layers, 1))),
     }
+    if cfg.qk_norm:
+        out["q_norm"] = ParamSpec(L + (hd,), La + ("hd",), init="ones")
+        out["k_norm"] = ParamSpec(L + (hd,), La + ("hd",), init="ones")
+    return out
 
 
 def attention(q, k, v, *, causal=True, window=0):

@@ -1,10 +1,12 @@
-"""Model API (port of ``repro/models/model.py``, the dense and SSM
-decoders).
+"""Model API (port of ``repro/models/model.py``, the dense, SSM and
+mixture-of-experts decoders).
 
 ``build_model(cfg)`` returns a ``Model`` bundle of functions over a params
 dict of the JAX package's tree:
 
-  loss_fn(params, batch)   (scalar loss, metrics dict), teacher-forced LM
+  loss_fn(params, batch)   (scalar loss, {"ce", "aux"}), teacher-forced LM;
+                           loss = ce + router_aux_weight * aux (the MoE
+                           layers' load-balance loss, 0 without them)
   prefill_fn(params, batch) -> (cache, last_logits)
   decode_fn(params, cache, token, position) -> (logits, cache)
   cache_specs(B, seq_len)  ``CacheSpec`` tree (``transformer.alloc_cache``
@@ -97,8 +99,9 @@ def _build_decoder_model(cfg: ModelConfig) -> Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    """Dense and SSM decoders both go through the one decoder path; other
-    families raise ``NotImplementedError`` (``transformer.decoder_specs``)."""
+    """Dense, SSM and MoE decoders all go through the one decoder path;
+    other families raise ``NotImplementedError``
+    (``transformer.decoder_specs``)."""
     return _build_decoder_model(cfg)
 
 

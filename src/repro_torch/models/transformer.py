@@ -1,5 +1,5 @@
-"""Decoder-only stack: the dense and SSM families (port of
-``repro/models/transformer.py``).
+"""Decoder-only stack: the dense, SSM and mixture-of-experts families
+(port of ``repro/models/transformer.py``).
 
 Layer parameters are stacked on a leading ``(n_super, ...)`` axis exactly as
 the JAX package stacks them for ``lax.scan``: the stack repeats a
@@ -20,25 +20,24 @@ import torch
 
 from repro_torch.core.pytree import tree_flatten, tree_map, tree_unflatten
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MoE
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import ParamSpec
 
 
 def _check_supported(cfg) -> None:
-    """The families the port builds: dense and SSM decoders."""
+    """The families the port builds: dense, SSM and MoE decoders."""
     missing = [what for what, on in (
-        ("mixture-of-experts layers", cfg.num_experts),
         ("hybrid attention/SSM interleave", cfg.family == "hybrid"),
         ("encoder-decoder", cfg.enc_dec), ("M-RoPE", cfg.mrope),
-        (f"a {cfg.frontend} frontend", cfg.frontend is not None),
-        ("qk_norm", cfg.qk_norm)) if on]
-    if cfg.family not in ("dense", "ssm"):
+        (f"a {cfg.frontend} frontend", cfg.frontend is not None)) if on]
+    if cfg.family not in ("dense", "ssm", "moe"):
         missing.append(f"the {cfg.family} family")
     if missing:
         raise NotImplementedError(
             f"{cfg.name!r} ({cfg.family}) needs {', '.join(missing)}: the "
-            "port builds dense and SSM decoders only so far (ROADMAP queue "
-            "1, item 14)")
+            "port builds dense, SSM and MoE decoders only so far (ROADMAP "
+            "queue 1, item 14)")
 
 
 # ---------------------------------------------------------------------------
@@ -54,10 +53,13 @@ def attn_sublayer_specs(cfg, prefix):
     return out
 
 
-def _project_qkv(p, x):
+def _project_qkv(p, x, cfg):
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.qk_norm:
+        q = L.rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = L.rmsnorm(k, p["k_norm"], cfg.norm_eps)
     return q, k, v
 
 
@@ -71,7 +73,7 @@ def _rope_qk(q, k, cfg, positions):
 def attn_sublayer(p, h, cfg, *, positions, window=0, causal=True):
     """Full-sequence attention (train / prefill). Returns (h', (k, v))."""
     x = L.rmsnorm(h, p["norm"], cfg.norm_eps)
-    q, k, v = _project_qkv(p, x)
+    q, k, v = _project_qkv(p, x, cfg)
     q, k = _rope_qk(q, k, cfg, positions)
     out = L.attention(q, k, v, causal=causal, window=window)
     o = torch.einsum("bshk,hkd->bsd", out, p["wo"])
@@ -86,7 +88,7 @@ def attn_sublayer_decode(p, h, cfg, cache, *, position, window=0):
     B = h.shape[0]
     Sc = cache["k"].shape[1]
     x = L.rmsnorm(h, p["norm"], cfg.norm_eps)
-    q, k, v = _project_qkv(p, x)
+    q, k, v = _project_qkv(p, x, cfg)
     q, k = _rope_qk(q, k, cfg, position[:, None])
     position = position.long()
     slot = (torch.remainder(position, Sc) if window > 0
@@ -124,21 +126,25 @@ def attn_cache_specs(cfg, B, seq_len, window, prefix=(), dtype=None):
     return {"k": CacheSpec(sh, dt), "v": CacheSpec(sh, dt)}
 
 
-def mlp_sublayer_specs(cfg, prefix):
+def mlp_sublayer_specs(cfg, prefix, *, use_moe):
     d = cfg.d_model
     La = tuple("layers" for _ in prefix)
     out = {"norm": ParamSpec(prefix + (d,), La + ("embed",), init="ones")}
-    out.update(L.mlp_specs(cfg, cfg.d_ff, prefix))
+    if use_moe:
+        out.update(MoE.moe_specs(cfg, prefix))
+    else:
+        out.update(L.mlp_specs(cfg, cfg.d_ff, prefix))
     return out
 
 
-def mlp_residual(p, h, cfg):
-    return h + L.mlp_apply(p, L.rmsnorm(h, p["norm"], cfg.norm_eps))
-
-
-def mlp_sublayer(p, h, cfg):
-    return mlp_residual(p, h, cfg), torch.zeros((), dtype=torch.float32,
-                                                device=h.device)
+def mlp_sublayer(p, h, cfg, *, use_moe):
+    """Pre-norm MLP or MoE block with its residual. Returns (h', aux), aux
+    the MoE's load-balance loss, None for a dense MLP (whose aux is 0)."""
+    x = L.rmsnorm(h, p["norm"], cfg.norm_eps)
+    if use_moe:
+        y, aux = MoE.moe_apply(p, x, cfg)
+        return h + y, aux
+    return h + L.mlp_apply(p, x), None
 
 
 def ssm_sublayer_specs(cfg, prefix):
@@ -210,19 +216,20 @@ def _superblock_period(cfg) -> int:
 
 
 def decoder_specs(cfg) -> Dict[str, Any]:
-    """Same tree as the JAX package: ``blocks/sub{i}/{attn|ssm}[, mlp]``,
+    """Same tree as the JAX package: ``blocks/sub{i}/{attn|ssm}[, mlp]``
+    (``mlp`` a dense MLP or, on an MoE layer, the router and experts),
     every leaf stacked ``(num_layers // period, ...)``."""
     _check_supported(cfg)
     kinds = layer_kinds(cfg)[:_superblock_period(cfg)]
     prefix = (cfg.num_layers // len(kinds),)
     blocks: Dict[str, Any] = {}
-    for i, (mixer, _) in enumerate(kinds):
+    for i, (mixer, use_moe) in enumerate(kinds):
         if mixer == "attn":
             sub: Dict[str, Any] = {"attn": attn_sublayer_specs(cfg, prefix)}
         else:
             sub = {"ssm": ssm_sublayer_specs(cfg, prefix)}
-        if cfg.d_ff:
-            sub["mlp"] = mlp_sublayer_specs(cfg, prefix)
+        if cfg.d_ff or cfg.num_experts:
+            sub["mlp"] = mlp_sublayer_specs(cfg, prefix, use_moe=use_moe)
         blocks[f"sub{i}"] = sub
     return {
         "embed": L.embed_specs(cfg),
@@ -259,12 +266,13 @@ def _mixer(sub, h, cfg, *, positions, collect_cache=False):
                else None)
 
 
-def decoder_layer(sub, h, cfg, *, positions):
-    """One layer: its mixer (attention or SSM), then its MLP if it has
-    one. Returns (h, aux)."""
+def decoder_layer(sub, h, cfg, *, positions, use_moe):
+    """One layer: its mixer (attention or SSM), then its MLP (or MoE, with
+    ``use_moe``) if it has one. Returns (h, aux), aux None without an
+    MoE."""
     h, _ = _mixer(sub, h, cfg, positions=positions)
     if "mlp" in sub:
-        return mlp_sublayer(sub["mlp"], h, cfg)
+        return mlp_sublayer(sub["mlp"], h, cfg, use_moe=use_moe)
     return h, None
 
 
@@ -275,18 +283,20 @@ def decoder_forward(params, h, cfg, *, positions, collect_cache=False):
     ``(n_super, ...)`` under ``sub{i}`` as the reference's are."""
     if not collect_cache:
         aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
-        for _, sub in decoder_layers(params):
-            h, aux = decoder_layer(sub, h, cfg, positions=positions)
+        for layer, sub in decoder_layers(params):
+            h, aux = decoder_layer(sub, h, cfg, positions=positions,
+                                   use_moe=cfg.is_moe_layer(layer))
             if aux is not None:
                 aux_total = aux_total + aux
         return h, aux_total, None
     entries = []
-    for _, sub in decoder_layers(params):
+    for layer, sub in decoder_layers(params):
         h, entry = _mixer(sub, h, cfg, positions=positions,
                           collect_cache=True)
         entries.append(entry)
         if "mlp" in sub:
-            h = mlp_residual(sub["mlp"], h, cfg)
+            h, _ = mlp_sublayer(sub["mlp"], h, cfg,
+                                use_moe=cfg.is_moe_layer(layer))
     period = len(params["blocks"])
     cache = {f"sub{i}": {k: torch.stack([e[k] for e in entries[i::period]])
                          for k in entries[i]}
@@ -308,7 +318,8 @@ def decoder_decode_step(params, h, cfg, cache, *, position, window):
         else:
             h, _ = ssm_sublayer_decode(sub["ssm"], h, cfg, c)
         if "mlp" in sub:
-            h = mlp_residual(sub["mlp"], h, cfg)
+            h, _ = mlp_sublayer(sub["mlp"], h, cfg,
+                                use_moe=cfg.is_moe_layer(layer))
     return h, cache
 
 

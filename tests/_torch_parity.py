@@ -9,6 +9,7 @@ metrics rtol 1e-5; planes rtol 1e-5 (MLP) / 1e-4 (decoder) with atol 1e-6.
 backend to another bit for bit (the engines against the monolithic step).
 """
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -36,6 +37,23 @@ def torch_mlp_loss(p, b):
     logp = torch.log_softmax(logits, dim=-1)
     ce = -torch.mean(logp[torch.arange(logits.shape[0]), b["labels"].long()])
     return ce, {}
+
+
+_jnp_repeat = jnp.repeat
+
+
+def repeat_without_sharding(a, repeats, axis=None, **kw):
+    """``jnp.repeat`` for the reference's prod step. Under jax 0.9 that
+    step traces its loss inside a ``shard_map`` with explicit mesh axes,
+    where ``jnp.repeat`` with ``axis=None`` raises for want of
+    ``out_sharding``; its MoE dispatch calls ``jnp.repeat(jnp.arange(Tg),
+    k)`` (ROADMAP queue 3, Ref-4). The same values through
+    ``broadcast_to``: a 1-D array, each element ``repeats`` times in order;
+    any other call goes to the real ``jnp.repeat``."""
+    if axis is None and jnp.ndim(a) == 1 and isinstance(repeats, int) \
+            and not kw:
+        return jnp.broadcast_to(a[:, None], (a.shape[0], repeats)).reshape(-1)
+    return _jnp_repeat(a, repeats, axis=axis, **kw)
 
 
 def np_tree(tree):

@@ -79,6 +79,7 @@ FLASH_CASES = [
     (1, 4, 2, 77, 64, False, 20, torch.float32),
     (2, 8, 2, 256, 64, True, 0, torch.bfloat16),
     (1, 4, 4, 100, 128, True, 32, torch.bfloat16),
+    (2, 32, 4, 256, 128, True, 0, torch.bfloat16),  # the MoE step's (qwen3)
 ]
 
 
@@ -1086,3 +1087,90 @@ def test_checkpoint_round_trip_of_cuda_tensors(cuda_device, dtype, tmp_path):
         assert torch.equal(got["plane"][k], v)
     assert torch.equal(got["w"], tree["w"])
     assert torch.equal(got["fifo"][0], tree["fifo"][0])
+
+
+# ---------------------------------------------------------------------------
+# the mixture-of-experts family on the card
+# ---------------------------------------------------------------------------
+
+
+def _moe_inputs(cfg, T, seed):
+    """MoE parameters and (1, T, d) inputs drawn on the CPU, at ``cfg``'s
+    dtype."""
+    from repro_torch.models import moe as MoE
+    from repro_torch.models.layers import init_params
+
+    p = init_params(MoE.moe_specs(cfg), seed=seed, dtype=cfg.dtype,
+                    device="cpu")
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((1, T, cfg.d_model), generator=gen).to(cfg.dtype)
+    return p, x
+
+
+@pytest.mark.gpu
+def test_moe_apply_bit_identical_on_card(cuda_device):
+    """``moe_apply`` forward and backward twice at the training step's
+    shape (Qwen3-30B-A3B's width: T=512 tokens, 128 experts top-8, d 2048,
+    expert d_ff 768, bf16; capacity 40 an expert): y, aux and the grads of
+    router, experts and x identical bit for bit (no floating-point atomics
+    in dispatch or combine), with no host synchronisation inside; some
+    assignments drop."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as MoE
+
+    cfg = get_config("qwen3-moe-30b-a3b").with_(num_layers=1)
+    p, x = _moe_inputs(cfg, 512, seed=0)
+    names = ("router", "wi_gate", "wi_up", "wo")
+    outs = []
+    for _ in range(2):
+        gp = {k: v.to(cuda_device).requires_grad_(True) for k, v in p.items()}
+        gx = x.to(cuda_device).requires_grad_(True)
+        torch.cuda.synchronize()
+        # no host synchronisation on the step's path (no .item(), mask
+        # indexing or nonzero): the debug mode raises on one
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, aux = MoE.moe_apply(gp, gx, cfg)
+            grads = torch.autograd.grad((y.float() ** 2).sum() + aux,
+                                        [gp[k] for k in names] + [gx])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        outs.append((y, aux) + grads)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("y", "aux") + names + ("x",), *outs):
+        assert torch.equal(a, b), name
+    C = MoE.capacity(512, 128, 8, cfg.capacity_factor)
+    _, meta, _ = MoE._dispatch_group(x[0].to(cuda_device),
+                                     {k: v.to(cuda_device)
+                                      for k, v in p.items()}, cfg, C)
+    assert C == 40 and not bool(meta.keep.all())
+
+
+@pytest.mark.gpu
+def test_moe_model_on_card_as_on_cpu(cuda_device):
+    """reduced(qwen3-moe-30b-a3b) (qk_norm, top-2 of 4) at float32, the
+    same weights on both devices: the routing equal, the loss, ce and aux
+    within 1e-5 and every grad within 1e-4 of its largest |value| (the
+    card's attention is the flash kernels)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.pytree import tree_leaves, tree_map
+    from repro_torch.models import build_model
+
+    model = build_model(reduced(get_config("qwen3-moe-30b-a3b")))
+    cpu_params = model.init(seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, model.cfg.vocab_size, (2, 33), generator=gen)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        params = tree_map(lambda t: t.to(dev).requires_grad_(True),
+                          cpu_params)
+        batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+        loss, metrics = model.loss_fn(params, batch)
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        out[dev] = (loss, metrics, grads)
+    (cl, cm, cg), (gl, gm, gg) = out["cpu"], out[cuda_device]
+    for a, b in ((gl, cl), (gm["ce"], cm["ce"]), (gm["aux"], cm["aux"])):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-5,
+                                   atol=0)
+    for a, b in zip(gg, cg):
+        assert _gap(a, b) <= 1e-4

@@ -130,7 +130,9 @@ def test_synthetic_data_bit_identical():
 
 def test_dense_configs_and_param_counts_match():
     assert list_configs() == ["gpt2-medium", "gpt2-xl", "granite-8b",
-                              "mamba2-780m", "stablelm-1.6b", "yi-34b"]
+                              "mamba2-780m", "mixtral-8x7b",
+                              "moonshot-v1-16b-a3b", "qwen3-moe-30b-a3b",
+                              "stablelm-1.6b", "yi-34b"]
     for name in list_configs():
         t, j = get_config(name), jax_get_config(name)
         for f in j.__dataclass_fields__:
@@ -140,7 +142,7 @@ def test_dense_configs_and_param_counts_match():
         assert t.param_counts() == j.param_counts()
 
 
-@pytest.mark.parametrize("name", ["mixtral-8x7b", "jamba-v0.1-52b",
+@pytest.mark.parametrize("name", ["qwen2-vl-2b", "jamba-v0.1-52b",
                                   "whisper-large-v3"])
 def test_other_families_name_their_roadmap_item(name):
     jax_get_config(name)  # exists in the JAX package
@@ -160,8 +162,8 @@ def test_ssm_family_builds():
         (48, 1536, 3072)
 
 
-@pytest.mark.parametrize("kw", [dict(num_experts=4, experts_per_token=2),
-                                dict(qk_norm=True), dict(mrope=True),
+@pytest.mark.parametrize("kw", [dict(family="hybrid", attn_layer_period=2),
+                                dict(frontend="audio"), dict(mrope=True),
                                 dict(enc_dec=True), dict(frontend="vision")])
 def test_unported_model_features_name_their_roadmap_item(kw):
     from repro_torch.models import build_model

@@ -4,7 +4,8 @@ One subprocess (M host devices need the XLA flag before jax starts) runs
 the JAX prod backend at (R, D) = (2, 1) on the MLP fixture and on the
 ``_bench_cfg`` decoder, 3 steps each, and writes an ``.npz`` (params,
 batches, metrics, final read planes) that the port, run on the CPU from the
-same params and batches, is held to. Two cases run the int8 wire (one with
+same params and batches, is held to. One case runs the MoE family
+(``reduced(qwen3-moe-30b-a3b)``) at M=2. Two cases run the int8 wire (one with
 delay compensation λ=0.5). One case runs a fault plan at M=4 (peer 1
 crashes at step 2, is declared dead at step 3 and re-synced from peer 0 at
 step 6; 8 steps): the port's ``peers_live`` and ``nonfinite_skips``
@@ -28,6 +29,7 @@ import numpy as np  # noqa: E402
 from _subproc import run_sub  # noqa: E402
 from _torch_parity import (METRICS, compare_metrics,  # noqa: E402
                            compare_planes, torch_mlp_loss)
+from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.convert import to_torch, unflatten_npz  # noqa: E402
 from repro_torch.core.backend import drive, make_backend  # noqa: E402
@@ -50,6 +52,7 @@ import jax, jax.numpy as jnp, numpy as np
 from _fixtures import mlp_problem
 import re
 from benchmarks.table3_lm import _bench_cfg
+from repro.configs import get_config, reduced
 from repro.core.backend import make_backend
 from repro.data.synthetic import SyntheticLM, make_worker_batches
 from repro.models import build_model
@@ -64,6 +67,12 @@ def _jit_without_donation(f, *a, **k):
     k.pop("donate_argnums", None)
     return _jit(f, *a, **k)
 jax.jit = _jit_without_donation
+
+# Under jax 0.9 the reference's MoE dispatch cannot trace inside the prod
+# step's shard_map (ROADMAP queue 3, Ref-4): its jnp.repeat goes through
+# broadcast_to.
+from _torch_parity import repeat_without_sharding
+jnp.repeat = repeat_without_sharding
 
 def flat(prefix, tree):
     out = {{}}
@@ -85,10 +94,13 @@ for case in {cases!r}:
                     "labels": rng.integers(0, 10, (M, 8)).astype(np.int32)}}
                    for _ in range(steps)]
     else:
-        model = build_model(_bench_cfg())
+        cfg = (_bench_cfg() if problem == "lm"
+               else reduced(get_config("qwen3-moe-30b-a3b")))
+        model = build_model(cfg)
         params = model.init(jax.random.PRNGKey(0))
         loss_fn = lambda p, b: model.loss_fn(p, b, block_k=16)
-        ds = SyntheticLM(vocab=128, seq_len=16, temperature=1.2, seed=0)
+        ds = SyntheticLM(vocab=cfg.vocab_size, seq_len=16, temperature=1.2,
+                         seed=0)
         batches = [make_worker_batches(ds, M, 4, t) for t in range(steps)]
     be = make_backend("prod", "layup", M=M, loss_fn=loss_fn,
                       optimizer=momentum(0.9), schedule=constant(0.05),
@@ -164,10 +176,13 @@ def _check_case(ref, case):
     if problem == "mlp":
         loss_fn, rtol = torch_mlp_loss, 1e-5
     else:
-        model = build_model(_bench_torch_cfg())
+        cfg = (_bench_torch_cfg() if problem == "lm"
+               else reduced(get_config("qwen3-moe-30b-a3b")))
+        model = build_model(cfg)
         loss_fn, rtol = model.loss_fn, 1e-4
         # the port's numpy data is draw-for-draw the JAX package's
-        ds = SyntheticLM(vocab=128, seq_len=16, temperature=1.2, seed=0)
+        ds = SyntheticLM(vocab=cfg.vocab_size, seq_len=16, temperature=1.2,
+                         seed=0)
         for t, b in enumerate(batches):
             mine = make_worker_batches(ds, M, 4, t)
             for k in b:
@@ -202,7 +217,8 @@ FAST_CASES = [("mlp", 2, 2, 1, True), ("mlp", 4, 2, 1, True),
               ("mlp", 4, 2, 1, False), ("lm", 2, 2, 1, True),
               ("lm", 4, 2, 1, True), ("mlp", 4, 2, 1, True, "int8", 0.5),
               ("lm", 2, 2, 1, True, "int8", 0.0),
-              ("mlp", 4, 2, 1, True, "param", 0.0, CRASH)]
+              ("mlp", 4, 2, 1, True, "param", 0.0, CRASH),
+              ("moe", 2, 2, 1, True)]
 SLOW_CASES = [("mlp", M, R, D, True) for M in (2, 4)
               for R, D in ((1, 0), (1, 1))] + [
     ("mlp", 4, 2, 1, True, "int8", 0.0, CRASH),
