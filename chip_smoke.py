@@ -29,7 +29,11 @@ not 0:
    S=256, D=64, float32, causal; (B,S,H,D) tensors passed as (B,H,S,D)
    views), over a sweep (GQA, MQA, windows, bidirectional, bfloat16,
    D=128, S not a multiple of the tile, the MoE step's 32 heads of 128 on
-   4 in bf16), at S=2048, 65 and 1, and on
+   4 in bf16), at S=2048, 65 and 1, at the hybrid's, VLM's and
+   encoder-decoder's shapes and at query and key lengths that differ
+   (``FLASH_FAMILIES``: Whisper's cross-attention Sq=256 / Sk=1500 and
+   encoder S=1500, not causal, bf16; Sq > Sk and Sq < Sk in float32; each
+   also timed: kernel, plain and SDPA beside its bound), and on
    misaligned views (storage offset 1, odd sequence stride: the kernels'
    element-by-element copies); two calls on the same inputs must give
    bit-identical o, lse, dq, dk and dv (float32 and bfloat16). Each
@@ -206,9 +210,32 @@ not 0:
    prefill-by-decode on 4 prompts at capacity factor E/k = 16, where
    nothing can drop, in float32 (weights upcast) to serve's tolerances,
    the bf16 gaps as readings; serve's readings.
-6. the kernels line (with ``sim_launches``, ``tune_launches`` and
-   ``moe_launches``), the card's ``nvidia-smi`` line, and last the
-   result.
+5h. the hybrid, VLM and encoder-decoder families (ROADMAP item 14b-d),
+   each at full width through train's entry points and traffic, its bf16
+   plane near 7-8 GB: train_hybrid (Jamba v0.1 at full width, depth 32 ->
+   2 with attention every 2nd layer: sub0 SSM + dense MLP, sub1 attention
+   + MoE of 16 experts top-2; M=1) with ``gossip_mix`` held on its bf16
+   ``blocks`` buffer (3.14e9 elements), train_hybrid_pipeline (the same run
+   through ``overlap=True``, held bit-identical), train_vlm (Qwen2-VL 2B
+   whole, M=2, batches from ``lm_batch_for``: embeddings and (3, B, S)
+   M-RoPE positions with an 8 x 8 image span a sequence, split into
+   forward slices on their dim 1) and train_encdec (Whisper large-v3
+   whole, M=2, 1500 audio frames and 256 tokens a sequence). Each: flash
+   launches equal to ``attention_calls`` (96 a forward slice and worker on
+   Whisper: encoder, decoder and cross-attention), ``gossip_mix`` once per
+   group per step, the first loss within 0.5 of ``init_loss``, ce and aux
+   of one ``loss_fn`` call on worker 0's read plane. serve_hybrid and
+   serve_vlm: ServeLoop (8 slots x 256), ``prefill_fn`` against
+   prefill-by-decode in float32 (the VLM's prefill on the tokens'
+   embeddings with ``arange`` on the three axes; the hybrid at capacity
+   factor E/k). serve_encdec: ``prefill_fn`` (encoder, cross K/V, first
+   token) and ``decode_fn`` for 8 sequences of 64 tokens, held in float32
+   to ``decode_train``'s teacher-forced logits at every position.
+6. the kernels line (with ``sim_launches``, ``tune_launches``,
+   ``moe_launches``, and the families' ``hybrid_launches``,
+   ``vlm_launches``, ``encdec_launches``, #1's ``hybrid_blocks`` and
+   #2-#4's ``family_shapes`` times), the card's ``nvidia-smi`` line, and
+   last the result.
 
 TF32 is off for matrix products and cuDNN (both set below), so float32 is
 float32 throughout. ``CUBLAS_WORKSPACE_CONFIG`` is fixed before CUDA
@@ -267,11 +294,24 @@ FLASH_SWEEP = [  # (B, Hq, Hkv, S, D, causal, window, dtype)
 # softmax has one key, so dq and dk are 0 in exact arithmetic and both sides
 # are rounding noise of dP − delta: they are held to tol × max |dP| instead
 # of max |plain| (~1e-6).
+# The hybrid, VLM and encoder-decoder steps' shapes (per worker and forward
+# slice B = BATCH_PER_WORKER / R), and query and key lengths that differ:
+# S is then (Sq, Sk). Each is also timed (kernel, plain, SDPA) beside its
+# bound.
+FLASH_FAMILIES = [
+    (2, 20, 20, (256, 1500), 64, False, 0, "bfloat16"),  # whisper cross
+    (2, 20, 20, 1500, 64, False, 0, "bfloat16"),  # whisper encoder
+    (2, 20, 20, 256, 64, True, 0, "bfloat16"),    # whisper decoder
+    (2, 32, 8, 256, 128, True, 0, "bfloat16"),    # jamba
+    (2, 12, 2, 256, 128, True, 0, "bfloat16"),    # qwen2-vl
+    (1, 4, 2, (333, 129), 64, True, 0, "float32"),   # Sq > Sk
+    (1, 4, 2, (97, 301), 64, False, 0, "float32"),   # Sq < Sk
+]
 FLASH_EXTRA = [
     (1, 4, 2, 2048, 64, True, 0, "float32"),
     (2, 4, 2, 1, 64, True, 0, "float32"),
     (1, 4, 2, 65, 64, True, 0, "float32"),
-]
+] + FLASH_FAMILIES
 # a misaligned operand: storage offset 1 element, sequence stride H·D + 3
 FLASH_MISALIGNED = (2, 8, 2, 200, 64, True, 0, "float32")
 # |kernel − plain| ≤ tol × max |plain| in float32, which sums in another
@@ -991,7 +1031,7 @@ def phase_train_ssm(torch, profile: bool):
     want = {"gossip_mix": TRAIN_STEPS * n_groups, "flash": 0, "rmsnorm": 0,
             "ssd_scan": 0}
     check(launches == want, f"train_ssm launches {launches} != {want}")
-    check_history(hist, cfg.vocab_size, "train_ssm")
+    check_history(hist, cfg, "train_ssm")
     state = out["state"]
     check(all(v.dtype == torch.bfloat16 and bool(torch.isfinite(v).all())
               for v in state["read"].values()), "train_ssm plane")
@@ -1033,8 +1073,14 @@ def attention_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
     return int(mask.sum())
 
 
+def seq_lens(S) -> tuple:
+    """(Sq, Sk) of a flash case's S: one length, or the pair."""
+    return tuple(S) if isinstance(S, (tuple, list)) else (S, S)
+
+
 def attention_bound_ms(B, Hq, Hkv, S, D, causal, window, itemsize, kind):
-    """Least time for flash attention's work on these inputs, the larger of
+    """Least time for flash attention's work on these inputs (S one length
+    or (Sq, Sk)), the larger of
     operations and bytes. Operations: the matrix products over the visible
     pairs only, 2 flops a multiply-add: forward QKᵀ and PV (4·D a pair);
     backward S, dP, dV, dK and dQ (10·D a pair) plus delta = rowsum(do·o);
@@ -1046,9 +1092,10 @@ def attention_bound_ms(B, Hq, Hkv, S, D, causal, window, itemsize, kind):
     in, o and the f32 lse out; backward q, k, v, o, do and lse in, dq, dk,
     dv out; trainable q, k, v and do in, o, dq, dk and dv out. Returns
     (ms, bound_by)."""
-    pairs = B * Hq * attention_pairs(S, S, causal, window)
-    nq, nkv = B * Hq * S * D * itemsize, B * Hkv * S * D * itemsize
-    nlse, delta = B * Hq * S * 4, 2 * B * Hq * S * D
+    Sq, Sk = seq_lens(S)
+    pairs = B * Hq * attention_pairs(Sq, Sk, causal, window)
+    nq, nkv = B * Hq * Sq * D * itemsize, B * Hkv * Sk * D * itemsize
+    nlse, delta = B * Hq * Sq * 4, 2 * B * Hq * Sq * D
     flops, nbytes = {
         "fwd": (4 * D * pairs, 2 * nq + 2 * nkv + nlse),
         "bwd": (10 * D * pairs + delta, 4 * nq + 4 * nkv + nlse),
@@ -1074,10 +1121,12 @@ def phase_flash(torch):
 
     def operands(B, Hq, Hkv, S, D, dtype):
         """q, k, v, do as (B, H, S, D) views of (B, S, H, D) tensors, as the
-        decoder passes them."""
+        decoder passes them (q and do of Sq rows, k and v of Sk)."""
         dt = getattr(torch, dtype)
-        return [torch.randn((B, S, H, D), generator=gen, device=dev).to(dt)
-                .transpose(1, 2) for H in (Hq, Hkv, Hkv, Hq)]
+        Sq, Sk = seq_lens(S)
+        return [torch.randn((B, L, H, D), generator=gen, device=dev).to(dt)
+                .transpose(1, 2) for H, L in ((Hq, Sq), (Hkv, Sk), (Hkv, Sk),
+                                              (Hq, Sq))]
 
     def misaligned(B, Hq, Hkv, S, D, dtype):
         """q, k, v, do with a storage offset of 1 element and a sequence
@@ -1120,7 +1169,8 @@ def phase_flash(torch):
         for n, g, w in zip(("dq", "dk", "dv"), grads, want):
             errs[n] = max_err(n, g, w, tol_b, dtype,
                               dp_scale if n != "dv" else None)
-        return {"shape": [B, Hq, Hkv, S, D], "causal": causal,
+        return {"shape": [B, Hq, Hkv, list(seq_lens(S)), D],
+                "causal": causal,
                 "window": window, "dtype": dtype, "tol": [tol_f, tol_b],
                 "ulp": ULP[dtype], "aligned": fa._aligned_bits(q, k, v, do),
                 "max_abs_err": errs, "max_abs_plain": {
@@ -1150,6 +1200,7 @@ def phase_flash(torch):
     cases.append(check_case(*FLASH_MISALIGNED, make=misaligned))
     same = {dt: deterministic(*FLASH_MAIN[:7], dt)
             for dt in ("float32", "bfloat16")}
+    same["families"] = [deterministic(*c) for c in FLASH_FAMILIES]
     main = cases[0]["max_abs_err"]
 
     B, Hq, Hkv, S, D, causal, window, dtype = FLASH_MAIN
@@ -1208,24 +1259,134 @@ def phase_flash(torch):
     for kind, row in zip(("fwd", "bwd", "trainable"), rows.values()):
         row["bound_ms"], row["bound_by"] = attention_bound_ms(
             B, Hq, Hkv, S, D, causal, window, itemsize, kind)
-    emit("flash", main_shape=list(FLASH_MAIN), cases=cases,
-         bit_identical_reruns=same, rows=rows)
     del q, k, v, do, o, lse, args, sdpa_out
+    families = [flash_times(torch, c, operands) for c in FLASH_FAMILIES]
+    emit("flash", main_shape=list(FLASH_MAIN), cases=cases,
+         bit_identical_reruns=same, rows=rows, families=families)
     torch.cuda.empty_cache()
-    return rows
+    return rows, families
 
 
-def lm_batches(torch, vocab, steps, seed):
-    """Seeded random tokens, labels = next token; on the card."""
+def flash_times(torch, case, operands) -> dict:
+    """A FLASH_FAMILIES case timed: the forward, the backward (two
+    launches) and the trainable Function (forward + backward), each
+    against its plain version, scaled_dot_product_attention (top-left
+    causal mask, the kernels' for Sq != Sk; under GQA on k and v repeated
+    to the q heads beforehand, outside the timing) and its bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                         flash_attention_ref)
+
+    B, Hq, Hkv, S, D, causal, window, dtype = case
+    q, k, v, do = operands(B, Hq, Hkv, S, D, dtype)
+    kw = dict(causal=causal, window=window)
+    o, lse = fa.flash_attention(q, k, v, **kw)
+    args = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    G = Hq // Hkv
+    lib_args = [args[0]] + [t.detach().repeat_interleave(G, 1)
+                            .requires_grad_(True) for t in args[1:]]
+
+    def trainable():
+        out = ops.flash_attention_trainable(*args, **kw)
+        return torch.autograd.grad(out, args, do)
+
+    def trainable_plain():
+        o_r, lse_r = flash_attention_ref(q, k, v, **kw)
+        return flash_attention_bwd_ref(q, k, v, o_r, lse_r, do, **kw)
+
+    lib_in = [t.detach() for t in lib_args]
+
+    def sdpa(operands=lib_in):
+        return F.scaled_dot_product_attention(*operands, is_causal=causal)
+
+    def sdpa_trainable():
+        return torch.autograd.grad(sdpa(lib_args), lib_args, do)
+
+    sdpa_out = sdpa(lib_args)
+    itemsize = 4 if dtype == "float32" else 2
+    res = {"shape": [B, Hq, Hkv, list(seq_lens(S)), D], "causal": causal,
+           "dtype": dtype}
+    for kind, fn, plain, lib in (
+            ("fwd", lambda: fa.flash_attention(q, k, v, **kw),
+             lambda: flash_attention_ref(q, k, v, **kw), sdpa),
+            ("bwd", lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                   **kw),
+             lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, **kw),
+             lambda: torch.autograd.grad(sdpa_out, lib_args, do,
+                                         retain_graph=True)),
+            ("trainable", trainable, trainable_plain, sdpa_trainable)):
+        bound, by = attention_bound_ms(B, Hq, Hkv, S, D, causal, window,
+                                       itemsize, kind)
+        res[kind] = {"ms": time_ms(torch, fn),
+                     "plain_ms": time_ms(torch, plain),
+                     "library_ms": time_ms(torch, lib),
+                     "bound_ms": bound, "bound_by": by}
+    del q, k, v, do, o, lse, args, lib_args, lib_in, sdpa_out
+    return res
+
+
+def lm_batches(torch, vocab, steps, seed, *, workers=M):
+    """Seeded random tokens, labels = next token, ``workers`` rows on the
+    leading axis; on the card."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(steps):
-        toks = rng.integers(0, vocab, (M, BATCH_PER_WORKER, SEQ + 1))
+        toks = rng.integers(0, vocab, (workers, BATCH_PER_WORKER, SEQ + 1))
         out.append({"tokens": torch.from_numpy(toks[..., :-1]).cuda(),
                     "labels": torch.from_numpy(toks[..., 1:]).cuda()})
     return out
+
+
+def family_batches(torch, cfg, steps, seed, *, workers):
+    """Per-step batches of ``cfg``'s family from the port's
+    ``lm_batch_for`` (each worker's drawn in turn from one generator on
+    the card), stacked on a leading worker axis. A VLM sequence gets one
+    VLM_IMAGE_GRID² image span at a seeded start (its t ids hold still, h
+    and w walk the grid: ``synth_mrope_positions``), so positions are
+    (workers, 3, B, S)."""
+    from repro_torch.data.synthetic import lm_batch_for
+    from repro_torch.models.frontends import synth_mrope_positions
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    span = VLM_IMAGE_GRID ** 2
+    out = []
+    for _ in range(steps):
+        rows = []
+        for _ in range(workers):
+            b = lm_batch_for(cfg, BATCH_PER_WORKER, SEQ, generator=gen,
+                             device="cuda")
+            if "positions" in b:
+                starts = torch.randint(0, SEQ - span + 1, (BATCH_PER_WORKER,),
+                                       generator=gen, device="cuda").tolist()
+                b["positions"] = torch.cat([synth_mrope_positions(
+                    1, SEQ, image_span=(s, s + span, VLM_IMAGE_GRID),
+                    device="cuda") for s in starts], dim=1)
+            rows.append(b)
+        out.append({k: torch.stack([r[k] for r in rows]) for k in rows[0]})
+    return out
+
+
+def attention_calls(cfg) -> int:
+    """``layers.attention`` calls in one forward of ``cfg``'s model (each a
+    flash forward on the card, and in the backward slice a dq and a dk/dv
+    launch): one an attention layer (none in an SSM decoder, one a
+    super-block's attention sub-layer in the hybrid); the encoder-decoder's
+    encoder layers, decoder layers and their cross-attention."""
+    if cfg.enc_dec:
+        return cfg.enc_layers + 2 * cfg.num_layers
+    return sum(cfg.is_attn_layer(l) for l in range(cfg.num_layers))
+
+
+def init_loss(cfg) -> float:
+    """The expected loss of a seed-0 init: logits of variance σ² =
+    0.02²·d_model (an N(0, 0.02²) unembedding, tied or not, against
+    hidden states of unit RMS after the final norm) make
+    E[logsumexp] − E[gold] ≈ ln V + σ²/2."""
+    return math.log(cfg.vocab_size) + 0.02 ** 2 * cfg.d_model / 2
 
 
 HISTORY_KEYS = ("loss", "weight_sum", "update_staleness", "staleness_mean",
@@ -1383,9 +1544,10 @@ def hold_engine(name: str, got: dict, ref: dict, ref_name: str,
 
 
 def phase_train_engine(torch, name, ref, *, int8: bool = False, cfg=None,
-                       **engine):
+                       workers=M, batches=None, **engine):
     """The train phase's run (train_int8's with ``int8``; of ``cfg`` in
-    place of GPT-2 Medium where given) through an engine (``engine``:
+    place of GPT-2 Medium, on ``workers`` workers and ``batches`` in place
+    of ``lm_batches``', where given) through an engine (``engine``:
     ``overlap=True[, streams=n]``), timed as one window (``window_drive``)
     and held against ``ref``, the monolithic run, when given. Returns
     (result, backend); the backend's state is dropped and its engine
@@ -1399,20 +1561,21 @@ def phase_train_engine(torch, name, ref, *, int8: bool = False, cfg=None,
     model = build_model(cfg)
     params = model.init(seed=0, device="cuda")
     wire = dict(wire="int8", compensate=LAMBDA) if int8 else {}
-    backend = make_backend("prod", "layup", M=M, loss_fn=model.loss_fn,
+    backend = make_backend("prod", "layup", M=workers, loss_fn=model.loss_fn,
                            optimizer=momentum(0.9), schedule=constant(LR),
                            fb_ratio=R, update_delay=1, use_pallas=True,
                            device="cuda", wait_timeout_s=ENGINE_TIMEOUT_S,
                            **wire, **engine)
-    batches = lm_batches(torch, cfg.vocab_size, TRAIN_STEPS, seed=0)
+    batches = batches or lm_batches(torch, cfg.vocab_size, TRAIN_STEPS,
+                                    seed=0)
     membership = "faults" in engine
     state, hist, window, peak, base = window_drive(
         torch, backend, params, batches, launch_resets(),
         keys=MEMBERSHIP_KEYS if membership else HISTORY_KEYS)
     every = step_launches()
-    check_history(hist, cfg.vocab_size, name)
+    check_history(hist, cfg, name)
     if membership:
-        check(hist["peers_live"] == [float(M)] * TRAIN_STEPS,
+        check(hist["peers_live"] == [float(workers)] * TRAIN_STEPS,
               f"{name} peers_live {hist['peers_live']}")
     summary = backend.summary()
     timeline = backend.timeline.summary()
@@ -1421,8 +1584,8 @@ def phase_train_engine(torch, name, ref, *, int8: bool = False, cfg=None,
         read = backend.engine.materialize(read)
     digests = plane_digests(torch, read)
     steps = len(batches) - 1
-    tokens = M * BATCH_PER_WORKER * SEQ
-    res = {"model": cfg.name, "M": M, "fb_ratio": R, "update_delay": 1,
+    tokens = workers * BATCH_PER_WORKER * SEQ
+    res = {"model": cfg.name, "M": workers, "fb_ratio": R, "update_delay": 1,
            **wire, **engine, "steps": TRAIN_STEPS, "history": hist,
            "all_launches": every, "read_plane_sha256": digests,
            "window_steps": steps, "window_s": window,
@@ -1533,14 +1696,15 @@ def phase_profile_engines(torch, backends, batches):
     torch.cuda.empty_cache()
 
 
-def check_history(hist, vocab: int, what: str) -> None:
-    """Finite losses near ln(V) at random init, Σw = 1 ± 1e-5, no skips."""
+def check_history(hist, cfg, what: str) -> None:
+    """Finite losses, the first within 0.5 of ``init_loss`` (ln V and the
+    init's logit variance), Σw = 1 ± 1e-5, no skips."""
     check(all(math.isfinite(v) for v in hist["loss"]), f"{what} loss {hist}")
     check(all(abs(v - 1.0) <= 1e-5 for v in hist["weight_sum"]),
           f"{what} weight_sum {hist['weight_sum']}")
-    check(abs(hist["loss"][0] - math.log(vocab)) < 0.5,
-          f"{what} first loss {hist['loss'][0]} far from ln(V) at random "
-          "init")
+    check(abs(hist["loss"][0] - init_loss(cfg)) < 0.5,
+          f"{what} first loss {hist['loss'][0]} far from {init_loss(cfg)} "
+          "at random init")
     check(hist["nonfinite_skips"] == [0.0] * TRAIN_STEPS,
           f"{what} nonfinite skips")
 
@@ -1736,14 +1900,17 @@ def phase_train_chaos_streams_int8(torch):
     return runs
 
 
-def phase_train(torch, profile: bool, name: str = "train", cfg=None,
-                readings=None, **faults):
+def phase_train(torch, profile, name: str = "train", cfg=None,
+                readings=None, workers=M, batches=None, **faults):
     """The train phase; with ``faults=""`` the same run with membership on
     (``name`` train_membership_empty), which the caller holds against
     train. ``cfg`` runs another model than GPT-2 Medium through the same
-    entry points and traffic, and ``readings(model, backend, state,
-    batches)``, when given, adds its dict of readings (taken after the
-    counted window) to the result."""
+    entry points and traffic (on ``workers`` workers, and ``batches`` in
+    place of ``lm_batches``' tokens, where given), and ``readings(model,
+    backend, state, batches)``, when given, adds its dict of readings
+    (taken after the counted window) to the result. The flash launches
+    are held to ``attention_calls(cfg)`` a forward. ``profile``: True, or
+    "kernels" for the kernels' route alone (``phase_profile``)."""
     from repro_torch.configs import get_config
     from repro_torch.core.backend import make_backend
     from repro_torch.kernels import flash_attention as fa
@@ -1754,11 +1921,12 @@ def phase_train(torch, profile: bool, name: str = "train", cfg=None,
     cfg = cfg or get_config("gpt2-medium")
     model = build_model(cfg)
     params = model.init(seed=0, device="cuda")
-    backend = make_backend("prod", "layup", M=M, loss_fn=model.loss_fn,
+    backend = make_backend("prod", "layup", M=workers, loss_fn=model.loss_fn,
                            optimizer=momentum(0.9), schedule=constant(LR),
                            fb_ratio=R, update_delay=1, use_pallas=True,
                            device="cuda", **faults)
-    batches = lm_batches(torch, cfg.vocab_size, TRAIN_STEPS, seed=0)
+    batches = batches or lm_batches(torch, cfg.vocab_size, TRAIN_STEPS,
+                                    seed=0)
     out, hist, step_s, peak = counted_drive(
         torch, backend, params, batches, launch_resets(),
         keys=MEMBERSHIP_KEYS if faults else HISTORY_KEYS)
@@ -1769,33 +1937,33 @@ def phase_train(torch, profile: bool, name: str = "train", cfg=None,
     n_groups = len(backend.part.group_sizes)
     check(launches == TRAIN_STEPS * n_groups,
           f"gossip_mix launches {launches} != {TRAIN_STEPS} x {n_groups}")
-    per_pass = TRAIN_STEPS * M * cfg.num_layers
+    per_pass = TRAIN_STEPS * workers * attention_calls(cfg)
     want = {"fwd": per_pass * R, "dq": per_pass, "dkv": per_pass}
     check(flash == want, f"flash launches {flash} != {want}")
     check(every["rmsnorm"] == every["ssd_scan"] == 0,
           f"{name}: norm or SSD kernel launched on the step {every}")
-    check_history(hist, cfg.vocab_size, name)
+    check_history(hist, cfg, name)
     if faults:
-        check(hist["peers_live"] == [float(M)] * TRAIN_STEPS,
+        check(hist["peers_live"] == [float(workers)] * TRAIN_STEPS,
               f"{name} peers_live {hist['peers_live']}")
     read = out["state"]["read"]
     check(all(v.dtype == cfg.dtype and bool(torch.isfinite(v).all())
               for v in read.values()), f"{name}: nonfinite plane")
     digests = plane_digests(torch, read)
     med = statistics.median(step_s[1:])
-    tokens = M * BATCH_PER_WORKER * SEQ
+    tokens = workers * BATCH_PER_WORKER * SEQ
     res = {"model": cfg.name, "layers": cfg.num_layers,
            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
            "dtype": str(cfg.dtype).replace("torch.", ""),
-           "params": sum(backend.part.group_sizes.values()), "M": M,
+           "params": sum(backend.part.group_sizes.values()), "M": workers,
            "fb_ratio": R, "update_delay": 1, "seq": SEQ,
            "batch_per_worker": BATCH_PER_WORKER, "steps": TRAIN_STEPS,
            "history": hist, "step_s": step_s, "median_step_s": med,
            "tokens_per_step": tokens, "tokens_per_s": tokens / med,
            "peak_bytes": peak, "bytes_before_init": out["bytes_before_init"],
            "allocator": out["allocator"],
-           "gossip_mix_launches": launches,
-           "flash_launches": flash, "all_launches": every,
+           "gossip_mix_launches": launches, "flash_launches": flash,
+           "flash_launches_predicted": want, "all_launches": every,
            "read_plane_sha256": digests,
            "groups": dict(backend.part.group_sizes), **faults}
     if faults:
@@ -1804,7 +1972,8 @@ def phase_train(torch, profile: bool, name: str = "train", cfg=None,
         res.update(readings(model, backend, out["state"], batches))
     emit(name, **res)
     if profile:
-        phase_profile(torch, backend, out["state"], batches)
+        phase_profile(torch, backend, out["state"], batches,
+                      plain=profile != "kernels")
     del out, read, params
     torch.cuda.empty_cache()
     return res, backend
@@ -1914,7 +2083,7 @@ def phase_train_int8(torch, train_res, profile: bool):
     per_pass = TRAIN_STEPS * M * cfg.num_layers
     want = {"fwd": per_pass * R, "dq": per_pass, "dkv": per_pass}
     check(flash == want, f"int8 flash launches {flash} != {want}")
-    check_history(hist, cfg.vocab_size, "train_int8")
+    check_history(hist, cfg, "train_int8")
     wire = out["wire_bytes_per_round"]
     f32_plane = backend.part.plane_nbytes()
     check(out["wire_dtype"] == "int8" and wire == INT8_WIRE_BYTES
@@ -1966,12 +2135,16 @@ def phase_train_int8(torch, train_res, profile: bool):
     return res
 
 
-def phase_profile(torch, backend, state, batches):
+def phase_profile(torch, backend, state, batches, plain: bool = True):
     """Two more steps under torch.profiler for each attention route (the
     kernels, then plain attention with ``USE_PALLAS=False``): device time by
     kernel, device events and the device's idle share over the window. Then
     the two routes' step times, alternated on the same state (plain,
-    kernels, kernels, plain, ...; host clock around synchronised steps)."""
+    kernels, kernels, plain, ...; host clock around synchronised steps).
+    ``plain=False`` profiles the kernels' route alone (the plain route
+    keeps every layer's (Sq, Sk) float32 scores for its backward: ~1 GB a
+    layer on Whisper's 1500-frame encoder, past the card beside the
+    step)."""
     from repro_torch.models import layers
 
     def run(use, batch):
@@ -1982,9 +2155,11 @@ def phase_profile(torch, backend, state, batches):
         finally:
             layers.USE_PALLAS = True
 
-    for use in (True, False):
+    for use in (True, False) if plain else (True,):
         profile_steps(torch, lambda b, use=use: run(use, b), batches[:2],
                       attention="kernels" if use else "plain")
+    if not plain:
+        return
     step_s = {True: [], False: []}
     for i in range(PROFILE_AB_ROUNDS):
         for use in (False, True, True, False):
@@ -2173,6 +2348,20 @@ def serve_prompts(vocab: int, n: int, lo: int, hi: int, seed: int):
     return [rng.integers(0, vocab, int(L)).astype(np.int32) for L in lens]
 
 
+def prefill_inputs(torch, model, params, toks):
+    """``prefill_fn``'s batch for tokens ``toks`` (B, S): the tokens, or
+    for a vision frontend their embeddings with ``arange`` on the three
+    M-RoPE axes (the ids ``decode_fn`` gives a text token)."""
+    if model.cfg.frontend != "vision":
+        return {"tokens": toks}
+    from repro_torch.models import layers as L
+
+    B, S = toks.shape
+    return {"embeds": L.embed_apply(params["embed"], toks),
+            "positions": torch.arange(S, dtype=torch.int32,
+                                      device=toks.device).expand(3, B, S)}
+
+
 def prefill_by_decode(torch, model, params, prompts, max_len: int):
     """The prompts fed one token a step through ``decode_fn`` in one batch
     (as the serve loop feeds them). For each prompt, at its last token: the
@@ -2266,10 +2455,11 @@ def serve_readings(torch, model, params, loop, step_s, wall_s):
     # host-bound, so events around it would time the host's dispatch
     prefill = {}
     for B, S in ((1, 128), (1, 512), (loop.num_slots, 512)):
-        toks = torch.randint(0, model.cfg.vocab_size, (B, S), device="cuda")
+        batch = prefill_inputs(torch, model, params, torch.randint(
+            0, model.cfg.vocab_size, (B, S), device="cuda"))
 
         def call():
-            model.prefill_fn(params, {"tokens": toks})
+            model.prefill_fn(params, batch)
             torch.cuda.synchronize()
 
         call()
@@ -2338,23 +2528,24 @@ def serve_run(torch, cfg, name, slots, max_len, n_requests, prompt, new):
 def prefill_hold(torch, model, params, prompts, max_len, name,
                  hold: bool = True):
     """prefill_fn (flash #2) against prefill-by-decode on ``prompts``: the
-    gaps of the last position's logits and of layer 0's K and V, held to
-    SERVE_LOGIT_TOL and SERVE_KV_TOL when ``hold``; and prefill_fn's
-    launches, one flash forward a layer a call. Returns (gaps,
-    launches)."""
+    gaps of the last position's logits and of the first attention
+    sub-layer's K and V, held to SERVE_LOGIT_TOL and SERVE_KV_TOL when
+    ``hold``; and prefill_fn's launches, one flash forward an attention
+    layer a call. Returns (gaps, launches)."""
     from repro_torch.kernels import flash_attention as fa
 
     by_decode = prefill_by_decode(torch, model, params, prompts, max_len)
     fa.reset_launches()
     gaps = []
     for p, (dec_logits, dec_cache) in zip(prompts, by_decode):
-        cache, logits = model.prefill_fn(
-            params, {"tokens": torch.from_numpy(p[None]).cuda()})
+        cache, logits = model.prefill_fn(params, prefill_inputs(
+            torch, model, params, torch.from_numpy(p[None]).cuda()))
+        attn = next(sub for sub in cache if "k" in cache[sub])
         g = {"len": len(p),
              "logits": rel_gap(torch, dec_logits, logits[0, 0])}
         for key in ("k", "v"):
-            g[key] = rel_gap(torch, dec_cache[f"sub0/{key}"][:, :len(p)],
-                             cache["sub0"][key][:, 0])
+            g[key] = rel_gap(torch, dec_cache[f"{attn}/{key}"][:, :len(p)],
+                             cache[attn][key][:, 0])
         check(not hold or (g["logits"] <= SERVE_LOGIT_TOL
                            and g["k"] <= SERVE_KV_TOL
                            and g["v"] <= SERVE_KV_TOL),
@@ -2362,7 +2553,8 @@ def prefill_hold(torch, model, params, prompts, max_len, name,
         gaps.append(g)
     flash = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
              "dkv": fa.dkv_launches}
-    want = {"fwd": model.cfg.num_layers * len(prompts), "dq": 0, "dkv": 0}
+    want = {"fwd": attention_calls(model.cfg) * len(prompts), "dq": 0,
+            "dkv": 0}
     check(flash == want, f"{name} prefill flash launches {flash} != {want}")
     return gaps, flash
 
@@ -2639,7 +2831,7 @@ def phase_serve_live(torch, name, train, **engine):
     peak = torch.cuda.max_memory_allocated()
     allocs = alloc_delta(allocs, alloc_counts(torch))
     digests = plane_digests(torch, state["read"])
-    check_history(hist, cfg.vocab_size, name)
+    check_history(hist, cfg, name)
     res = {"model": cfg.name, "M": M, "fb_ratio": R, "update_delay": 1,
            **engine, "steps": TRAIN_STEPS, "history": hist,
            "all_launches": every, "read_plane_sha256": digests,
@@ -3153,8 +3345,9 @@ def phase_checkpoint(torch):
 # card (934,287,616 parameters: a 7.47 GB bf16 plane at M=4); serving: 8
 # requests over 8 slots, prompts of 16-64 tokens, 16 new tokens
 MOE_NAME, MOE_LAYERS = "qwen3-moe-30b-a3b", 1
-MOE_SERVE_SLOTS, MOE_SERVE_MAX_LEN, MOE_SERVE_REQUESTS = 8, 256, 8
-MOE_SERVE_PROMPT, MOE_SERVE_NEW = (16, 64), 16
+# serving a family (serve_moe, serve_hybrid, serve_vlm): slots, max_len,
+# requests, prompt lengths and new tokens
+FAMILY_SERVE = (8, 256, 8, (16, 64), 16)
 
 
 def moe_config():
@@ -3253,8 +3446,9 @@ def moe_routing(torch, cfg, params, tokens) -> dict:
 
 def hold_plane_mix(torch, read, group: str = "blocks",
                    chunk: int = 1 << 24) -> dict:
-    """gossip_mix (#1) on the MoE step's largest buffer, the read plane's
-    bf16 ``group`` stacked over the M workers (past 2^31 elements), with
+    """gossip_mix (#1) on a family step's largest buffer (train_moe's,
+    train_hybrid's), the read plane's bf16 ``group`` stacked over its
+    workers (past 2^31 elements), with
     its ring hop (the roll the step makes) and a third operand (the roll
     by two): the fused and pure variants against gossip_mix_ref, which
     runs a chunk of columns at a time so that no float32 copy of the
@@ -3347,38 +3541,273 @@ def phase_train_moe(torch, profile: bool):
     return res
 
 
-def phase_serve_moe(torch):
-    """The MoE model (``moe_config()``, bf16, seed-0 weights) through
-    ServeLoop; then ``prefill_fn`` against prefill-by-decode at
+def phase_serve_family(torch, name, cfg):
+    """``cfg``'s model (its dtype, seed-0 weights) through ServeLoop
+    (FAMILY_SERVE); then ``prefill_fn`` against prefill-by-decode in
+    float32 (the same weights upcast) to phase serve's tolerances, the
+    model's own dtype's gaps as readings. An MoE holds at
     ``capacity_factor`` = E/k, where no assignment can drop (a prompt of T
-    tokens gets T slots an expert), in float32 (the same weights upcast)
-    to phase serve's tolerances; the bf16 gaps as readings."""
+    tokens gets T slots an expert)."""
     from repro_torch.core.pytree import tree_map
     from repro_torch.models import build_model
 
     t_phase = time.perf_counter()
-    cfg = moe_config()
     model, params, loop, prompts, step_s, wall, res = serve_run(
-        torch, cfg, "serve_moe", MOE_SERVE_SLOTS, MOE_SERVE_MAX_LEN,
-        MOE_SERVE_REQUESTS, MOE_SERVE_PROMPT, MOE_SERVE_NEW)
-    free = cfg.num_experts / cfg.experts_per_token
+        torch, cfg, name, *FAMILY_SERVE)
+    hold_kw = {}
+    if cfg.num_experts:
+        hold_kw["capacity_factor"] = cfg.num_experts / cfg.experts_per_token
+        res["hold_capacity_factor"] = hold_kw["capacity_factor"]
     gaps = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).replace("torch.", "")
+    for dtype in (torch.float32, cfg.dtype):
+        dn = str(dtype).replace("torch.", "")
         hold_params = tree_map(lambda t: t.to(dtype), params)
-        gaps[name], flash = prefill_hold(
-            torch, build_model(cfg.with_(capacity_factor=free, dtype=dtype)),
-            hold_params, prompts[:SERVE_HOLD], MOE_SERVE_MAX_LEN,
-            f"serve_moe ({name})", hold=dtype == torch.float32)
+        gaps[dn], flash = prefill_hold(
+            torch, build_model(cfg.with_(dtype=dtype, **hold_kw)),
+            hold_params, prompts[:SERVE_HOLD], FAMILY_SERVE[1],
+            f"{name} ({dn})", hold=dtype == torch.float32)
         del hold_params
-    res.update(hold_capacity_factor=free, prefill_vs_decode=gaps,
+    res.update(prefill_vs_decode=gaps,
                prefill_tol_float32={"logits": SERVE_LOGIT_TOL,
                                     "kv": SERVE_KV_TOL},
                prefill_launches=flash,
                **serve_readings(torch, model, params, loop, step_s, wall),
                peak_bytes=torch.cuda.max_memory_allocated())
-    emit("serve_moe", phase_s=time.perf_counter() - t_phase, **res)
+    emit(name, phase_s=time.perf_counter() - t_phase, **res)
     del loop, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_serve_moe(torch):
+    """The MoE model (``moe_config()``, bf16) through
+    ``phase_serve_family``."""
+    return phase_serve_family(torch, "serve_moe", moe_config())
+
+
+# ---------------------------------------------------------------------------
+# the hybrid, VLM and encoder-decoder families (ROADMAP item 14b-d)
+# ---------------------------------------------------------------------------
+
+# Each at full width with train's traffic (R=2, D=1, 4 x 256 tokens a
+# worker, 6 steps, seed-0 weights), its bf16 plane near 7-8 GB (a step
+# holds ~7 planes). Jamba v0.1: depth 32 -> 2 and attn_layer_period 8 -> 2
+# (configs.reduced's interleave: sub0 SSM + dense MLP, sub1 attention +
+# MoE), 3,675,001,376 parameters, M=1 (7.35 GB; at M=2 14.7 GB). Qwen2-VL
+# 2B whole, 1,543,656,960 parameters, M=2 (6.17 GB). Whisper large-v3
+# whole, 1,954,032,640 parameters, M=2 (7.82 GB).
+HYBRID_NAME, HYBRID_LAYERS, HYBRID_PERIOD, HYBRID_M = (
+    "jamba-v0.1-52b", 2, 2, 1)
+VLM_NAME, VLM_M = "qwen2-vl-2b", 2
+VLM_IMAGE_GRID = 8  # one 8 x 8 image span a training sequence
+ENCDEC_NAME, ENCDEC_M = "whisper-large-v3", 2
+# serve_encdec: prefill_fn and decode_fn over 8 sequences of 64 tokens,
+# held in float32 to decode_train's teacher-forced logits at every position
+ENCDEC_SERVE_SEQS, ENCDEC_SERVE_LEN, ENCDEC_TOL = 8, 64, SERVE_LOGIT_TOL
+
+
+def hybrid_config():
+    from repro_torch.configs import get_config
+
+    return get_config(HYBRID_NAME).with_(num_layers=HYBRID_LAYERS,
+                                         attn_layer_period=HYBRID_PERIOD)
+
+
+def family_readings(model, backend, state, batches) -> dict:
+    """After the counted window: ``ce`` and ``aux`` of one ``loss_fn`` call
+    on worker 0's read plane and first batch; the shapes of that batch's
+    forward slices (``_split_fwd_slices``: a (3, B, S) positions leaf on
+    its dim 1)."""
+    import torch
+    from repro_torch.launch.train import _split_fwd_slices
+
+    params = backend.part.unpack({n: v[0] for n, v in state["read"].items()})
+    batch = {n: v[0] for n, v in batches[0].items()}
+    with torch.no_grad():
+        _, metrics = model.loss_fn(params, batch)
+    slices = _split_fwd_slices(batch, R)
+    shapes = {k: list(v.shape) for k, v in slices[0].items()}
+    check(all(len(sl) == len(batch) for sl in slices)
+          and all(v.shape[1 if k == "positions" else 0]
+                  == BATCH_PER_WORKER // R for k, v in slices[0].items()),
+          f"forward slices {shapes}")
+    del params
+    return {"ce": metrics["ce"].item(), "aux": metrics["aux"].item(),
+            "init_loss": init_loss(model.cfg), "slice_shapes": shapes}
+
+
+def hybrid_readings(model, backend, state, batches) -> dict:
+    """``family_readings`` and ``hold_plane_mix`` on the read plane's bf16
+    ``blocks`` buffer (3.14e9 elements at M=1)."""
+    import torch
+
+    out = family_readings(model, backend, state, batches)
+    out["blocks_mix"] = hold_plane_mix(torch, state["read"])
+    return out
+
+
+def phase_train_family(torch, name, cfg, workers, batches, readings,
+                       profile=False) -> dict:
+    """``cfg`` through phase_train's entry points and traffic on
+    ``workers`` workers and ``batches``."""
+    res, backend = phase_train(torch, profile=profile, name=name, cfg=cfg,
+                               readings=readings, workers=workers,
+                               batches=batches)
+    del backend
+    res["phase"] = name
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_hybrid(torch, profile=False):
+    """train_hybrid: ``hybrid_config()`` at M=1 (``hybrid_readings``;
+    ``profile`` as train's); train_hybrid_pipeline: the same run through
+    the stage-graph engine (``overlap=True``), held to it bit for bit.
+    Returns train_hybrid's result."""
+    cfg = hybrid_config()
+    batches = lm_batches(torch, cfg.vocab_size, TRAIN_STEPS, seed=0,
+                         workers=HYBRID_M)
+    res = phase_train_family(torch, "train_hybrid", cfg, HYBRID_M, batches,
+                             hybrid_readings, profile)
+    _, backend = phase_train_engine(torch, "train_hybrid_pipeline", res,
+                                    cfg=cfg, workers=HYBRID_M,
+                                    batches=batches, overlap=True)
+    del backend
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_vlm(torch, profile=False):
+    """train_vlm: Qwen2-VL 2B whole at M=2 on ``family_batches``
+    (embeddings, (3, B, S) positions with an image span a sequence;
+    ``profile`` as train's)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(VLM_NAME)
+    batches = family_batches(torch, cfg, TRAIN_STEPS, seed=0,
+                             workers=VLM_M)
+    check(batches[0]["positions"].shape == (VLM_M, 3, BATCH_PER_WORKER, SEQ),
+          f"VLM positions {tuple(batches[0]['positions'].shape)}")
+    return phase_train_family(torch, "train_vlm", cfg, VLM_M, batches,
+                              family_readings, profile)
+
+
+def phase_train_encdec(torch, profile=False):
+    """train_encdec: Whisper large-v3 whole at M=2 on ``family_batches``
+    (1500 audio frames, 256 tokens a sequence; ``profile`` as train's)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ENCDEC_NAME)
+    batches = family_batches(torch, cfg, TRAIN_STEPS, seed=0,
+                             workers=ENCDEC_M)
+    return phase_train_family(torch, "train_encdec", cfg, ENCDEC_M,
+                              batches, family_readings,
+                              "kernels" if profile else False)
+
+
+def phase_serve_encdec(torch):
+    """serve_encdec: Whisper large-v3 (bf16, seed-0 weights): ``prefill_fn``
+    (the encoder, every layer's cross K/V, the first token) and then
+    ``decode_fn`` over the later tokens of ENCDEC_SERVE_SEQS sequences,
+    each step host-timed to a synchronisation. prefill_fn launches one
+    flash forward an encoder layer, decode none. Held in float32 (the same
+    weights and frames upcast) to ``decode_train``'s teacher-forced logits
+    at every position, within ENCDEC_TOL of their largest |value|; the
+    bf16 gap as a reading. No ServeLoop: the JAX package serves whisper
+    only through these two functions (its ServeLoop never fills the cross
+    cache)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.data.synthetic import lm_batch_for
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+    from repro_torch.models import encdec as ED
+
+    t_phase = time.perf_counter()
+    cfg = get_config(ENCDEC_NAME)
+    B, S = ENCDEC_SERVE_SEQS, ENCDEC_SERVE_LEN
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    batch = lm_batch_for(cfg, B, S, generator=gen, device="cuda")
+    toks = batch["tokens"]
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+
+    def incremental(model, params, batch, timed=None):
+        """(B, S, V) float32 logits: prefill_fn, then decode_fn a token a
+        step; ``timed`` collects each call's host seconds."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, logits = model.prefill_fn(params, batch)
+        torch.cuda.synchronize()
+        out = [logits[:, 0]]
+        if timed is not None:
+            timed["prefill_s"] = time.perf_counter() - t0
+            fa.reset_launches()
+        steps = []
+        for t in range(1, S):
+            t0 = time.perf_counter()
+            logits, cache = model.decode_fn(
+                params, cache, toks[:, t:t + 1],
+                torch.full((B,), t, dtype=torch.int64, device="cuda"))
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+            out.append(logits[:, 0])
+        if timed is not None:
+            timed["decode_s"] = steps
+            timed["cache_bytes"] = sum(v.numel() * v.element_size()
+                                       for leaves in cache.values()
+                                       for v in leaves.values())
+        return torch.stack(out, dim=1)
+
+    incremental(model, params, batch)  # warm
+    timed = {}
+    got = incremental(model, params, batch, timed)  # counts from decode
+    decode_flash = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
+                    "dkv": fa.dkv_launches}
+    check(decode_flash == {"fwd": 0, "dq": 0, "dkv": 0},
+          f"serve_encdec decode flash launches {decode_flash}")
+    fa.reset_launches()
+    model.prefill_fn(params, batch)
+    torch.cuda.synchronize()
+    launches = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
+                "dkv": fa.dkv_launches}
+    want = {"fwd": cfg.enc_layers, "dq": 0, "dkv": 0}
+    check(launches == want,
+          f"serve_encdec prefill flash launches {launches} != {want}")
+    gaps = {}
+    for dtype in (torch.float32, cfg.dtype):
+        dn = str(dtype).replace("torch.", "")
+        m = build_model(cfg.with_(dtype=dtype))
+        p = tree_map(lambda t: t.to(dtype), params)
+        b = dict(batch, audio_embeds=batch["audio_embeds"].to(dtype))
+        with torch.no_grad():
+            full = ED.decode_train(p, ED.encode(p, b["audio_embeds"],
+                                                m.cfg), toks, m.cfg)
+        inc = got if dtype == cfg.dtype else incremental(m, p, b)
+        gaps[dn] = rel_gap(torch, inc, full)
+        check(dtype != torch.float32 or gaps[dn] <= ENCDEC_TOL,
+              f"serve_encdec float32 decode vs decode_train {gaps[dn]}")
+        del m, p, b, full, inc
+    steps = sorted(timed["decode_s"])
+    p99 = steps[min(len(steps) - 1, int(math.ceil(0.99 * len(steps))) - 1)]
+    res = {"model": cfg.name, "enc_layers": cfg.enc_layers,
+           "layers": cfg.num_layers, "enc_seq": cfg.enc_seq,
+           "dtype": str(cfg.dtype).replace("torch.", ""), "sequences": B,
+           "tokens": S, "prefill_ms": 1e3 * timed["prefill_s"],
+           "decode_steps": len(steps),
+           "decode_step_median_ms": 1e3 * statistics.median(steps),
+           "decode_step_p99_ms": 1e3 * p99,
+           "tokens_per_s": B * len(steps) / sum(steps),
+           "cache_bytes": timed["cache_bytes"],
+           "decode_vs_decode_train": gaps, "tol_float32": ENCDEC_TOL,
+           "prefill_launches": launches,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    emit("serve_encdec", phase_s=time.perf_counter() - t_phase, **res)
+    del params, batch, got
     torch.cuda.empty_cache()
     return res
 
@@ -3421,7 +3850,7 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     phase_build()
     kern = phase_kernels(torch)
-    flash = phase_flash(torch)
+    flash, flash_families = phase_flash(torch)
     quant = phase_quantize(torch)
     norm_ssd = phase_norm_ssd(torch)
     profile = "--profile" in argv
@@ -3496,6 +3925,21 @@ def main(argv) -> int:
     serve_moe = phase_serve_moe(torch)
     moe_s["serve_moe"] = time.perf_counter() - t1
     emit("moe_phases", seconds=moe_s, total_s=sum(moe_s.values()))
+    from repro_torch.configs import get_config
+    fam, fam_s = {}, {}
+    for name, fn in (
+            ("train_hybrid", lambda t: phase_train_hybrid(t, profile)),
+            ("serve_hybrid", lambda t: phase_serve_family(
+                t, "serve_hybrid", hybrid_config())),
+            ("train_vlm", lambda t: phase_train_vlm(t, profile)),
+            ("serve_vlm", lambda t: phase_serve_family(
+                t, "serve_vlm", get_config(VLM_NAME))),
+            ("train_encdec", lambda t: phase_train_encdec(t, profile)),
+            ("serve_encdec", phase_serve_encdec)):
+        t1 = time.perf_counter()
+        fam[name] = fn(torch)
+        fam_s[name] = time.perf_counter() - t1
+    emit("family_phases", seconds=fam_s, total_s=sum(fam_s.values()))
     fused = kern["timing"]["fused"]
     launches = train["flash_launches"]
     rows = [{
@@ -3562,6 +4006,21 @@ def main(argv) -> int:
     rows[1]["moe_serve_launches"] = serve_moe["prefill_launches"]["fwd"]
     # #1 on the MoE step's own bf16 blocks buffer (past 2^31 elements)
     rows[0]["moe_blocks"] = moe["blocks_mix"]
+    # the hybrid, VLM and encoder-decoder steps' launches (#1-#4), the
+    # prefill launches of their serve phases (#2), #1 on the hybrid's
+    # bf16 blocks buffer, and #2-#4 timed at the families' shapes
+    for row in rows[:4]:
+        for fam_name in ("hybrid", "vlm", "encdec"):
+            row[f"{fam_name}_launches"] = row_launches(
+                fam[f"train_{fam_name}"]["all_launches"], row["name"])
+    for fam_name in ("hybrid", "vlm", "encdec"):
+        rows[1][f"{fam_name}_serve_launches"] = fam[f"serve_{fam_name}"][
+            "prefill_launches"]["fwd"]
+    rows[0]["hybrid_blocks"] = fam["train_hybrid"]["blocks_mix"]
+    for row, kind in zip(rows[1:4], ("fwd", "bwd", "trainable")):
+        row["family_shapes"] = [
+            {"shape": c["shape"], "causal": c["causal"], "dtype": c["dtype"],
+             **c[kind]} for c in flash_families]
     print(json.dumps({"kernels": rows}), flush=True)
     emit("done", wall_s=time.perf_counter() - t0)
     print(smi, flush=True)

@@ -2,10 +2,10 @@
 
 ``ModelConfig`` keeps every field of the JAX package's config, so a config
 ports field for field; ``dtype`` is a ``torch.dtype``. The registry holds
-the configs the port can build: the dense decoders, the SSM family
-(Mamba2) and the mixture-of-experts family. The other families of the JAX
-package's zoo are named here so that asking for one says what is missing.
-``reduced`` derives the small same-family variant the tests build.
+all twelve configs of the JAX package's zoo: the dense decoders, the SSM
+family (Mamba2), the mixture-of-experts family, the hybrid (Jamba), the VLM
+backbone (Qwen2-VL, M-RoPE) and the encoder-decoder (Whisper). ``reduced``
+derives the small same-family variant the tests build.
 """
 from __future__ import annotations
 
@@ -149,15 +149,10 @@ class ModelConfig:
 
 _REGISTRY: Dict[str, ModelConfig] = {}
 
-_ARCH_MODULES = ["gpt2_medium", "gpt2_xl", "granite_8b", "mamba2_780m",
-                 "mixtral_8x7b", "moonshot_v1_16b_a3b", "qwen3_moe_30b_a3b",
-                 "stablelm_1_6b", "yi_34b"]
-
-# configs of the JAX package whose families the port cannot build yet
-_NOT_PORTED = {
-    "jamba-v0.1-52b": "hybrid", "qwen2-vl-2b": "vlm",
-    "whisper-large-v3": "audio",
-}
+_ARCH_MODULES = ["gpt2_medium", "gpt2_xl", "granite_8b", "jamba_v0_1_52b",
+                 "mamba2_780m", "mixtral_8x7b", "moonshot_v1_16b_a3b",
+                 "qwen2_vl_2b", "qwen3_moe_30b_a3b", "stablelm_1_6b",
+                 "whisper_large_v3", "yi_34b"]
 
 
 def register(cfg: ModelConfig) -> ModelConfig:
@@ -173,11 +168,6 @@ def _ensure_loaded():
 
 def get_config(name: str) -> ModelConfig:
     _ensure_loaded()
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name!r} is a {_NOT_PORTED[name]} model; the port builds "
-            "dense, SSM and MoE decoders only so far (ROADMAP queue 1, "
-            "item 14)")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]

@@ -9,6 +9,11 @@ to a device.
   matrix; its conditional entropy is the irreducible loss floor. The matrix
   is ``vocab x vocab`` float64, so it suits small vocabularies only.
 * ``SyntheticVision``: a k-class Gaussian-prototype task.
+
+``lm_batch_for`` draws a random batch of the shape a model family takes
+(tokens; the VLM's embeddings with M-RoPE positions; Whisper's audio
+frames with tokens) from a ``torch.Generator``, as tensors on a device:
+its draws are not the JAX package's.
 """
 from __future__ import annotations
 
@@ -16,6 +21,10 @@ from dataclasses import dataclass
 from typing import Dict
 
 import numpy as np
+import torch
+
+from repro_torch.models.frontends import (synth_audio_frames,
+                                          synth_patch_embeddings)
 
 
 @dataclass
@@ -79,3 +88,35 @@ def make_worker_batches(dataset, num_workers: int, batch_per_worker: int,
             (epoch_seed * 1_000_003 + step) * 64 + w)
         out.append(dataset.sample(rng, batch_per_worker))
     return {k: np.stack([b[k] for b in out]) for k in out[0]}
+
+
+def lm_batch_for(cfg, batch: int, seq: int, *, generator, device
+                 ) -> Dict[str, torch.Tensor]:
+    """A random batch matching what ``cfg``'s model takes (the port of the
+    reference's ``lm_batch_for``): ``labels`` (batch, seq) int32 with
+    ``tokens`` (batch, seq) int32; for a vision frontend ``embeds``
+    (batch, seq, d_model) in ``cfg.dtype`` and ``positions`` (3, batch,
+    seq) int32, ``arange`` on every axis, in place of tokens; for an audio
+    frontend also ``audio_embeds`` (batch, enc_seq, d_model). Draws from
+    ``generator`` on ``device``."""
+    def tokens():
+        return torch.randint(0, cfg.vocab_size, (batch, seq),
+                             generator=generator, dtype=torch.int32,
+                             device=device)
+
+    out: Dict[str, torch.Tensor] = {}
+    if cfg.frontend == "vision":
+        out["embeds"] = synth_patch_embeddings(generator, batch, seq,
+                                               cfg.d_model, dtype=cfg.dtype,
+                                               device=device)
+        out["positions"] = torch.arange(
+            seq, dtype=torch.int32, device=device).expand(3, batch, seq)
+    elif cfg.frontend == "audio":
+        out["audio_embeds"] = synth_audio_frames(
+            generator, batch, cfg.enc_seq, cfg.d_model, dtype=cfg.dtype,
+            device=device)
+        out["tokens"] = tokens()
+    else:
+        out["tokens"] = tokens()
+    out["labels"] = tokens()
+    return out

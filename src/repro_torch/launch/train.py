@@ -71,16 +71,26 @@ from repro_torch.optim.optimizers import Optimizer, apply_updates
 # ---------------------------------------------------------------------------
 
 
+def _batch_dim(leaf) -> int:
+    """A leaf's batch dimension: M-RoPE positions, (3, B, S) int32, on dim
+    1; every other leaf leads with it (the reference's rule)."""
+    if leaf.dim() == 3 and leaf.shape[0] == 3 and leaf.dtype == torch.int32:
+        return 1
+    return 0
+
+
 def _split_fwd_slices(batch, R: int):
-    """Split a per-worker batch into R equal forward slices along the batch
-    dim, dim 0 of every leaf (slice 0 feeds the backward lane)."""
+    """Split a per-worker batch into R equal forward slices along each
+    leaf's batch dim (:func:`_batch_dim`; slice 0 feeds the backward
+    lane)."""
     def slc(x, r):
-        n = x.shape[0]
+        d = _batch_dim(x)
+        n = x.shape[d]
         if n % R:
             raise ValueError(
                 f"fb_ratio={R} needs per-worker batch divisible by {R}; "
                 f"got leaf shape {tuple(x.shape)}")
-        return x[(n // R) * r:(n // R) * (r + 1)]
+        return x.narrow(d, (n // R) * r, n // R)
 
     return [tree_map(lambda x: slc(x, r), batch) for r in range(R)]
 

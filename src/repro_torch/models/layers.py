@@ -103,23 +103,30 @@ def _rope_freqs(head_dim: int, fraction: float, theta: float):
     return rot_dim, inv  # (rot_dim//2,) float32
 
 
-# (rot_dim, theta, device) -> the inverse frequencies on that device. A copy
-# from pageable host memory waits for the device's queue, so a copy per call
-# would stall the host at every attention layer; each device gets one.
-_ROPE_INV = {}
+# (name, ..., device) -> a constant table (inverse frequencies, sinusoids)
+# on that device. A copy from pageable host memory waits for the device's
+# queue, so a copy per call would stall the host at every attention layer;
+# each device gets one.
+_DEVICE_TABLES = {}
+
+
+def _device_table(key, make, device: torch.device) -> torch.Tensor:
+    """The table ``make()`` (a float32 numpy array) on ``device``, copied
+    there once per ``key`` and device."""
+    key = key + (device,)
+    if key not in _DEVICE_TABLES:
+        with torch.inference_mode(False):  # usable by training too
+            t = torch.from_numpy(make()).to(device)
+        if t.device.type == "cuda":
+            # visible to every stream before first use
+            torch.cuda.current_stream(t.device).synchronize()
+        _DEVICE_TABLES[key] = t
+    return _DEVICE_TABLES[key]
 
 
 def _rope_inv(rot_dim: int, inv: np.ndarray, theta: float,
               device: torch.device) -> torch.Tensor:
-    key = (rot_dim, theta, device)
-    if key not in _ROPE_INV:
-        with torch.inference_mode(False):  # usable by training too
-            t = torch.from_numpy(inv).to(device)
-        if t.device.type == "cuda":
-            # visible to every stream before first use
-            torch.cuda.current_stream(t.device).synchronize()
-        _ROPE_INV[key] = t
-    return _ROPE_INV[key]
+    return _device_table(("rope", rot_dim, theta), lambda: inv, device)
 
 
 def apply_rope(x, positions, *, theta=1e4, fraction=1.0):
@@ -132,12 +139,63 @@ def apply_rope(x, positions, *, theta=1e4, fraction=1.0):
         return x
     inv = _rope_inv(rot_dim, inv, theta, x.device)
     ang = positions[..., :, None].to(torch.float32) * inv  # (..., S, rd/2)
+    return _rotate(x, ang, rot_dim)
+
+
+def _rotate(x, ang, rot_dim):
+    """The rotation of x's first ``rot_dim`` features by angles ``ang``
+    (..., S, rot_dim/2), in float32, stored in x's dtype."""
     sin, cos = torch.sin(ang)[..., None, :], torch.cos(ang)[..., None, :]
     x_rot, x_pass = x[..., :rot_dim], x[..., rot_dim:]
     x1, x2 = x_rot[..., : rot_dim // 2], x_rot[..., rot_dim // 2:]
     out1 = x1.to(torch.float32) * cos - x2.to(torch.float32) * sin
     out2 = x2.to(torch.float32) * cos + x1.to(torch.float32) * sin
     return torch.cat([out1.to(x.dtype), out2.to(x.dtype), x_pass], dim=-1)
+
+
+# M-RoPE (qwen2-vl): the half-dim frequencies split into 3 sections fed by
+# the (t, h, w) position ids
+_MROPE_FRACS = (0.25, 0.375, 0.375)
+
+
+def mrope_sections(head_dim: int) -> list:
+    half = head_dim // 2
+    secs = [int(half * f) for f in _MROPE_FRACS]
+    secs[-1] = half - secs[0] - secs[1]
+    return secs
+
+
+def apply_mrope(x, positions3, *, theta=1e6):
+    """x: (B, S, H, D); positions3: (3, B, S) temporal/height/width ids.
+    Frequency i of the half dimension turns with the ids of its section's
+    axis; the inverse frequencies are standard RoPE's over all of D."""
+    head_dim = x.shape[-1]
+    rot_dim, inv = _rope_freqs(head_dim, 1.0, theta)
+    inv = _rope_inv(rot_dim, inv, theta, x.device)
+    pos = torch.cat([positions3[i][..., None].expand(
+        *positions3.shape[1:], n) for i, n in enumerate(
+            mrope_sections(head_dim))], dim=-1)  # (B, S, half)
+    return _rotate(x, pos.to(torch.float32) * inv, rot_dim)
+
+
+def _sinusoid_table(seq_len: int, d_model: int) -> np.ndarray:
+    pos = np.arange(seq_len, dtype=np.float32)[:, None]
+    dim = np.arange(0, d_model, 2, dtype=np.float32)[None, :]
+    ang = pos / np.power(10000.0, dim / d_model)
+    out = np.zeros((seq_len, d_model), np.float32)
+    out[:, 0::2] = np.sin(ang)
+    out[:, 1::2] = np.cos(ang)
+    return out
+
+
+def sinusoidal_positions(seq_len: int, d_model: int, *,
+                         device) -> torch.Tensor:
+    """(seq_len, d_model) float32 sinusoids (sin at even, cos at odd
+    features), computed in numpy as the reference does and kept on
+    ``device``."""
+    return _device_table(("sinusoid", seq_len, d_model),
+                         lambda: _sinusoid_table(seq_len, d_model),
+                         torch.device(device))
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,17 @@
-"""Model API (port of ``repro/models/model.py``, the dense, SSM and
-mixture-of-experts decoders).
+"""Model API (port of ``repro/models/model.py``): the decoder families
+(dense, SSM, mixture-of-experts, hybrid, the VLM backbone) and the
+encoder-decoder (Whisper).
 
 ``build_model(cfg)`` returns a ``Model`` bundle of functions over a params
 dict of the JAX package's tree:
 
   loss_fn(params, batch)   (scalar loss, {"ce", "aux"}), teacher-forced LM;
                            loss = ce + router_aux_weight * aux (the MoE
-                           layers' load-balance loss, 0 without them)
+                           layers' load-balance loss, 0 without them).
+                           A batch holds "tokens" and "labels" (B, S);
+                           the VLM's holds "embeds" (B, S, d) and
+                           "positions" (3, B, S) in place of tokens;
+                           Whisper's adds "audio_embeds" (B, enc_seq, d)
   prefill_fn(params, batch) -> (cache, last_logits)
   decode_fn(params, cache, token, position) -> (logits, cache)
   cache_specs(B, seq_len)  ``CacheSpec`` tree (``transformer.alloc_cache``
@@ -27,6 +32,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pytree import tree_flatten_with_path
+from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -46,19 +52,26 @@ class Model:
 
 
 def _decoder_embed_inputs(params, batch, cfg):
+    """Embed the tokens, or take the stub frontend's embeddings; returns
+    (h, positions (B, S), mrope_pos (3, B, S) or None). The VLM's
+    temporal axis doubles as the positions."""
+    if cfg.frontend == "vision":
+        mrope_pos = batch["positions"]
+        return batch["embeds"], mrope_pos[0], mrope_pos
     tokens = batch["tokens"]
     B, S = tokens.shape
     h = L.embed_apply(params["embed"], tokens)
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    return h, positions
+    return h, positions, None
 
 
 def _build_decoder_model(cfg: ModelConfig) -> Model:
     specs = T.decoder_specs(cfg)
 
     def loss_fn(params, batch):
-        h, positions = _decoder_embed_inputs(params, batch, cfg)
-        h, aux, _ = T.decoder_forward(params, h, cfg, positions=positions)
+        h, positions, mrope_pos = _decoder_embed_inputs(params, batch, cfg)
+        h, aux, _ = T.decoder_forward(params, h, cfg, positions=positions,
+                                      mrope_pos=mrope_pos)
         h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
         logits = L.unembed_apply(params["embed"], h, cfg.tie_embeddings)
         ce = L.cross_entropy(logits, batch["labels"])
@@ -67,12 +80,14 @@ def _build_decoder_model(cfg: ModelConfig) -> Model:
 
     @torch.inference_mode()
     def prefill_fn(params, batch):
-        """The full-sequence path over ``batch["tokens"]`` (B, S): the
+        """The full-sequence path over ``batch["tokens"]`` (B, S) (the
+        VLM's: ``batch["embeds"]`` and ``batch["positions"]``): the
         attention goes through ``layers.attention`` (the flash forward on
         a CUDA tensor). Returns the cache of the S positions and the last
         position's float32 logits (B, 1, V)."""
-        h, positions = _decoder_embed_inputs(params, batch, cfg)
+        h, positions, mrope_pos = _decoder_embed_inputs(params, batch, cfg)
         h, _, cache = T.decoder_forward(params, h, cfg, positions=positions,
+                                        mrope_pos=mrope_pos,
                                         collect_cache=True)
         h = L.rmsnorm(h[:, -1:], params["final_norm"], cfg.norm_eps)
         logits = L.unembed_apply(params["embed"], h, cfg.tie_embeddings)
@@ -98,10 +113,56 @@ def _build_decoder_model(cfg: ModelConfig) -> Model:
     return Model(cfg, specs, loss_fn, prefill_fn, decode_fn, cache_specs)
 
 
+def _build_encdec_model(cfg: ModelConfig) -> Model:
+    specs = ED.encdec_specs(cfg)
+
+    def loss_fn(params, batch):
+        enc_h = ED.encode(params, batch["audio_embeds"], cfg)
+        logits = ED.decode_train(params, enc_h, batch["tokens"], cfg)
+        ce = L.cross_entropy(logits, batch["labels"])
+        return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
+                                                 device=ce.device)}
+
+    @torch.inference_mode()
+    def prefill_fn(params, batch):
+        """The decode cache of ``batch["audio_embeds"]``: the encoder pass,
+        every layer's cross K/V, a zeroed self cache of
+        ``batch["tokens"].shape[1]`` slots; then the decode step of the
+        first token at position 0. Returns (cache, its float32 logits
+        (B, 1, V)); feeding the later tokens is the caller's."""
+        enc_h = ED.encode(params, batch["audio_embeds"], cfg)
+        xk, xv = ED.cross_kv(params, enc_h)
+        B, S = batch["tokens"].shape
+        self_cache = T.alloc_cache(
+            T.attn_cache_specs(cfg, B, S, cfg.sliding_window,
+                               (cfg.num_layers,), cfg.dtype),
+            device=enc_h.device)
+        cache = {"self": self_cache, "cross": {"k": xk, "v": xv}}
+        logits, cache = ED.decode_step(
+            params, cache, batch["tokens"][:, :1],
+            torch.zeros((B,), dtype=torch.int64, device=enc_h.device), cfg,
+            window=cfg.sliding_window)
+        return cache, logits
+
+    @torch.inference_mode()
+    def decode_fn(params, cache, token, position):
+        """One token a sequence against the cache ``prefill_fn`` built;
+        the self cache is written in place."""
+        return ED.decode_step(params, cache, token, position, cfg,
+                              window=cfg.sliding_window)
+
+    def cache_specs(B, seq_len, dtype=None):
+        return ED.encdec_cache_specs(cfg, B, seq_len, cfg.sliding_window,
+                                     dtype)
+
+    return Model(cfg, specs, loss_fn, prefill_fn, decode_fn, cache_specs)
+
+
 def build_model(cfg: ModelConfig) -> Model:
-    """Dense, SSM and MoE decoders all go through the one decoder path;
-    other families raise ``NotImplementedError``
-    (``transformer.decoder_specs``)."""
+    """The encoder-decoder for ``cfg.enc_dec``; every other family goes
+    through the one decoder path."""
+    if cfg.enc_dec:
+        return _build_encdec_model(cfg)
     return _build_decoder_model(cfg)
 
 

@@ -1,12 +1,15 @@
-"""Decoder-only stack: the dense, SSM and mixture-of-experts families
-(port of ``repro/models/transformer.py``).
+"""Decoder-only stack: the dense, SSM, mixture-of-experts, hybrid and VLM
+families (port of ``repro/models/transformer.py``).
 
 Layer parameters are stacked on a leading ``(n_super, ...)`` axis exactly as
 the JAX package stacks them for ``lax.scan``: the stack repeats a
 super-block of ``p`` sub-layers (``sub0`` … ``sub{p-1}``), ``p`` the
 smallest period of the layer kinds (1 for a dense or an SSM decoder), so
 the flat partition sees the same three layer groups (``blocks``, ``embed``,
-``final_norm``). The scan becomes a Python loop over the stacked index;
+``final_norm``). The hybrid (Jamba) repeats a super-block of
+``attn_layer_period`` sub-layers: attention at ``sub{period // 2}``, SSM
+elsewhere, an MoE on every ``moe_layer_period``-th. The VLM backbone
+(``cfg.mrope``) rotates q and k by M-RoPE over (3, B, S) position ids. The scan becomes a Python loop over the stacked index;
 each iteration takes views of the stacked leaves. The decode step loops the
 same way and writes the cache in place (the reference's jitted serve step
 donates its cache).
@@ -23,21 +26,6 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MoE
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import ParamSpec
-
-
-def _check_supported(cfg) -> None:
-    """The families the port builds: dense, SSM and MoE decoders."""
-    missing = [what for what, on in (
-        ("hybrid attention/SSM interleave", cfg.family == "hybrid"),
-        ("encoder-decoder", cfg.enc_dec), ("M-RoPE", cfg.mrope),
-        (f"a {cfg.frontend} frontend", cfg.frontend is not None)) if on]
-    if cfg.family not in ("dense", "ssm", "moe"):
-        missing.append(f"the {cfg.family} family")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name!r} ({cfg.family}) needs {', '.join(missing)}: the "
-            "port builds dense, SSM and MoE decoders only so far (ROADMAP "
-            "queue 1, item 14)")
 
 
 # ---------------------------------------------------------------------------
@@ -63,18 +51,25 @@ def _project_qkv(p, x, cfg):
     return q, k, v
 
 
-def _rope_qk(q, k, cfg, positions):
+def _rope_qk(q, k, cfg, positions, mrope_pos):
+    if cfg.mrope and mrope_pos is not None:
+        return (L.apply_mrope(q, mrope_pos, theta=cfg.rope_theta),
+                L.apply_mrope(k, mrope_pos, theta=cfg.rope_theta))
     return (L.apply_rope(q, positions, theta=cfg.rope_theta,
                          fraction=cfg.rope_fraction),
             L.apply_rope(k, positions, theta=cfg.rope_theta,
                          fraction=cfg.rope_fraction))
 
 
-def attn_sublayer(p, h, cfg, *, positions, window=0, causal=True):
-    """Full-sequence attention (train / prefill). Returns (h', (k, v))."""
+def attn_sublayer(p, h, cfg, *, positions, mrope_pos=None, window=0,
+                  causal=True):
+    """Full-sequence attention (train / prefill). Returns (h', (k, v)).
+    ``positions`` (B, S) (or ``mrope_pos`` (3, B, S) under ``cfg.mrope``)
+    rotate q and k; the mask is derived from indices, as the reference's
+    kernel route derives it (``layers.attention``)."""
     x = L.rmsnorm(h, p["norm"], cfg.norm_eps)
     q, k, v = _project_qkv(p, x, cfg)
-    q, k = _rope_qk(q, k, cfg, positions)
+    q, k = _rope_qk(q, k, cfg, positions, mrope_pos)
     out = L.attention(q, k, v, causal=causal, window=window)
     o = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return h + o, (k, v)
@@ -89,7 +84,9 @@ def attn_sublayer_decode(p, h, cfg, cache, *, position, window=0):
     Sc = cache["k"].shape[1]
     x = L.rmsnorm(h, p["norm"], cfg.norm_eps)
     q, k, v = _project_qkv(p, x, cfg)
-    q, k = _rope_qk(q, k, cfg, position[:, None])
+    # M-RoPE: a text token's position on all three axes
+    mp = position[None, :, None].expand(3, B, 1) if cfg.mrope else None
+    q, k = _rope_qk(q, k, cfg, position[:, None], mp)
     position = position.long()
     slot = (torch.remainder(position, Sc) if window > 0
             else torch.clamp(position, max=Sc - 1))
@@ -219,7 +216,6 @@ def decoder_specs(cfg) -> Dict[str, Any]:
     """Same tree as the JAX package: ``blocks/sub{i}/{attn|ssm}[, mlp]``
     (``mlp`` a dense MLP or, on an MoE layer, the router and experts),
     every leaf stacked ``(num_layers // period, ...)``."""
-    _check_supported(cfg)
     kinds = layer_kinds(cfg)[:_superblock_period(cfg)]
     prefix = (cfg.num_layers // len(kinds),)
     blocks: Dict[str, Any] = {}
@@ -238,27 +234,33 @@ def decoder_specs(cfg) -> Dict[str, Any]:
     }
 
 
+def stacked_layers(tree):
+    """The per-index trees of a tree of leaves stacked on a leading axis
+    (views, in order). One unbind per stacked leaf: its backward stacks
+    the per-index grads in one pass (an index per layer would add a
+    full-size zero-filled gradient per layer)."""
+    stacked, treedef = tree_flatten(tree)
+    per_index = [x.unbind(0) for x in stacked]
+    for j in range(stacked[0].shape[0]):
+        yield tree_unflatten(treedef, [u[j] for u in per_index])
+
+
 def decoder_layers(params):
     """The stack's layers in order: yields ``(layer, sub)``, ``sub`` the
     ``{attn|ssm[, mlp]}`` params of one layer (views of the stacked
-    leaves). One unbind per stacked leaf: its backward stacks the
-    per-layer grads in one pass (an index per layer would add a full-size
-    zero-filled gradient per layer)."""
-    blocks = params["blocks"]
-    period = len(blocks)
-    stacked, treedef = tree_flatten(blocks)
-    per_super = [x.unbind(0) for x in stacked]
-    for j in range(stacked[0].shape[0]):
-        superblock = tree_unflatten(treedef, [u[j] for u in per_super])
+    leaves)."""
+    period = len(params["blocks"])
+    for j, superblock in enumerate(stacked_layers(params["blocks"])):
         for i in range(period):
             yield j * period + i, superblock[f"sub{i}"]
 
 
-def _mixer(sub, h, cfg, *, positions, collect_cache=False):
+def _mixer(sub, h, cfg, *, positions, mrope_pos=None, collect_cache=False):
     """One layer's mixer (attention or SSM): (h, its cache entry or
     None)."""
     if "attn" in sub:
         h, (k, v) = attn_sublayer(sub["attn"], h, cfg, positions=positions,
+                                  mrope_pos=mrope_pos,
                                   window=cfg.sliding_window)
         return h, ({"k": k, "v": v} if collect_cache else None)
     h, st = ssm_sublayer(sub["ssm"], h, cfg, return_state=collect_cache)
@@ -266,33 +268,36 @@ def _mixer(sub, h, cfg, *, positions, collect_cache=False):
                else None)
 
 
-def decoder_layer(sub, h, cfg, *, positions, use_moe):
+def decoder_layer(sub, h, cfg, *, positions, use_moe, mrope_pos=None):
     """One layer: its mixer (attention or SSM), then its MLP (or MoE, with
     ``use_moe``) if it has one. Returns (h, aux), aux None without an
     MoE."""
-    h, _ = _mixer(sub, h, cfg, positions=positions)
+    h, _ = _mixer(sub, h, cfg, positions=positions, mrope_pos=mrope_pos)
     if "mlp" in sub:
         return mlp_sublayer(sub["mlp"], h, cfg, use_moe=use_moe)
     return h, None
 
 
-def decoder_forward(params, h, cfg, *, positions, collect_cache=False):
+def decoder_forward(params, h, cfg, *, positions, mrope_pos=None,
+                    collect_cache=False):
     """Run the stack over hidden states ``h`` (B, S, d). Returns
     (h, aux_loss, cache|None); with ``collect_cache`` the cache holds each
     layer's K/V (attention) or final state and conv tail (SSM), stacked
-    ``(n_super, ...)`` under ``sub{i}`` as the reference's are."""
+    ``(n_super, ...)`` under ``sub{i}`` as the reference's are.
+    ``mrope_pos`` (3, B, S): the M-RoPE ids (``cfg.mrope``)."""
     if not collect_cache:
         aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
         for layer, sub in decoder_layers(params):
             h, aux = decoder_layer(sub, h, cfg, positions=positions,
-                                   use_moe=cfg.is_moe_layer(layer))
+                                   use_moe=cfg.is_moe_layer(layer),
+                                   mrope_pos=mrope_pos)
             if aux is not None:
                 aux_total = aux_total + aux
         return h, aux_total, None
     entries = []
     for layer, sub in decoder_layers(params):
         h, entry = _mixer(sub, h, cfg, positions=positions,
-                          collect_cache=True)
+                          mrope_pos=mrope_pos, collect_cache=True)
         entries.append(entry)
         if "mlp" in sub:
             h, _ = mlp_sublayer(sub["mlp"], h, cfg,

@@ -31,6 +31,37 @@ def torch_cfg(jcfg):
     return ModelConfig(**kw)
 
 
+def model_pair(name, seed=0, **kw):
+    """(jax model, jax params, port model, port params) of one JAX init of
+    ``reduced(name)`` (with ``kw``), carried across with ``to_torch``."""
+    from repro.configs import get_config as jax_get_config
+    from repro.configs import reduced as jax_reduced
+    from repro.models import build_model as jax_build_model
+    from repro_torch.convert import to_torch
+    from repro_torch.models import build_model
+
+    jcfg = jax_reduced(jax_get_config(name))
+    if kw:
+        jcfg = jcfg.with_(**kw)
+    jm = jax_build_model(jcfg)
+    jp = jm.init(jax.random.PRNGKey(seed))
+    tm = build_model(torch_cfg(jcfg))
+    return jm, jp, tm, to_torch(jax.tree.map(np.asarray, jp), "cpu")
+
+
+def assert_tree_close(ttree, jtree, what, **tol):
+    """Every leaf of a JAX tree (a cache) against the port's leaf at the
+    same path, in float32."""
+    for path, w in jax.tree.flatten_with_path(jtree)[0]:
+        g = ttree
+        for e in path:
+            g = g[e.key]
+        np.testing.assert_allclose(
+            g.detach().float().cpu().numpy(),
+            np.asarray(jnp.asarray(w, jnp.float32)), **tol,
+            err_msg=f"{what} {jax.tree_util.keystr(path)}")
+
+
 def torch_mlp_loss(p, b):
     h = torch.tanh(b["x"] @ p["l1"])
     logits = h @ p["l2"]

@@ -216,6 +216,49 @@ def test_flash_kernels_are_deterministic(cuda_device, case):
         assert torch.equal(a, b), n
 
 
+# (B, Hq, Hkv, Sq, Sk, D, causal, dtype): query and key lengths that differ
+# (the encoder-decoder's cross-attention, Sq > Sk and Sq < Sk at odd
+# sizes) and the encoder-decoder's, hybrid's and VLM's step shapes
+FLASH_PAIRS = [
+    (2, 20, 20, 256, 1500, 64, False, torch.bfloat16),   # whisper cross
+    (2, 20, 20, 1500, 1500, 64, False, torch.bfloat16),  # whisper encoder
+    (1, 4, 2, 333, 129, 64, True, torch.float32),        # Sq > Sk
+    (1, 6, 3, 97, 301, 32, False, torch.float32),        # Sq < Sk
+    (2, 32, 8, 256, 256, 128, True, torch.bfloat16),     # jamba
+    (2, 12, 2, 256, 256, 128, True, torch.bfloat16),     # qwen2-vl
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_PAIRS, ids=str)
+def test_flash_kernels_at_query_and_key_lengths(cuda_device, case):
+    """Forward and backward against the plain versions with q of Sq rows
+    and k, v of Sk (a causal query row q sees keys 0..q; past Sk it sees
+    them all), and two calls on the same inputs bit-identical."""
+    B, Hq, Hkv, Sq, Sk, D, causal, dtype = case
+    gen = torch.Generator(device=cuda_device).manual_seed(Sq + Sk)
+    q, do = (_decoder_layout(gen, B, Hq, Sq, D, dtype, cuda_device)
+             for _ in range(2))
+    k, v = (_decoder_layout(gen, B, Hkv, Sk, D, dtype, cuda_device)
+            for _ in range(2))
+    kw = dict(causal=causal)
+    got, want = _flash_pair(q, k, v, do, kw)
+    for n, g, w in zip(("o", "lse", "dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, n
+        if n == "lse":
+            _close(g, w, n, tol=1e-5)
+        else:
+            _close(g, w, n, **_flash_tol(dtype, n.startswith("d")))
+    runs = []
+    for _ in range(2):
+        o, lse = fa_kernel.flash_attention(q, k, v, **kw)
+        runs.append((o, lse) + fa_kernel.flash_attention_bwd(
+            q, k, v, o, lse, do, **kw))
+    torch.cuda.synchronize()
+    for n, a, b in zip(("o", "lse", "dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), n
+
+
 @pytest.mark.gpu
 def test_flash_trainable_and_decoder_routes_agree(cuda_device):
     """The autograd Function on the card against the plain forward and
@@ -1174,3 +1217,37 @@ def test_moe_model_on_card_as_on_cpu(cuda_device):
                                    atol=0)
     for a, b in zip(gg, cg):
         assert _gap(a, b) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["jamba-v0.1-52b", "qwen2-vl-2b",
+                                  "whisper-large-v3"])
+def test_family_model_on_card_as_on_cpu(cuda_device, name):
+    """The reduced hybrid, VLM and encoder-decoder models in float32, the
+    same weights and ``lm_batch_for`` batch on both devices (jamba at
+    ``capacity_factor=8``, where nothing drops): the loss within 1e-5 and
+    every grad within 1e-4 of its largest |value| (the card's attention,
+    cross-attention included, is the flash kernels)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.pytree import tree_leaves, tree_map
+    from repro_torch.data.synthetic import lm_batch_for
+    from repro_torch.models import build_model
+
+    cfg = reduced(get_config(name)).with_(capacity_factor=8.0)
+    model = build_model(cfg)
+    cpu_params = model.init(seed=0, device="cpu")
+    batch = lm_batch_for(cfg, 2, 32, generator=torch.Generator().manual_seed(1),
+                         device="cpu")
+    out = {}
+    for dev in ("cpu", cuda_device):
+        params = tree_map(lambda t: t.to(dev).requires_grad_(True),
+                          cpu_params)
+        loss, _ = model.loss_fn(params, {k: v.to(dev)
+                                         for k, v in batch.items()})
+        out[dev] = (loss, torch.autograd.grad(loss, tree_leaves(params)))
+    (cl, cg), (gl, gg) = out["cpu"], out[cuda_device]
+    torch.testing.assert_close(gl.detach().cpu(), cl.detach(), rtol=1e-5,
+                               atol=0)
+    for a, b in zip(gg, cg):
+        assert (_gap(a, b) <= 1e-4 if bool(b.abs().max() > 0)
+                else not bool(a.abs().max() > 0))

@@ -23,19 +23,18 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from _torch_parity import (assert_runs_equal, compare_metrics,  # noqa: E402
-                           compare_planes, materialize, np_tree,
-                           repeat_without_sharding, torch_cfg)
+from _torch_parity import (assert_runs_equal, assert_tree_close,  # noqa: E402,E501
+                           compare_metrics, compare_planes, materialize,
+                           model_pair, np_tree, repeat_without_sharding,
+                           torch_cfg)
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.configs import reduced as jax_reduced  # noqa: E402
 from repro.core.backend import make_backend as jax_make_backend  # noqa: E402
-from repro.models import build_model as jax_build_model  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro.models.transformer import decoder_specs as jax_specs  # noqa: E402
 from repro.optim import constant as jax_constant  # noqa: E402
 from repro.optim import momentum as jax_momentum  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
-from repro_torch.convert import to_torch  # noqa: E402
 from repro_torch.core.backend import make_backend  # noqa: E402
 from repro_torch.core.pytree import (tree_flatten_with_path,  # noqa: E402
                                      tree_leaves)
@@ -52,18 +51,6 @@ def host(x):
     if isinstance(x, torch.Tensor):
         return x.detach().float().cpu().numpy()
     return np.asarray(jnp.asarray(x, jnp.float32))
-
-
-def models(name, seed=0, **kw):
-    """(jax model, jax params, port model, port params) of one init of
-    ``reduced(name)`` (with ``kw``)."""
-    jcfg = jax_reduced(jax_get_config(name))
-    if kw:
-        jcfg = jcfg.with_(**kw)
-    jm = jax_build_model(jcfg)
-    jp = jm.init(jax.random.PRNGKey(seed))
-    tm = build_model(torch_cfg(jcfg))
-    return jm, jp, tm, to_torch(jax.tree.map(np.asarray, jp), "cpu")
 
 
 def _tokens(vocab, B, S, seed):
@@ -102,7 +89,7 @@ def test_decoder_specs_match_reference_tree(name):
 
 @pytest.mark.parametrize("name", MOE)
 def test_loss_ce_aux_and_grads_match_jax(name):
-    jm, jp, tm, tp = models(name)
+    jm, jp, tm, tp = model_pair(name)
     batch = _batch(jm.cfg.vocab_size, 2, 16, seed=3)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     (jloss, jmet), jgrads = jax.jit(jax.value_and_grad(
@@ -136,7 +123,7 @@ def test_loss_ce_aux_and_grads_match_jax(name):
 def test_decode_fn_and_prefill_fn_match_jax(name):
     """``decode_fn`` step by step (each sequence at its own position) and
     ``prefill_fn``, logits and caches, against the JAX package's."""
-    jm, jp, tm, tp = models(name)
+    jm, jp, tm, tp = model_pair(name)
     B, S = 2, 20
     toks = _tokens(jm.cfg.vocab_size, B, S, 4)
     jcache = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype),
@@ -152,21 +139,11 @@ def test_decode_fn_and_prefill_fn_match_jax(name):
                                   torch.from_numpy(pos).long())
         np.testing.assert_allclose(host(tl), host(jl), **STEP_TOL,
                                    err_msg=f"{name} logits at step {t}")
-    for path, w in jax.tree.flatten_with_path(jcache)[0]:
-        g = tcache
-        for e in path:
-            g = g[e.key]
-        np.testing.assert_allclose(host(g), host(w), **STEP_TOL,
-                                   err_msg=f"{name} cache {path}")
+    assert_tree_close(tcache, jcache, f"{name} cache", **STEP_TOL)
     jc, jlog = jm.prefill_fn(jp, {"tokens": jnp.asarray(toks)}, block_k=8)
     tc, tlog = tm.prefill_fn(tp, {"tokens": torch.from_numpy(toks)})
     np.testing.assert_allclose(host(tlog), host(jlog), **STEP_TOL)
-    for path, w in jax.tree.flatten_with_path(jc)[0]:
-        g = tc
-        for e in path:
-            g = g[e.key]
-        np.testing.assert_allclose(host(g), host(w), **STEP_TOL,
-                                   err_msg=f"{name} prefill cache {path}")
+    assert_tree_close(tc, jc, f"{name} prefill cache", **STEP_TOL)
 
 
 @pytest.mark.parametrize("name", MOE)
@@ -175,7 +152,7 @@ def test_incremental_decode_matches_full_forward(name):
     nothing drops, so the one-token steps reproduce the full forward's
     logits at every position (mixtral's window of 16 over a ring of 16
     slots at S=24)."""
-    _, _, tm, tp = models(name, seed=7, capacity_factor=8.0)
+    _, _, tm, tp = model_pair(name, seed=7, capacity_factor=8.0)
     cfg = tm.cfg
     B, S = 2, 24
     toks = torch.from_numpy(_tokens(cfg.vocab_size, B, S, 8))
@@ -215,7 +192,7 @@ def test_m1_prod_step_matches_jax(monkeypatch):
     """The prod step at M=1, R=2, D=1 on reduced(qwen3-moe-30b-a3b), per
     step: loss, staleness, Σw, disagreement and the read plane."""
     monkeypatch.setattr(jnp, "repeat", repeat_without_sharding)
-    jm, jp, tm, _ = models(QWEN3)
+    jm, jp, tm, _ = model_pair(QWEN3)
     jbe = jax_make_backend(
         "prod", "layup", M=1, loss_fn=lambda p, b: jm.loss_fn(p, b,
                                                               block_k=8),

@@ -13,9 +13,12 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from _torch_parity import torch_cfg  # noqa: E402
+
 from repro import optim as JO  # noqa: E402
 from repro.optim.optimizers import apply_updates as jax_apply_updates  # noqa: E402,E501
 from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.configs import list_configs as jax_list_configs  # noqa: E402
 from repro.data import synthetic as JS  # noqa: E402
 from repro_torch import optim as TO  # noqa: E402
 from repro_torch.configs import get_config, list_configs  # noqa: E402
@@ -130,9 +133,11 @@ def test_synthetic_data_bit_identical():
 
 def test_dense_configs_and_param_counts_match():
     assert list_configs() == ["gpt2-medium", "gpt2-xl", "granite-8b",
-                              "mamba2-780m", "mixtral-8x7b",
-                              "moonshot-v1-16b-a3b", "qwen3-moe-30b-a3b",
-                              "stablelm-1.6b", "yi-34b"]
+                              "jamba-v0.1-52b", "mamba2-780m",
+                              "mixtral-8x7b", "moonshot-v1-16b-a3b",
+                              "qwen2-vl-2b", "qwen3-moe-30b-a3b",
+                              "stablelm-1.6b", "whisper-large-v3", "yi-34b"]
+    assert list_configs() == jax_list_configs()
     for name in list_configs():
         t, j = get_config(name), jax_get_config(name)
         for f in j.__dataclass_fields__:
@@ -142,12 +147,31 @@ def test_dense_configs_and_param_counts_match():
         assert t.param_counts() == j.param_counts()
 
 
+def _assert_builds_as_jax(cfg, jcfg):
+    """``cfg`` equals the JAX package's ``jcfg`` field for field, and
+    ``build_model`` builds it with the spec tree's paths and shapes of the
+    JAX package's model (nothing is allocated)."""
+    from repro.models import build_model as jax_build_model
+    from repro.models.layers import ParamSpec as JaxParamSpec
+    from repro_torch.core.pytree import tree_flatten_with_path
+    from repro_torch.models import build_model
+
+    assert cfg == torch_cfg(jcfg)
+    tflat, _ = tree_flatten_with_path(build_model(cfg).specs)
+    jflat, _ = jax.tree_util.tree_flatten_with_path(
+        jax_build_model(jcfg).specs,
+        is_leaf=lambda x: isinstance(x, JaxParamSpec))
+    assert [([e.key for e in p], s.shape) for p, s in tflat] == \
+        [([e.key for e in p], s.shape) for p, s in jflat]
+
+
 @pytest.mark.parametrize("name", ["qwen2-vl-2b", "jamba-v0.1-52b",
                                   "whisper-large-v3"])
 def test_other_families_name_their_roadmap_item(name):
-    jax_get_config(name)  # exists in the JAX package
-    with pytest.raises(NotImplementedError, match="item 14"):
-        get_config(name)
+    """The hybrid, VLM and encoder-decoder configs are ported: each equals
+    the JAX package's, and its model builds with the JAX package's spec
+    tree."""
+    _assert_builds_as_jax(get_config(name), jax_get_config(name))
 
 
 def test_ssm_family_builds():
@@ -166,10 +190,11 @@ def test_ssm_family_builds():
                                 dict(frontend="audio"), dict(mrope=True),
                                 dict(enc_dec=True), dict(frontend="vision")])
 def test_unported_model_features_name_their_roadmap_item(kw):
-    from repro_torch.models import build_model
-    cfg = get_config("gpt2-medium").with_(num_layers=2, **kw)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        build_model(cfg)
+    """Each model feature of the hybrid, VLM and encoder-decoder families
+    builds on a 2-layer GPT-2 Medium as the JAX package's does."""
+    _assert_builds_as_jax(
+        get_config("gpt2-medium").with_(num_layers=2, **kw),
+        jax_get_config("gpt2-medium").with_(num_layers=2, **kw))
 
 
 def test_convert_roundtrip_keeps_dtypes():

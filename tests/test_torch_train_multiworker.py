@@ -5,7 +5,10 @@ the JAX prod backend at (R, D) = (2, 1) on the MLP fixture and on the
 ``_bench_cfg`` decoder, 3 steps each, and writes an ``.npz`` (params,
 batches, metrics, final read planes) that the port, run on the CPU from the
 same params and batches, is held to. One case runs the MoE family
-(``reduced(qwen3-moe-30b-a3b)``) at M=2. Two cases run the int8 wire (one with
+(``reduced(qwen3-moe-30b-a3b)``) at M=2, one the VLM backbone
+(``reduced(qwen2-vl-2b)``: embeddings and (3, B, S) M-RoPE positions, each
+sequence's ids offset, so that only a split on the positions' batch dim
+gives the reference's numbers). Two cases run the int8 wire (one with
 delay compensation λ=0.5). One case runs a fault plan at M=4 (peer 1
 crashes at step 2, is declared dead at step 3 and re-synced from peer 0 at
 step 6; 8 steps): the port's ``peers_live`` and ``nonfinite_skips``
@@ -93,6 +96,21 @@ for case in {cases!r}:
         batches = [{{"x": rng.standard_normal((M, 8, 16)).astype(np.float32),
                     "labels": rng.integers(0, 10, (M, 8)).astype(np.int32)}}
                    for _ in range(steps)]
+    elif problem == "vlm":
+        cfg = reduced(get_config("qwen2-vl-2b"))
+        model = build_model(cfg)
+        params = model.init(jax.random.PRNGKey(0))
+        loss_fn = lambda p, b: model.loss_fn(p, b, block_k=16)
+        rng = np.random.default_rng(M)
+        pos = (np.arange(16, dtype=np.int32)[None, None, None]
+               + np.arange(M * 4, dtype=np.int32).reshape(M, 1, 4, 1)
+               + np.arange(3, dtype=np.int32).reshape(1, 3, 1, 1))
+        batches = [{{"embeds": (rng.standard_normal((M, 4, 16, cfg.d_model))
+                               * 0.02).astype(np.float32),
+                    "positions": pos,
+                    "labels": rng.integers(0, cfg.vocab_size,
+                                           (M, 4, 16)).astype(np.int32)}}
+                   for _ in range(steps)]
     else:
         cfg = (_bench_cfg() if problem == "lm"
                else reduced(get_config("qwen3-moe-30b-a3b")))
@@ -175,6 +193,10 @@ def _check_case(ref, case):
     batches = [unflatten_npz(ref, tag + f"batch{t}") for t in range(steps)]
     if problem == "mlp":
         loss_fn, rtol = torch_mlp_loss, 1e-5
+    elif problem == "vlm":
+        loss_fn, rtol = build_model(reduced(get_config(
+            "qwen2-vl-2b"))).loss_fn, 1e-4
+        assert all(b["positions"].shape == (M, 3, 4, 16) for b in batches)
     else:
         cfg = (_bench_torch_cfg() if problem == "lm"
                else reduced(get_config("qwen3-moe-30b-a3b")))
@@ -218,7 +240,7 @@ FAST_CASES = [("mlp", 2, 2, 1, True), ("mlp", 4, 2, 1, True),
               ("lm", 4, 2, 1, True), ("mlp", 4, 2, 1, True, "int8", 0.5),
               ("lm", 2, 2, 1, True, "int8", 0.0),
               ("mlp", 4, 2, 1, True, "param", 0.0, CRASH),
-              ("moe", 2, 2, 1, True)]
+              ("moe", 2, 2, 1, True), ("vlm", 2, 2, 1, True)]
 SLOW_CASES = [("mlp", M, R, D, True) for M in (2, 4)
               for R, D in ((1, 0), (1, 1))] + [
     ("mlp", 4, 2, 1, True, "int8", 0.0, CRASH),
