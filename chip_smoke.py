@@ -231,11 +231,31 @@ not 0:
    factor E/k). serve_encdec: ``prefill_fn`` (encoder, cross K/V, first
    token) and ``decode_fn`` for 8 sequences of 64 tokens, held in float32
    to ``decode_train``'s teacher-forced logits at every position.
+5i. train_model_path (after train_streams): the Model-level factories,
+   ``make_step`` on ``WorkerMesh(4, "cuda")`` with GPT-2 Medium (f32,
+   seed-0 weights, train's batches as one global batch of 16 x 256), 3
+   steps a route, launch counts zeroed before and read after each route:
+   the decoupled step (R=2, D=1, ``use_pallas``) and its pipeline engine
+   (``overlap=True``), each bit-identical (losses, read plane) to
+   ``ProdTrainerBackend`` on the same rows and shift draws, #1 fused 9
+   times; lockstep LayUp (``use_pallas``: the pure #1, 9 launches; flash
+   96 forward, 96 dq, 96 dk/dv a step) within TOL of the plain mix, and
+   ``accum_steps=2`` within 2e-3 (loss) and 5e-2 (parameters) of it; the
+   plain decoupled step (update applied, then the float32 plane mix)
+   bit-identical to ``ProdTrainerBackend``'s plain route; DDP on the
+   global batch, its step-0
+   loss within 1e-5 (relative) of the lockstep workers' mean and its
+   first loss within 0.5 of ``init_loss``; ``kind="prefill"`` and
+   ``"decode"`` at 8 x 512 bit-identical to ``prefill_fn`` and
+   ``decode_fn``. Each route's line: step times and median, peak over its
+   start, launches, ``model_flops`` and ``analytic_costs`` of the step's
+   shape and the FLOPs shares against the card's float32 rate, with the
+   ``nvidia-smi`` name and power limit.
 6. the kernels line (with ``sim_launches``, ``tune_launches``,
-   ``moe_launches``, and the families' ``hybrid_launches``,
-   ``vlm_launches``, ``encdec_launches``, #1's ``hybrid_blocks`` and
-   #2-#4's ``family_shapes`` times), the card's ``nvidia-smi`` line, and
-   last the result.
+   ``moe_launches``, the families' ``hybrid_launches``,
+   ``vlm_launches``, ``encdec_launches``, ``model_path_launches`` by
+   route, #1's ``hybrid_blocks`` and #2-#4's ``family_shapes`` times), the
+   card's ``nvidia-smi`` line, and last the result.
 
 TF32 is off for matrix products and cuDNN (both set below), so float32 is
 float32 throughout. ``CUBLAS_WORKSPACE_CONFIG`` is fixed before CUDA
@@ -256,9 +276,14 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
+sys.path.insert(0, str(HERE / "src"))
+try:  # the card's data-sheet rates, one source with the port's cost model
+    from repro_torch.launch.analysis import (BF16_FLOPS_PER_S,
+                                             F32_FLOPS_PER_S,
+                                             HBM_BYTES_PER_S)
+except ImportError:  # not beside the port: main() says so and exits 3
+    BF16_FLOPS_PER_S = F32_FLOPS_PER_S = HBM_BYTES_PER_S = None
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 # f32-accurate matrix products on the tensor cores: TF32 (495 TFLOP/s
 # dense) over the three products of 3xTF32, as the flash kernels and
 # PyTorch's f32 attention take them
@@ -266,7 +291,6 @@ TF32X3_FLOPS_PER_S = 495e12 / 3
 # a product of an f32 operand with one exact in TF32 (a bf16 value): the
 # two products of 2xTF32
 TF32X2_FLOPS_PER_S = 495e12 / 2
-BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
 TOL = {"float32": 1e-6, "bfloat16": 2e-2}  # relative to max |ref|
 M = 4
 TRAIN_STEPS = 6
@@ -3812,6 +3836,280 @@ def phase_serve_encdec(torch):
     return res
 
 
+# the Model path (phase train_model_path): GPT-2 Medium through make_step,
+# 3 steps a route
+MODEL_PATH_STEPS = 3
+# lockstep accum_steps=2 against the whole batch: the reference's
+# tests/test_dryrun_small.py::test_accum_steps_matches_full_batch
+ACCUM_LOSS_TOL, ACCUM_PARAM_TOL = 2e-3, 5e-2
+# DDP's step-0 loss against the mean of the lockstep workers' (relative;
+# one forward of 16 sequences against four of 4: the sums' order differs)
+DDP_LOSS_RTOL = 1e-5
+MODEL_PATH_DECODE_STEPS = 4
+
+
+def model_path_readings(torch, cfg, shape, step_s, base, launches, smi):
+    """A route's readings: median step (steps 1.., or the one step), peak
+    device bytes over the window's start, its launches, and the cost
+    model's terms for the step's shape on one device with FLOPs shares
+    against the card's float32 rate (the steps run in float32, TF32 off)."""
+    from repro_torch.launch import analysis as AN
+
+    med = statistics.median(step_s[1:]) if len(step_s) > 1 else step_s[0]
+    mf = AN.model_flops(cfg, shape)
+    ac = AN.analytic_costs(cfg, shape, n_model=1, n_workers=1)
+    return {"shape": {"kind": shape.kind, "seq": shape.seq_len,
+                      "global_batch": shape.global_batch},
+            "step_s": step_s, "median_step_s": med,
+            "peak_above_start": torch.cuda.max_memory_allocated() - base,
+            "launches": launches, "model_flops": mf,
+            "analytic_flops": ac["flops_per_device"],
+            "analytic_bytes": ac["bytes_per_device"],
+            "model_flops_share": mf / med / F32_FLOPS_PER_S,
+            "analytic_flops_share": ac["flops_per_device"] / med
+            / F32_FLOPS_PER_S,
+            "flops_peak": "F32_FLOPS_PER_S (H100 SXM float32 SIMT)",
+            "flops_peak_per_s": F32_FLOPS_PER_S, "nvidia_smi": smi}
+
+
+def phase_train_model_path(torch, train, smi):
+    """The Model-level factories: GPT-2 Medium (f32, seed-0 weights, the
+    train phase's batches as one global batch of 16 x 256) on
+    ``WorkerMesh(4, "cuda")``, each route 3 steps through ``make_step``,
+    with the launch counts zeroed before and read after each: the
+    decoupled step (R=2, D=1, ``use_pallas``) and its pipeline engine held
+    bit-identical to ``ProdTrainerBackend`` on the same rows and shift
+    draws; lockstep LayUp through the pure ``gossip_mix`` kernel (9
+    launches, flash 96/96/96 a step) within TOL of the plain mix, and with
+    ``accum_steps=2``; the plain decoupled step against the backend's plain
+    route bit for bit; DDP's first loss against the lockstep workers' mean and
+    ``init_loss``; prefill and decode at 8 x 512 bit-identical to
+    ``prefill_fn`` and ``decode_fn``. One line per route; returns each
+    route's launches."""
+    import numpy as np
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.backend import make_backend
+    from repro_torch.core.layerview import FlatPartition
+    from repro_torch.core.pytree import tree_leaves, tree_map
+    from repro_torch.launch.mesh import WorkerMesh
+    from repro_torch.launch.train import make_step
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import alloc_cache
+    from repro_torch.optim import constant, momentum
+
+    cfg = get_config("gpt2-medium")
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    mesh = WorkerMesh(M, "cuda")
+    steps, B, L = MODEL_PATH_STEPS, M * BATCH_PER_WORKER, cfg.num_layers
+    shape = ShapeConfig("train_model_path", SEQ, B, "train")
+    sim_batches = lm_batches(torch, cfg.vocab_size, steps, seed=0)
+    batches = [{k: v.reshape((B,) + tuple(v.shape[2:]))
+                for k, v in b.items()} for b in sim_batches]
+    rng = np.random.default_rng(0xC0FFEE)  # ProdTrainerBackend's draws
+    shift_idx = [int(rng.integers(0, 2)) for _ in range(steps)]  # (1, 2)
+    stacked = tree_map(lambda x: x[None].expand((M,) + tuple(x.shape)),
+                       params)
+    part = FlatPartition(model.abstract_params())
+    n_groups = len(part.group_sizes)
+    opt = dict(optimizer=momentum(0.9), schedule=constant(LR))
+    all_launches = {}
+
+    def window():
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_launches()
+        return base
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def report(route, step_s, base, want, shape_=shape, **extra):
+        got = step_launches()
+        check(all(got[k] == v for k, v in want.items()),
+              f"train_model_path {route}: launches {got} != {want}")
+        all_launches[route] = got
+        emit("train_model_path", route=route,
+             **model_path_readings(torch, cfg, shape_, step_s, base, got,
+                                   smi), **extra)
+
+    def decoupled(**kw):
+        step = make_step(model, mesh, shape, fb_ratio=R, update_delay=1,
+                         **opt, **kw)
+        state = step.init_state(stacked)
+        losses, stale, step_s = [], [], []
+        for t, b in enumerate(batches):
+            (state, m), s = timed(lambda: step.fn(state, b, t, shift_idx[t]))
+            step_s.append(s)
+            losses.append(float(m["loss"]))
+            stale.append(m["layer_staleness"].tolist())
+        return state["read"], losses, stale, step_s
+
+    def lockstep(**kw):
+        step = make_step(model, mesh, shape, **opt, **kw)
+        p, o, w = step.init_state(stacked)
+        losses, step_s = [], []
+        for t, b in enumerate(batches):
+            (p, o, w, loss), s = timed(
+                lambda: step.fn(p, o, w, b, t, shift_idx[t]))
+            step_s.append(s)
+            losses.append(float(loss))
+        return p, losses, step_s
+
+    fwd_lock = {"flash_fwd": steps * M * L, "flash_dq": steps * M * L,
+                "flash_dkv": steps * M * L}
+    fwd_dec = {"flash_fwd": steps * M * R * L, "flash_dq": steps * M * L,
+               "flash_dkv": steps * M * L}
+
+    # 1. the decoupled step, fused: the backend path is the reference
+    be = make_backend("prod", "layup", M=M, loss_fn=model.loss_fn,
+                      fb_ratio=R, update_delay=1, use_pallas=True,
+                      device="cuda", measure_drift=False, **opt)
+    bst = be.init(None, params)
+    ref_losses = []
+    for b in sim_batches:
+        bst, m = be.step(bst, b)
+        ref_losses.append(float(m["loss"]))
+    check(ref_losses == train["history"]["loss"][:steps],
+          f"backend losses {ref_losses} != train's")
+    ref_read = {k: v.clone() for k, v in bst["read"].items()}
+    del bst, be, m
+    for route, kw in (("decoupled", {}), ("decoupled_pipeline",
+                                          {"overlap": True})):
+        base = window()
+        read, losses, stale, step_s = decoupled(use_pallas=True, **kw)
+        check(losses == ref_losses,
+              f"{route} losses {losses} != backend {ref_losses}")
+        check(all(torch.equal(read[k], v) for k, v in ref_read.items()),
+              f"{route}: read plane differs from the backend path's")
+        report(route, step_s, base,
+               {"gossip_mix": steps * n_groups, **fwd_dec},
+               losses=losses, held_against="ProdTrainerBackend",
+               bit_identical=True)
+        del read
+    del ref_read
+
+    # 2. lockstep LayUp through the pure gossip_mix kernel, against the
+    # plain mix; 3. accum_steps=2 against it
+    base = window()
+    p_kernel, lock_losses, step_s = lockstep(use_pallas=True)
+    report("lockstep", step_s, base,
+           {"gossip_mix": steps * n_groups, **fwd_lock}, losses=lock_losses)
+    base = window()
+    p_plain, plain_losses, step_s = lockstep()
+    worst = max(float((a - b).abs().max()) / float(b.abs().max())
+                for a, b in zip(tree_leaves(p_kernel), tree_leaves(p_plain)))
+    check(worst <= TOL["float32"],
+          f"lockstep pure kernel vs plain: {worst} > {TOL['float32']}")
+    del p_plain
+    report("lockstep_plain", step_s, base, {"gossip_mix": 0, **fwd_lock},
+           losses=plain_losses, max_rel_gap_vs_kernel=worst)
+    base = window()
+    p_accum, accum_losses, step_s = lockstep(use_pallas=True, accum_steps=2)
+    loss_gap = max(abs(a - b) for a, b in zip(accum_losses, lock_losses))
+    param_gap = max(float((a - b).abs().max()) for a, b in
+                    zip(tree_leaves(p_accum), tree_leaves(p_kernel)))
+    check(loss_gap < ACCUM_LOSS_TOL and param_gap < ACCUM_PARAM_TOL,
+          f"accum_steps=2 vs 1: loss gap {loss_gap}, param gap {param_gap}")
+    del p_accum, p_kernel
+    report("lockstep_accum2", step_s, base,
+           {"gossip_mix": steps * n_groups,
+            **{k: 2 * v for k, v in fwd_lock.items()}},
+           losses=accum_losses, loss_gap=loss_gap, param_gap=param_gap)
+
+    # 4. the decoupled step, plain, against the backend path's plain
+    # route; the read planes compared by digest, so that no plane is kept
+    # on the card across the two runs (the plain mix's float32 temporaries
+    # make them the phase's largest)
+    be = make_backend("prod", "layup", M=M, loss_fn=model.loss_fn,
+                      fb_ratio=R, update_delay=1, device="cuda",
+                      measure_drift=False, **opt)
+    bst = be.init(None, params)
+    ref_losses = []
+    for b in sim_batches:
+        bst, m = be.step(bst, b)
+        ref_losses.append(float(m["loss"]))
+    ref_digests = plane_digests(torch, bst["read"])
+    del bst, be, m
+    base = window()
+    read, losses, _, step_s = decoupled()
+    check(losses == ref_losses,
+          f"decoupled_plain losses {losses} != backend {ref_losses}")
+    report("decoupled_plain", step_s, base, {"gossip_mix": 0, **fwd_dec},
+           losses=losses, held_against="ProdTrainerBackend",
+           bit_identical=True)
+    check(plane_digests(torch, read) == ref_digests,
+          "decoupled_plain: read plane differs from the backend path's")
+    del read
+
+    # 5. DDP on the global batch
+    base = window()
+    step = make_step(model, mesh, shape, algo="ddp", **opt)
+    p, o = step.init_state(params)
+    ddp_losses, step_s = [], []
+    for t, b in enumerate(batches):
+        (p, o, loss), s = timed(lambda: step.fn(p, o, b, t))
+        step_s.append(s)
+        ddp_losses.append(float(loss))
+    del p, o
+    gap = abs(ddp_losses[0] - lock_losses[0])
+    check(gap <= DDP_LOSS_RTOL * abs(lock_losses[0]),
+          f"ddp step-0 loss {ddp_losses[0]} vs lockstep {lock_losses[0]}")
+    check(abs(ddp_losses[0] - init_loss(cfg)) <= 0.5,
+          f"ddp first loss {ddp_losses[0]} vs init_loss {init_loss(cfg)}")
+    report("ddp", step_s, base,
+           {"gossip_mix": 0, **{k: v // M for k, v in fwd_lock.items()}},
+           losses=ddp_losses, step0_gap_vs_lockstep=gap,
+           init_loss=init_loss(cfg))
+
+    # 6. prefill and decode at the serve phase's 8 x 512
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (SERVE_SLOTS, SERVE_MAX_LEN))).cuda()
+    pshape = ShapeConfig("serve_prefill", SERVE_MAX_LEN, SERVE_SLOTS,
+                         "prefill")
+    step = make_step(model, mesh, pshape)
+    base = window()
+    (cache_a, logits_a), s = timed(lambda: step.fn(params, {"tokens": toks}))
+    report("prefill", [s], base, {"flash_fwd": L, "flash_dq": 0},
+           shape_=pshape)
+    cache_b, logits_b = model.prefill_fn(params, {"tokens": toks})
+    check(torch.equal(logits_a, logits_b) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(cache_a),
+                                          tree_leaves(cache_b))),
+        "prefill step differs from prefill_fn")
+    del cache_a, cache_b, logits_a, logits_b
+    dshape = ShapeConfig("serve_decode", SERVE_MAX_LEN, SERVE_SLOTS, "decode")
+    step = make_step(model, mesh, dshape)
+    cache_b = alloc_cache(model.cache_specs(SERVE_SLOTS, SERVE_MAX_LEN),
+                          device="cuda")
+    base = window()
+    cache_a = alloc_cache(step.abstract_args[1], device="cuda")
+    step_s, same = [], True
+    for pos in range(MODEL_PATH_DECODE_STEPS):
+        tok = toks[:, pos:pos + 1].to(torch.int32)
+        position = torch.full((SERVE_SLOTS,), pos, dtype=torch.int32,
+                              device="cuda")
+        (la, cache_a), s = timed(lambda: step.fn(params, cache_a, tok,
+                                                 position))
+        step_s.append(s)
+        lb, cache_b = model.decode_fn(params, cache_b, tok, position)
+        same = same and torch.equal(la, lb)
+    same = same and all(torch.equal(a, b) for a, b in
+                        zip(tree_leaves(cache_a), tree_leaves(cache_b)))
+    check(same, "decode step differs from decode_fn")
+    report("decode", step_s, base, {"flash_fwd": 0, "gossip_mix": 0},
+           shape_=dshape)
+    del cache_a, cache_b, params
+    torch.cuda.empty_cache()
+    return all_launches
+
+
 def main(argv) -> int:
     # the step's transients are plane-sized (GBs): growable segments keep
     # the caching allocator from stranding them as fragments
@@ -3824,7 +4122,6 @@ def main(argv) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on a CUDA card only", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(HERE / "src"))
     try:
         import repro_torch  # noqa: F401
     except ImportError as e:
@@ -3867,6 +4164,9 @@ def main(argv) -> int:
             lm_batches(torch, train["vocab"], PROFILE_WINDOW + 2, seed=3))
     streams.engine.close()
     del mono, pipe, streams
+    t1 = time.perf_counter()
+    model_path = phase_train_model_path(torch, train, smi)
+    emit("model_path_phase", seconds=time.perf_counter() - t1)
     streams_int8, be = phase_train_engine(torch, "train_streams_int8", None,
                                           int8=True, overlap=True, streams=3)
     be.engine.close()
@@ -4017,6 +4317,12 @@ def main(argv) -> int:
         rows[1][f"{fam_name}_serve_launches"] = fam[f"serve_{fam_name}"][
             "prefill_launches"]["fwd"]
     rows[0]["hybrid_blocks"] = fam["train_hybrid"]["blocks_mix"]
+    # train_model_path's launches by route (#1-#4; lockstep's #1 is the
+    # pure variant, the decoupled routes' the fused one)
+    for row in rows[:4]:
+        row["model_path_launches"] = {
+            route: row_launches(c, row["name"])
+            for route, c in model_path.items()}
     for row, kind in zip(rows[1:4], ("fwd", "bwd", "trainable")):
         row["family_shapes"] = [
             {"shape": c["shape"], "causal": c["causal"], "dtype": c["dtype"],

@@ -1,5 +1,6 @@
-from repro_torch.configs.base import (ModelConfig, get_config, list_configs,
+from repro_torch.configs.base import (INPUT_SHAPES, ModelConfig, ShapeConfig,
+                                      get_config, input_specs, list_configs,
                                       reduced, register)
 
-__all__ = ["ModelConfig", "get_config", "list_configs", "reduced",
-           "register"]
+__all__ = ["INPUT_SHAPES", "ModelConfig", "ShapeConfig", "get_config",
+           "input_specs", "list_configs", "reduced", "register"]

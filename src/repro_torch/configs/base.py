@@ -6,12 +6,17 @@ all twelve configs of the JAX package's zoo: the dense decoders, the SSM
 family (Mamba2), the mixture-of-experts family, the hybrid (Jamba), the VLM
 backbone (Qwen2-VL, M-RoPE) and the encoder-decoder (Whisper). ``reduced``
 derives the small same-family variant the tests build.
+
+``ShapeConfig``, ``INPUT_SHAPES`` and ``input_specs`` are the step shapes of
+the JAX package: ``input_specs`` gives one step's data inputs as
+``(shape, dtype)`` pairs, the abstract tensors of the port (nothing is
+allocated).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -141,6 +146,56 @@ class ModelConfig:
                 total += attn_params() + dense_mlp()
                 active += attn_params() + dense_mlp()
         return {"total": float(total), "active": float(active)}
+
+
+# ---------------------------------------------------------------------------
+# Input shapes
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+INPUT_SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, dtype=None
+                ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """One step's data inputs as ``(shape, dtype)`` pairs. The decode kinds
+    give the data inputs only: the model's ``cache_specs`` give the cache,
+    whose layout depends on its layers (the encoder-decoder's cross K/V is
+    part of it)."""
+    dtype = dtype or cfg.dtype
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.kind in ("train", "prefill"):
+        specs: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {}
+        if cfg.frontend == "vision":
+            # the stubbed frontend: mixed text and patch embeddings, and
+            # the M-RoPE t/h/w ids
+            specs["embeds"] = ((B, S, cfg.d_model), dtype)
+            specs["positions"] = ((3, B, S), i32)
+        elif cfg.frontend == "audio":
+            specs["audio_embeds"] = ((B, cfg.enc_seq, cfg.d_model), dtype)
+            specs["tokens"] = ((B, S), i32)
+        else:
+            specs["tokens"] = ((B, S), i32)
+        if shape.kind == "train":
+            specs["labels"] = ((B, S), i32)
+        return specs
+    if shape.kind == "decode":
+        return {"token": ((B, 1), i32), "position": ((B,), i32)}
+    raise ValueError(shape.kind)
 
 
 # ---------------------------------------------------------------------------

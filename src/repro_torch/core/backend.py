@@ -237,9 +237,13 @@ class ProdTrainerBackend:
     loads sets ``overlap=True`` and fills ``fb_ratio``, ``update_delay`` and
     ``max_inflight_steps`` where the caller left their defaults (kwargs
     moved off their defaults win); one that fails to load warns and changes
-    nothing. The options still to port (``mesh``, ``flat=False``, which a
-    record whose best grouping is ``"legacy"`` asks for) raise
-    ``NotImplementedError`` naming the ROADMAP item that ports them."""
+    nothing.
+
+    ``flat=False`` (the reference's legacy per-leaf state, which a record
+    whose best grouping is ``"legacy"`` asks for, and which gives the
+    reference's flat plane's numbers bit for bit) runs on the flat plane,
+    the port's one state layout. ``mesh`` (the multi-GPU ring) raises
+    ``NotImplementedError`` naming the ROADMAP item that ports it."""
 
     kind = "prod"
 
@@ -254,7 +258,8 @@ class ProdTrainerBackend:
                  max_inflight_steps=None, tuning=None,
                  wait_timeout_s: float = 600.0):
         if mesh is not None:
-            raise not_ported("an explicit device mesh (multi-GPU ring)", 15)
+            raise not_ported("an explicit device mesh (multi-GPU ring)",
+                             "15b")
         # a tuning record (launch/tuner.py, DESIGN.md §16) replaces the
         # hand-picked schedule defaults; kwargs the caller moved off their
         # defaults always win, and a failed load warns and changes nothing
@@ -264,20 +269,16 @@ class ProdTrainerBackend:
             record = resolve_tuning(tuning)
             if record is not None:
                 tuned = apply_tuning(record, fb_ratio=fb_ratio,
-                                     update_delay=update_delay, flat=flat,
+                                     update_delay=update_delay,
                                      max_inflight_steps=max_inflight_steps)
                 fb_ratio = tuned["fb_ratio"]
                 update_delay = tuned["update_delay"]
-                flat = tuned["flat"]
                 max_inflight_steps = tuned["max_inflight_steps"]
                 overlap = True
                 self.tuning = record
         if int(streams) > 1 and not overlap:
             raise ValueError("streams > 1 is a property of the stage-graph "
                              "pipeline; it requires overlap=True")
-        if not flat:
-            raise not_ported("flat=False (the legacy per-leaf tree state)",
-                             15)
         algo_name = _algo_name(algo)
         if not algo_name.startswith("layup"):
             raise ValueError(

@@ -5,7 +5,9 @@ Port of ``repro/core/layerview.py``:
 * ``LayerPartition`` splits a parameter tree into layer groups: the
   top-level key, or ``"<key>.<idx>"`` for per-layer containers (lists of
   blocks). Group names are sorted. ``split`` gives the ``{group: {path:
-  leaf}}`` mapping of a :class:`LayerView`, ``join`` the tree back.
+  leaf}}`` mapping of a :class:`LayerView`, ``join`` the tree back;
+  ``by_key``/``from_keys`` the flat ``{path: leaf}`` dict, which the update
+  lane and the optimizers take for a tree (the lockstep and DDP steps).
 * ``FlatPartition`` fixes one contiguous buffer per layer group and dtype
   (leaves flattened in C order and concatenated in tree order; a group that
   mixes dtypes gets one ``"<group>:<dtype>"`` buffer per dtype). ``pack`` and
@@ -102,6 +104,22 @@ class LayerPartition:
         leaves = [groups[label][leaf_key] for label, leaf_key in self._index]
         return tree_unflatten(self._treedef, leaves)
 
+    def by_key(self, tree) -> Dict[str, Any]:
+        """Tree → ``{leaf_key: leaf}`` in flatten order (leaves not copied):
+        the dict of buffers the update lane and the optimizers take for a
+        parameter tree."""
+        leaves = tree_leaves(tree)
+        if len(leaves) != len(self._index):
+            raise ValueError(
+                f"tree has {len(leaves)} leaves; partition expects "
+                f"{len(self._index)}")
+        return {k: leaf for (_, k), leaf in zip(self._index, leaves)}
+
+    def from_keys(self, leaves: Dict[str, Any]):
+        """``{leaf_key: leaf}`` → tree: the inverse of :meth:`by_key`."""
+        return tree_unflatten(self._treedef,
+                              [leaves[k] for _, k in self._index])
+
     def init_versions(self, M: int, device=None) -> torch.Tensor:
         return torch.zeros((M, self.num_groups), dtype=torch.float32,
                            device=device)
@@ -171,6 +189,14 @@ class FlatPartition(LayerPartition):
             return sum(quant_wire_nbytes(size)
                        for size in self.group_sizes.values())
         raise ValueError(f"unknown wire dtype {wire!r}")
+
+    def abstract_plane(self, lead: Tuple[int, ...] = ()
+                       ) -> Dict[str, torch.Tensor]:
+        """The plane ``{group: (*lead, size)}`` on the ``meta`` device
+        (nothing allocated)."""
+        return {g: torch.empty(tuple(lead) + (n,),
+                               dtype=self.group_dtypes[g], device="meta")
+                for g, n in self.group_sizes.items()}
 
     def pack(self, tree, out: Optional[Dict[str, torch.Tensor]] = None
              ) -> Dict[str, torch.Tensor]:

@@ -16,8 +16,8 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def not_ported(what: str, item: int) -> NotImplementedError:
+def not_ported(what: str, item) -> NotImplementedError:
     """The error an entry point raises for an option of a later slice; it
-    names the ROADMAP item that ports it."""
+    names the ROADMAP item that ports it (``15b``)."""
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP queue 1, item {item})")

@@ -59,8 +59,9 @@ no buffer past its last use; ``max_inflight_steps`` bounds how many steps
 the host may enqueue ahead of the card (it blocks on the oldest step's
 fence event, never on a copy to the host).
 
-The Model/mesh factory and ``lower()`` have no counterpart without XLA and
-a device mesh (ROADMAP queue 1, item 15).
+``make_layup_decoupled_pipeline`` is the Model-level factory
+(``make_step(overlap=True)``): the same engines over ``model.loss_fn``,
+stepped with the global batch.
 """
 from __future__ import annotations
 
@@ -73,18 +74,20 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.configs.base import input_specs
 from repro_torch.convert import to_torch
 from repro_torch.core.layerview import FlatPartition, send_fractions
 from repro_torch.core.pytree import tree_map
-from repro_torch.device import not_ported, resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.launch.train import (_check_wire, _decoupled_metrics,
-                                      _ring_exchange, alive_on_device,
+                                      _gossip_lanes, _mesh_workers,
+                                      _ring_exchange, _spec, alive_on_device,
                                       backward_update_lane,
                                       combine_slice_losses,
                                       forward_slice_lane, gate_update,
-                                      gossip_fused_lane, gossip_plane_lane,
                                       live_loss, make_decoupled_state,
-                                      stamp_live, straggler_active_fn)
+                                      stamp_live, straggler_active_fn,
+                                      worker_batch)
 from repro_torch.optim.optimizers import Optimizer
 
 
@@ -628,9 +631,6 @@ class PipelineEngine:
             out[name] = (self._stages[name], args[name])
         return out
 
-    def lower(self):
-        raise not_ported("lowering stages (an XLA notion)", 15)
-
 
 def cutout_args(engine) -> Dict[str, tuple]:
     """An engine's abstract args, checked for cutting stages out. Given as
@@ -655,16 +655,19 @@ def cutout_args(engine) -> Dict[str, tuple]:
 class PipelineStep:
     """The engine behind a step function: ``fn(state, batch, step_idx,
     shift_idx)`` like the monolithic decoupled step, ``init_state`` builds
-    its state."""
+    its state. ``split_batch``, where given, turns the caller's batch into
+    the engine's worker layout first (the Model path: the global batch);
+    ``chaos`` is set by ``make_step(faults=)``."""
     engine: Any
     init_state: Callable
     describe: str = ""
+    split_batch: Optional[Callable] = None
+    chaos: Any = None
 
     def fn(self, state, batch, step_idx, shift_idx):
+        if self.split_batch is not None:
+            batch = self.split_batch(batch)
         return self.engine.step(state, batch, step_idx, shift_idx)
-
-    def lower(self):
-        return self.engine.lower()
 
     @property
     def timeline(self) -> StageTimeline:
@@ -674,10 +677,6 @@ class PipelineStep:
 # ---------------------------------------------------------------------------
 # abstract signatures and the factory
 # ---------------------------------------------------------------------------
-
-
-def _spec(t: torch.Tensor) -> Tuple[Tuple[int, ...], torch.dtype]:
-    return tuple(t.shape), t.dtype
 
 
 def flat_abstract_args(part: FlatPartition, optimizer: Optimizer, M: int,
@@ -693,9 +692,7 @@ def flat_abstract_args(part: FlatPartition, optimizer: Optimizer, M: int,
     from running it on meta tensors (nothing is allocated).
     ``batch_abs=None`` leaves a placeholder the backend fills from the
     first batch it sees."""
-    meta = {g: torch.empty((M, n), dtype=part.group_dtypes[g],
-                           device="meta")
-            for g, n in part.group_sizes.items()}
+    meta = part.abstract_plane((M,))
     plane = tree_map(_spec, meta)
     opt_meta = optimizer.init(meta)
     opt = tree_map(_spec, opt_meta)
@@ -727,10 +724,119 @@ def flat_abstract_args(part: FlatPartition, optimizer: Optimizer, M: int,
     return out
 
 
-def make_layup_decoupled_pipeline(*args, **kwargs):
-    """The reference's Model/mesh factory: jit-level shardings on a device
-    mesh, which the port has no counterpart for yet."""
-    raise not_ported("the Model/mesh pipeline factory", 15)
+def _check_engine_options(*, streams: int, publisher, wire: str,
+                          compensate: float) -> None:
+    """The reference's rules: the stream engine takes no publisher, and
+    the wire and compensation knobs are checked."""
+    if streams > 1 and publisher is not None:
+        raise ValueError("publisher is not supported with streams > 1: "
+                         "the stream engine's read plane is a future, not "
+                         "a stable handle to publish (serve from a "
+                         "streams=1 engine, or materialize snapshots)")
+    _check_wire(wire, compensate)
+
+
+def _engine_tags(use_pallas: bool, wire: str, compensate: float) -> str:
+    return (f"{', pallas' if use_pallas else ''}"
+            f"{', wire=int8' if wire == 'int8' else ''}"
+            f"{f', comp={float(compensate):g}' if compensate else ''}")
+
+
+def _build_engine(part: FlatPartition, loss_fn: Callable,
+                  optimizer: Optimizer, schedule: Callable, *, M: int,
+                  R: int, D: int, shifts: Sequence[int], device,
+                  use_pallas: bool, streams: int, wire: str,
+                  compensate: float, describe: str, abstract_args,
+                  active_fn: Optional[Callable] = None,
+                  timeline: Optional[StageTimeline] = None,
+                  max_inflight_steps: Optional[int] = None,
+                  wait_timeout_s: float = 600.0):
+    """The engine over the decoupled lanes of ``loss_fn``: a
+    :class:`PipelineEngine`, or with ``streams > 1`` a
+    :class:`repro_torch.launch.streams.StreamEngine` (its gossip stage split
+    per layer group)."""
+    fwd_slices = [forward_slice_lane(loss_fn, fb_ratio=R, slice_idx=r)
+                  for r in range(R)]
+    upd = backward_update_lane(optimizer, schedule, update_delay=D,
+                               apply=not use_pallas, compensate=compensate)
+    mix, fused = _gossip_lanes(part, M, shifts, use_pallas=use_pallas,
+                               wire=wire)
+    bodies = _stage_bodies(part, R, M, device, fwd_slices, upd,
+                           mix if fused is None else fused, shifts,
+                           active_fn=active_fn, fused=use_pallas, wire=wire)
+    common = dict(R=R, D=D, M=M, stages=_make_stages(bodies), device=device,
+                  timeline=timeline, fused=use_pallas, wire=wire,
+                  compensate=compensate, abstract_args=abstract_args,
+                  describe=describe)
+    if max_inflight_steps is not None:
+        common["max_inflight_steps"] = int(max_inflight_steps)
+    if streams > 1:
+        from repro_torch.launch.streams import StreamEngine
+        return StreamEngine(
+            group_names=list(part.group_sizes),
+            group_stages=_make_group_stages(bodies, part.group_sizes),
+            n_streams=streams, wait_timeout_s=wait_timeout_s, **common)
+    return PipelineEngine(**common)
+
+
+def make_layup_decoupled_pipeline(model, mesh, optimizer: Optimizer,
+                                  schedule: Callable, shape,
+                                  shifts: Sequence[int] = (1, 2, 4, 8),
+                                  fb_ratio: int = 2, update_delay: int = 1,
+                                  timeline: Optional[StageTimeline] = None,
+                                  use_pallas: bool = False,
+                                  streams: int = 1, wire: str = "param",
+                                  compensate: float = 0.0,
+                                  membership: bool = False,
+                                  max_inflight_steps: Optional[int] = None,
+                                  wait_timeout_s: float = 600.0
+                                  ) -> PipelineStep:
+    """The decoupled LayUp step of ``model`` as a stage-graph engine (the
+    Model path of ``make_step(overlap=True)``): the stages of
+    :func:`make_pipeline_backend_trainer` over ``model.loss_fn`` on the
+    mesh's M workers, stepped with the global batch (``PipelineStep.fn``
+    splits it over the workers). ``streams > 1`` runs the stream engine.
+    The engine's abstract arguments (the tuner's cutouts) are the plane's,
+    with the batch's worker layout from ``input_specs``."""
+    M, device = _mesh_workers(mesh)
+    R, D = int(fb_ratio), int(update_delay)
+    if shape.global_batch % (M * max(R, 1)):
+        raise ValueError(
+            f"global_batch={shape.global_batch} must divide by "
+            f"M*R={M}*{R} for the decoupled forward lane")
+    shifts = tuple(s % M for s in shifts if s % M != 0) or (1,)
+    _check_engine_options(streams=streams, publisher=None, wire=wire,
+                          compensate=compensate)
+    part = FlatPartition(model.abstract_params())
+    batch_meta = {k: torch.empty(s, dtype=dt, device="meta")
+                  for k, (s, dt) in input_specs(model.cfg, shape).items()}
+    abstract_args = flat_abstract_args(
+        part, optimizer, M, R, D,
+        batch_abs=tree_map(_spec, worker_batch(batch_meta, M)),
+        fused=use_pallas, wire=wire, compensate=compensate,
+        groups=streams > 1)
+    tags = _engine_tags(use_pallas, wire, compensate)
+    describe = (f"layup decoupled stream pipeline (M={M}, R={R}, D={D}, "
+                f"shifts={shifts}, streams={streams}, "
+                f"groups={len(part.group_sizes)}{tags})" if streams > 1 else
+                f"layup decoupled pipeline (M={M}, R={R}, D={D}, "
+                f"shifts={shifts}, stages={R + 2}{tags})")
+    engine = _build_engine(
+        part, model.loss_fn, optimizer, schedule, M=M, R=R, D=D,
+        shifts=shifts, device=device, use_pallas=use_pallas,
+        streams=streams, wire=wire, compensate=compensate, describe=describe,
+        abstract_args=abstract_args, timeline=timeline,
+        max_inflight_steps=max_inflight_steps, wait_timeout_s=wait_timeout_s)
+
+    def init_state(params_stacked):
+        return make_decoupled_state(to_torch(params_stacked, device),
+                                    optimizer, update_delay=D, part=part,
+                                    wire=wire, compensate=compensate,
+                                    membership=membership)
+
+    return PipelineStep(engine, init_state, engine.describe,
+                        split_batch=lambda b: worker_batch(
+                            to_torch(b, device), M))
 
 
 def make_pipeline_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
@@ -741,7 +847,6 @@ def make_pipeline_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
                                   straggler_delays=None,
                                   measure_drift: bool = False,
                                   timeline: Optional[StageTimeline] = None,
-                                  flat: bool = True,
                                   use_pallas: bool = False,
                                   publisher=None,
                                   streams: int = 1, wire: str = "param",
@@ -770,61 +875,36 @@ def make_pipeline_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
     Returns ``(init_fn, step_fn, shifts, box)``: ``box["engine"]`` holds
     the engine and ``box["part"]`` the FlatPartition once ``init_fn`` has
     seen the params."""
-    if not flat:
-        raise not_ported("flat=False (the legacy per-leaf tree state)", 15)
-    if streams > 1 and publisher is not None:
-        raise ValueError("publisher is not supported with streams > 1: "
-                         "the stream engine's read plane is a future, not "
-                         "a stable handle to publish (serve from a "
-                         "streams=1 engine, or materialize snapshots)")
-    _check_wire(wire, compensate)
+    _check_engine_options(streams=streams, publisher=publisher, wire=wire,
+                          compensate=compensate)
     device = resolve_device(device)
     R, D = int(fb_ratio), int(update_delay)
     shifts = tuple(s % M for s in shifts if s % M != 0) or (1,)
     active_fn = straggler_active_fn(M, straggler_delays, device)
-    inflight = ({} if max_inflight_steps is None
-                else {"max_inflight_steps": int(max_inflight_steps)})
-    tags = (f"{', pallas' if use_pallas else ''}"
-            f"{', wire=int8' if wire == 'int8' else ''}"
-            f"{f', comp={float(compensate):g}' if compensate else ''}")
+    tags = _engine_tags(use_pallas, wire, compensate)
     box: Dict[str, Any] = {}
 
     def build(params_single):
         part = FlatPartition(params_single)
-        fwd_slices = [forward_slice_lane(loss_fn, fb_ratio=R, slice_idx=r)
-                      for r in range(R)]
-        upd = backward_update_lane(optimizer, schedule, update_delay=D,
-                                   apply=not use_pallas,
-                                   compensate=compensate)
-        mix = (gossip_fused_lane(part, M, shifts, wire=wire) if use_pallas
-               else gossip_plane_lane(part, M, shifts, wire=wire))
-        bodies = _stage_bodies(part, R, M, device, fwd_slices, upd, mix,
-                               shifts, active_fn=active_fn,
-                               fused=use_pallas, wire=wire)
+
         def absargs():
             return flat_abstract_args(part, optimizer, M, R, D,
                                       batch_abs=box.get("batch_abs"),
                                       fused=use_pallas, wire=wire,
                                       compensate=compensate,
                                       groups=streams > 1)
-        common = dict(R=R, D=D, M=M, stages=_make_stages(bodies),
-                      device=device, timeline=timeline, fused=use_pallas,
-                      wire=wire, compensate=compensate,
-                      abstract_args=absargs, **inflight)
-        if streams > 1:
-            from repro_torch.launch.streams import StreamEngine
-            engine = StreamEngine(
-                group_names=list(part.group_sizes),
-                group_stages=_make_group_stages(bodies, part.group_sizes),
-                n_streams=streams, wait_timeout_s=wait_timeout_s,
-                describe=(f"stream pipeline backend (M={M}, R={R}, D={D}, "
-                          f"streams={streams}, "
-                          f"groups={len(part.group_sizes)}{tags})"),
-                **common)
-        else:
-            engine = PipelineEngine(
-                describe=(f"pipeline backend (M={M}, R={R}, D={D}, "
-                          f"flat=True{tags})"), **common)
+        describe = (f"stream pipeline backend (M={M}, R={R}, D={D}, "
+                    f"streams={streams}, "
+                    f"groups={len(part.group_sizes)}{tags})" if streams > 1
+                    else f"pipeline backend (M={M}, R={R}, D={D}, "
+                    f"flat=True{tags})")
+        engine = _build_engine(
+            part, loss_fn, optimizer, schedule, M=M, R=R, D=D, shifts=shifts,
+            device=device, use_pallas=use_pallas, streams=streams,
+            wire=wire, compensate=compensate, describe=describe,
+            abstract_args=absargs, active_fn=active_fn,
+            timeline=timeline, max_inflight_steps=max_inflight_steps,
+            wait_timeout_s=wait_timeout_s)
         return engine, part
 
     def init_fn(rng, params_single):

@@ -84,7 +84,6 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.device import not_ported
 from repro_torch.launch.pipeline import (StageTimeline, cutout_args,
                                          record_fence)
 from repro_torch.launch.train import alive_on_device
@@ -834,6 +833,3 @@ class StreamEngine:
                                args[f"mix:{g}"])
         out["clock"] = (self._group_stages["clock"], args["clock"])
         return out
-
-    def lower(self):
-        raise not_ported("lowering stages (an XLA notion)", 15)

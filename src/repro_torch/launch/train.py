@@ -1,5 +1,5 @@
-"""The decoupled PD-ASGD training step on one device (port of the flat route
-of ``repro/launch/train.py``).
+"""The PD-ASGD training steps on one device (port of
+``repro/launch/train.py``).
 
 The M workers live on one device, stacked on the leading axis of every
 plane buffer: the state holds ``{group: (M, n_group)}`` buffers where the
@@ -47,22 +47,35 @@ donates it (``donate_argnums=(0,)``): the optimizer state, the applied FIFO
 slot and, on the fused route, the write plane are updated in place, which
 keeps GPT-2 Medium at M=4 within one 80 GB card. Callers keep the returned
 state, never the one they passed in.
+
+The Model-level factories (``make_step`` and the builders it routes to)
+build a :class:`ProdStep` from a ``Model``, a :class:`~repro_torch.launch.
+mesh.WorkerMesh` and a ``ShapeConfig``: DDP (one replica over the global
+batch), lockstep LayUp (``accum_steps``, the tree-level ``gossip_lane``),
+the decoupled step (``make_layup_decoupled_train_step``; ``overlap=True``
+routes to the pipeline engines), prefill and decode. Their steps take the
+global batch and split it over the workers along each leaf's batch dim.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Sequence
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ShapeConfig, input_specs
 from repro_torch.convert import to_torch
-from repro_torch.core.layerview import (FlatPartition, send_fractions,
-                                        stamp_groups, version_metrics)
-from repro_torch.core.pytree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.core.layerview import (FlatPartition, LayerPartition,
+                                        send_fractions, stamp_groups,
+                                        version_metrics)
+from repro_torch.core.pytree import (tree_flatten, tree_leaves, tree_map,
+                                     tree_unflatten)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (dequant_mix_ref, gossip_mix_ref,
                                      quantize_plane_ref)
+from repro_torch.launch.mesh import WorkerMesh
 from repro_torch.optim.optimizers import Optimizer, apply_updates
 
 
@@ -79,16 +92,17 @@ def _batch_dim(leaf) -> int:
     return 0
 
 
-def _split_fwd_slices(batch, R: int):
+def _split_fwd_slices(batch, R: int, what: str = "fb_ratio"):
     """Split a per-worker batch into R equal forward slices along each
     leaf's batch dim (:func:`_batch_dim`; slice 0 feeds the backward
-    lane)."""
+    lane). ``what`` names the knob in the error (``accum_steps`` cuts
+    microbatches the same way)."""
     def slc(x, r):
         d = _batch_dim(x)
         n = x.shape[d]
         if n % R:
             raise ValueError(
-                f"fb_ratio={R} needs per-worker batch divisible by {R}; "
+                f"{what}={R} needs per-worker batch divisible by {R}; "
                 f"got leaf shape {tuple(x.shape)}")
         return x.narrow(d, (n // R) * r, n // R)
 
@@ -134,18 +148,49 @@ def combine_slice_losses(loss0, rest: Sequence, R: int):
     return (loss0 + sum(rest)) / R if R > 1 else loss0
 
 
-def forward_lane(loss_fn: Callable, *, fb_ratio: int = 1) -> Callable:
+def forward_lane(loss_fn: Callable, *, fb_ratio: int = 1,
+                 accum_steps: int = 1) -> Callable:
     """Forward (+ autograd backward) on one worker's read parameters.
 
     Returns ``fwd(params, batch) -> (loss, grads)`` with ``loss`` a 0-d
     tensor and ``grads`` a tree like ``params``. With ``fb_ratio=R > 1``
     only slice 0 gets a backward; the other R-1 slices run forward-only
-    under ``no_grad`` and the loss averages all R."""
-    R = int(fb_ratio)
+    under ``no_grad`` and the loss averages all R.
+
+    ``accum_steps=A > 1`` runs the batch as A equal microbatches (cut along
+    each leaf's batch dim), one forward and backward each, so the
+    activations are a microbatch's: the losses and gradients are summed in
+    float32, then ``loss / A`` and the gradients ``/ A`` cast to each
+    parameter's dtype. It does not compose with R > 1."""
+    R, A = int(fb_ratio), int(accum_steps)
     if R < 1:
         raise ValueError("fb_ratio must be >= 1")
+    if A < 1:
+        raise ValueError("accum_steps must be >= 1")
+    if R > 1 and A > 1:
+        raise ValueError("fb_ratio > 1 does not compose with accum_steps")
     lanes = [forward_slice_lane(loss_fn, fb_ratio=R, slice_idx=r)
              for r in range(R)]
+
+    if A > 1:
+        def fwd_accum(params, batch):
+            loss, acc = None, None
+            for mb in _split_fwd_slices(batch, A, "accum_steps"):
+                l_mb, g_mb = lanes[0](params, mb)
+                g_mb, treedef = tree_flatten(g_mb)
+                if acc is None:  # 0 + x is x: the first terms start the sums
+                    loss = l_mb.to(torch.float32)
+                    acc = [g.to(torch.float32) for g in g_mb]
+                else:
+                    loss = loss + l_mb.to(torch.float32)
+                    for a, g in zip(acc, g_mb):
+                        a.add_(g.to(torch.float32))
+                del g_mb
+            grads = [(a / A).to(p.dtype)
+                     for a, p in zip(acc, tree_leaves(params))]
+            return loss / A, tree_unflatten(treedef, grads)
+
+        return fwd_accum
 
     def fwd(params, batch):
         loss, grads = lanes[0](params, batch)
@@ -191,7 +236,8 @@ def _compensate_(g, p, theta, drift, lam: float) -> None:
 def backward_update_lane(optimizer: Optimizer, schedule: Callable, *,
                          update_delay: int = 0, apply: bool = True,
                          compensate: float = 0.0) -> Callable:
-    """Delayed update application on the stacked write plane.
+    """Delayed update application on the stacked write plane (any dict of
+    ``(M, ...)`` buffers: the plane's groups, or a tree's leaves).
 
     Returns ``upd(params, opt_state, grads, fifo, step_idx, active=None) ->
     (params | updates, opt_state, fifo, update_staleness,
@@ -246,10 +292,13 @@ def backward_update_lane(optimizer: Optimizer, schedule: Callable, *,
             any_p = next(iter(params.values()))
             update_staleness = torch.zeros((), dtype=torch.float32,
                                            device=any_p.device)
-        ok = {k: torch.isfinite(g).all(dim=-1) for k, g in grads.items()}
+        # one verdict per (worker, buffer): a group of the plane, or a leaf
+        # of the lockstep and DDP steps' trees
+        ok = {k: torch.isfinite(g).reshape(g.shape[0], -1).all(dim=-1)
+              for k, g in grads.items()}
         skips = sum((~o).sum(dtype=torch.float32) for o in ok.values())
         for k, g in grads.items():  # a select, in the consumed buffer
-            g.masked_fill_(~ok[k][:, None], 0.0)
+            g.masked_fill_(~_rows_mask(ok[k], g), 0.0)
         if lam > 0.0:
             for k, g in grads.items():
                 _compensate_(g, params[k], theta[k], update_staleness, lam)
@@ -257,9 +306,9 @@ def backward_update_lane(optimizer: Optimizer, schedule: Callable, *,
         updates, opt_state = optimizer.update(grads, opt_state, params, lr)
         del grads
         for k, u in updates.items():
-            u.masked_fill_(~ok[k][:, None], 0.0)
+            u.masked_fill_(~_rows_mask(ok[k], u), 0.0)
             if active is not None:
-                u.mul_(active[:, None].to(u.dtype))
+                u.mul_(_rows_mask(active, u).to(u.dtype))
         out = updates if not apply else apply_updates(params, updates)
         if lam > 0.0:
             return out, opt_state, fifo, update_staleness, skips, theta
@@ -343,11 +392,15 @@ def _check_wire(wire: str, compensate: float) -> None:
 
 
 def gossip_plane_lane(part: FlatPartition, M: int, shifts: Sequence[int], *,
-                      wire: str = "param"):
+                      use_pallas: bool = False, wire: str = "param"):
     """Push-sum ring gossip on the stacked flat plane, after the update was
     applied: ``(w/2·mine + w'/2·recv) / (w/2 + w'/2)`` in f32, plain
     PyTorch. Returns ``mix(plane, w, shift_idx) -> (plane, w)``; the
     identity when M == 1.
+
+    ``use_pallas=True`` sends each group through the pure variant of the
+    ``gossip_mix`` kernel (``ops.gossip_mix(mine, recv, None, α, β)``, the
+    update already applied): a fresh mixed buffer per group.
 
     ``wire="int8"`` quantizes each outgoing group with its error-feedback
     residual and mixes the received ``{q, scales}`` with
@@ -386,17 +439,41 @@ def gossip_plane_lane(part: FlatPartition, M: int, shifts: Sequence[int], *,
 
     def mix(plane, w, shift_idx, alive=None):
         hop, w_keep, rw, use = _ring_exchange(w, shift_idx, shifts, alive)
-        new_w, denom, _, _ = _mix_weights(w_keep, rw, use)
+        new_w, denom, alpha, beta = _mix_weights(w_keep, rw, use)
         mixed = {}
         for name, mine in plane.items():
             r = hop(mine)
-            mf = (w_keep[:, None] * mine.to(torch.float32)
-                  + rw[:, None] * r.to(torch.float32)) / denom[:, None]
+            if use_pallas:
+                mx = ops.gossip_mix(mine, r, None, alpha, beta)
+            else:
+                # (w_keep·mine + rw·recv) / denom in float32, each operation
+                # rounded as out of place, in two buffers: mine's copy and
+                # the hop's (its own when float32)
+                mf = mine.to(torch.float32, copy=True).mul_(w_keep[:, None])
+                mf.add_(r.to(torch.float32).mul_(rw[:, None]))
+                mx = mf.div_(denom[:, None]).to(mine.dtype)
             del r
-            mx = mf.to(mine.dtype)
             mixed[name] = mx if use is None else torch.where(
                 _rows_mask(use, mine), mx, mine)
         return mixed, new_w
+
+    return mix
+
+
+def gossip_lane(part: FlatPartition, M: int, shifts: Sequence[int], *,
+                use_pallas: bool = False):
+    """Tree-level gossip for the lockstep LayUp step, whose state stays a
+    parameter tree: pack the stacked tree into the plane through ``part``,
+    mix each group (:func:`gossip_plane_lane`; ``use_pallas``: the pure
+    ``gossip_mix`` kernel), unpack (views of the mixed plane). Returns
+    ``mix(tree, w, shift_idx) -> (tree, w)``; the identity when M == 1."""
+    if M == 1:
+        return lambda tree, w, shift_idx, alive=None: (tree, w)
+    plane_mix = gossip_plane_lane(part, M, shifts, use_pallas=use_pallas)
+
+    def mix(tree, w, shift_idx, alive=None):
+        plane, w = plane_mix(part.pack(tree), w, shift_idx, alive=alive)
+        return part.unpack(plane), w
 
     return mix
 
@@ -686,6 +763,15 @@ def make_decoupled_state(params_stacked, optimizer: Optimizer, *,
     return state
 
 
+def _gossip_lanes(part: FlatPartition, M: int, shifts: Sequence[int], *,
+                  use_pallas: bool, wire: str):
+    """``(mix, fused_mix)`` of the decoupled step: the fused Alg. 1 lane on
+    ``use_pallas``, else the plain plane lane."""
+    if use_pallas:
+        return None, gossip_fused_lane(part, M, shifts, wire=wire)
+    return gossip_plane_lane(part, M, shifts, wire=wire), None
+
+
 def _decoupled_metrics(w, versions, loss, upd_stale, step_idx, skips,
                        alive=None):
     out = {"loss": loss, "update_staleness": upd_stale,
@@ -807,3 +893,379 @@ def make_decoupled_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
         return new_state, metrics
 
     return init_fn, step_fn, shifts, part_box
+
+
+# ---------------------------------------------------------------------------
+# the Model-level step factories
+# ---------------------------------------------------------------------------
+
+
+def _spec(t: torch.Tensor) -> Tuple[Tuple[int, ...], torch.dtype]:
+    """A tensor's abstract form: its ``(shape, dtype)`` pair."""
+    return tuple(t.shape), t.dtype
+
+
+@dataclass
+class ProdStep:
+    """A step built from a ``Model`` at a ``ShapeConfig``: ``fn``, the
+    abstract arguments it takes (``(shape, dtype)`` pairs, a host integer
+    the type ``int``), and ``init_state``, which makes ``fn``'s first state
+    from params: DDP ``params -> (params, opt_state)``, lockstep LayUp
+    ``stacked params -> (params, opt_state, w)``, the decoupled step
+    ``stacked params -> state``. ``chaos`` (set by ``make_step(faults=)``)
+    is the :class:`repro_torch.chaos.ChaosController` of the step's fault
+    plan: callers run ``chaos.before_step`` at each step boundary."""
+    fn: Any
+    abstract_args: Tuple[Any, ...]
+    describe: str = ""
+    chaos: Any = None
+    init_state: Optional[Callable] = None
+
+
+def _mesh_workers(mesh) -> Tuple[int, torch.device]:
+    """``(M, device)`` of a :class:`~repro_torch.launch.mesh.WorkerMesh`,
+    the device resolved (``None``: CUDA, which must exist)."""
+    if not isinstance(mesh, WorkerMesh):
+        raise TypeError(f"expected a WorkerMesh, got {mesh!r} (build one "
+                        "with WorkerMesh(M, device))")
+    return mesh.workers, resolve_device(mesh.device)
+
+
+def worker_batch(batch, M: int):
+    """The global batch in the worker layout: each leaf's batch dim
+    (:func:`_batch_dim`) cut into M contiguous shards, shard ``m`` worker
+    ``m``'s, on a new leading axis (views). The reference's ``shard_map``
+    over the worker axes gives each worker the same rows."""
+    def split(x):
+        d = _batch_dim(x)
+        n = x.shape[d]
+        if n % M:
+            raise ValueError(f"global batch of {n} does not split over {M} "
+                             f"workers (leaf shape {tuple(x.shape)})")
+        return x.unflatten(d, (M, n // M)).movedim(d, 0)
+
+    return tree_map(split, batch)
+
+
+def _stacked_meta(tree, M: int):
+    """A meta tree with a leading worker axis of M (nothing allocated)."""
+    return tree_map(lambda t: t.expand((M,) + tuple(t.shape)), tree)
+
+
+def _lead(tree):
+    """Every leaf with a leading axis of 1 (views): one replica as a worker
+    axis, the layout of the update lane."""
+    return tree_map(lambda x: x[None], tree)
+
+
+def _unlead(tree):
+    return tree_map(lambda x: x[0], tree)
+
+
+def make_ddp_train_step(model, mesh, optimizer: Optimizer,
+                        schedule: Callable, shape: ShapeConfig) -> ProdStep:
+    """The synchronous baseline: one replica over the global batch, one
+    forward and backward, the optimizer on the whole gradient (on a mesh of
+    many devices the reference's GSPMD all-reduces it; here the one replica
+    holds it). ``fn(params, opt_state, batch, step_idx) -> (params,
+    opt_state, loss)``; the optimizer state is over the params'
+    ``{leaf_key: leaf}`` dict (``init_state(params)``) and is updated in
+    place."""
+    _, device = _mesh_workers(mesh)
+    part = LayerPartition(model.abstract_params())
+    fwd = forward_lane(model.loss_fn)
+    upd = backward_update_lane(optimizer, schedule)
+
+    def step(params, opt_state, batch, step_idx):
+        batch = to_torch(batch, device)
+        with torch.no_grad():
+            loss, grads = fwd(params, batch)
+            new, opt_state, _, _, _ = upd(
+                _lead(part.by_key(params)), _lead(opt_state),
+                _lead(part.by_key(grads)), (), int(step_idx))
+            del grads
+        return part.from_keys(_unlead(new)), _unlead(opt_state), loss
+
+    def init_state(params):
+        params = to_torch(params, device)
+        return params, optimizer.init(part.by_key(params))
+
+    abstract_params = model.abstract_params()
+    abstract = (tree_map(_spec, abstract_params),
+                tree_map(_spec, optimizer.init(part.by_key(abstract_params))),
+                input_specs(model.cfg, shape), int)
+    return ProdStep(step, abstract, "ddp train", init_state=init_state)
+
+
+def make_layup_train_step(model, mesh, optimizer: Optimizer,
+                          schedule: Callable, shape: ShapeConfig,
+                          shifts: Sequence[int] = (1, 2, 4, 8),
+                          accum_steps: int = 1,
+                          use_pallas: bool = False) -> ProdStep:
+    """The lockstep LayUp step: every worker runs forward and backward on
+    its shard of the global batch (``accum_steps`` microbatches each),
+    applies its update, and the stacked tree is mixed over the ring, one
+    layer group at a time (:func:`gossip_lane`; ``use_pallas``: the pure
+    ``gossip_mix`` kernel). ``fn(params, opt_state, w, batch, step_idx,
+    shift_idx) -> (params, opt_state, w, loss)``: ``params`` the stacked
+    ``(M, ...)`` tree, the optimizer state over its ``{leaf_key: (M, ...)}``
+    dict (``init_state``), ``w`` the ``(M,)`` push-sum weights, ``loss`` the
+    mean over the workers."""
+    M, device = _mesh_workers(mesh)
+    shifts = tuple(s % M for s in shifts if s % M != 0) or (1,)
+    part = FlatPartition(model.abstract_params())
+    fwd = forward_lane(model.loss_fn, accum_steps=accum_steps)
+    upd = backward_update_lane(optimizer, schedule)
+    mix = gossip_lane(part, M, shifts, use_pallas=use_pallas)
+
+    def step(params, opt_state, w, batch, step_idx, shift_idx):
+        batch = worker_batch(to_torch(batch, device), M)
+        with torch.no_grad():
+            keyed = part.by_key(params)
+            grads = {k: torch.empty_like(v) for k, v in keyed.items()}
+            losses = []
+            for m in range(M):
+                loss_m, g_m = fwd(tree_map(lambda x: x[m], params),
+                                  {k: v[m] for k, v in batch.items()})
+                for k, g in part.by_key(g_m).items():
+                    grads[k][m].copy_(g)
+                del g_m
+                losses.append(loss_m)
+            new, opt_state, _, _, _ = upd(keyed, opt_state, grads, (),
+                                          int(step_idx))
+            del grads
+            params, w = mix(part.from_keys(new), w, int(shift_idx))
+        return params, opt_state, w, live_loss(losses, None)
+
+    def init_state(params_stacked):
+        params = tree_map(
+            lambda x: x.to(device).clone(
+                memory_format=torch.contiguous_format), params_stacked)
+        return (params, optimizer.init(part.by_key(params)),
+                torch.full((M,), 1.0 / M, dtype=torch.float32,
+                           device=device))
+
+    stacked = _stacked_meta(model.abstract_params(), M)
+    abstract = (tree_map(_spec, stacked),
+                tree_map(_spec, optimizer.init(part.by_key(stacked))),
+                ((M,), torch.float32), input_specs(model.cfg, shape),
+                int, int)
+    return ProdStep(step, abstract,
+                    f"layup train (M={M}, shifts={shifts}"
+                    f"{f', accum={accum_steps}' if accum_steps > 1 else ''}"
+                    f"{', pallas' if use_pallas else ''})",
+                    init_state=init_state)
+
+
+def make_layup_decoupled_train_step(model, mesh, optimizer: Optimizer,
+                                    schedule: Callable, shape: ShapeConfig,
+                                    shifts: Sequence[int] = (1, 2, 4, 8),
+                                    fb_ratio: int = 2,
+                                    update_delay: int = 1,
+                                    use_pallas: bool = False,
+                                    wire: str = "param",
+                                    compensate: float = 0.0,
+                                    membership: bool = False) -> ProdStep:
+    """The paper's decoupled step at the Model level: the lanes of
+    :func:`make_decoupled_backend_trainer` over ``model.loss_fn``, taking
+    the global batch (split over the workers by :func:`worker_batch`).
+    ``fn(state, batch, step_idx, shift_idx) -> (state, metrics)``, the
+    state from ``init_state(stacked params)`` (:func:`make_decoupled_state`
+    with the step's flags), consumed in place."""
+    M, device = _mesh_workers(mesh)
+    R, D = int(fb_ratio), int(update_delay)
+    if shape.global_batch % (M * max(R, 1)):
+        raise ValueError(
+            f"global_batch={shape.global_batch} must divide by "
+            f"M*R={M}*{R} for the decoupled forward lane")
+    shifts = tuple(s % M for s in shifts if s % M != 0) or (1,)
+    _check_wire(wire, compensate)
+    part = FlatPartition(model.abstract_params())
+    fwd = forward_lane(model.loss_fn, fb_ratio=R)
+    upd = backward_update_lane(optimizer, schedule, update_delay=D,
+                               apply=not use_pallas, compensate=compensate)
+    mix, fused = _gossip_lanes(part, M, shifts, use_pallas=use_pallas,
+                               wire=wire)
+    base_step = _decoupled_worker_fn(part, fwd, upd, mix, M, D,
+                                     fused_mix=fused)
+
+    def step(state, batch, step_idx, shift_idx):
+        batch = worker_batch(to_torch(batch, device), M)
+        with torch.no_grad():
+            return base_step(state, batch, int(step_idx), int(shift_idx))
+
+    def init_state(params_stacked):
+        return make_decoupled_state(to_torch(params_stacked, device),
+                                    optimizer, update_delay=D, part=part,
+                                    wire=wire, compensate=compensate,
+                                    membership=membership)
+
+    meta = part.abstract_plane((M,))
+    plane = tree_map(_spec, meta)
+    abstract_state = {"read": plane, "write": plane,
+                      "opt": tree_map(_spec, optimizer.init(meta)),
+                      "w": ((M,), torch.float32),
+                      "versions": ((M, part.num_groups), torch.float32)}
+    if D > 0:
+        abstract_state["fifo"] = {
+            "g": {k: ((M, D) + tuple(b.shape[1:]), b.dtype)
+                  for k, b in meta.items()},
+            "stamp": ((D,), torch.float32)}
+    if wire == "int8":
+        abstract_state["resid"] = plane
+    if float(compensate) > 0.0:
+        abstract_state["theta"] = plane
+    if membership:
+        abstract_state["alive"] = ((M,), torch.float32)
+    abstract = (abstract_state, input_specs(model.cfg, shape), int, int)
+    return ProdStep(step, abstract,
+                    f"layup decoupled train (M={M}, R={R}, D={D}, "
+                    f"shifts={shifts}"
+                    f"{', pallas' if use_pallas else ''}"
+                    f"{', wire=int8' if wire == 'int8' else ''}"
+                    f"{f', comp={compensate}' if compensate else ''}"
+                    f"{', membership' if membership else ''})",
+                    init_state=init_state)
+
+
+def make_prefill_step(model, mesh, shape: ShapeConfig) -> ProdStep:
+    """``fn(params, batch) -> (cache, last_logits)``: ``model.prefill_fn``
+    on the batch (the flash forward on the card)."""
+    _, device = _mesh_workers(mesh)
+
+    def step(params, batch):
+        return model.prefill_fn(params, to_torch(batch, device))
+
+    abstract = (tree_map(_spec, model.abstract_params()),
+                input_specs(model.cfg, shape))
+    return ProdStep(step, abstract, "prefill")
+
+
+def make_decode_step(model, mesh, shape: ShapeConfig) -> ProdStep:
+    """``fn(params, cache, token, position) -> (logits, cache)``:
+    ``model.decode_fn``, the cache written in place (the reference donates
+    it). The cache's abstract form is ``model.cache_specs(B, seq_len)``."""
+    _mesh_workers(mesh)
+    B = shape.global_batch
+
+    def step(params, cache, token, position):
+        return model.decode_fn(params, cache, token, position)
+
+    abstract = (tree_map(_spec, model.abstract_params()),
+                model.cache_specs(B, shape.seq_len),
+                ((B, 1), torch.int32), ((B,), torch.int32))
+    return ProdStep(step, abstract, "decode")
+
+
+# ---------------------------------------------------------------------------
+# dispatcher
+# ---------------------------------------------------------------------------
+
+
+def make_step(model, mesh, shape: ShapeConfig, *, algo: str = "layup",
+              optimizer: Optional[Optimizer] = None,
+              schedule: Optional[Callable] = None,
+              shifts: Sequence[int] = (1, 2, 4, 8),
+              accum_steps: int = 1,
+              fb_ratio: int = 1,
+              update_delay: int = 0,
+              overlap: bool = False,
+              flat: bool = True,
+              use_pallas: bool = False,
+              streams: int = 1,
+              wire: str = "param",
+              compensate: float = 0.0,
+              faults=None,
+              max_inflight_steps: Optional[int] = None,
+              tuning=None):
+    """The step of ``model`` at ``shape`` on ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.WorkerMesh`: M workers on one device;
+    ``WorkerMesh(M, "cpu")`` runs on the CPU), routed as the reference's:
+
+    * ``shape.kind == "train"``: ``algo="ddp"`` is
+      :func:`make_ddp_train_step`; ``fb_ratio > 1``, ``update_delay > 0``
+      or ``overlap`` the decoupled LayUp step
+      (:func:`make_layup_decoupled_train_step`, or with ``overlap=True``
+      the stage-graph engines of ``repro_torch.launch.pipeline``, ``streams
+      > 1`` on CUDA streams of their own); else lockstep LayUp
+      (:func:`make_layup_train_step`, with ``accum_steps``);
+    * ``"prefill"`` / ``"decode"``: :func:`make_prefill_step` /
+      :func:`make_decode_step`.
+
+    ``use_pallas``, ``wire`` and ``compensate`` are the decoupled lane's
+    options (DESIGN.md §11, §14); ``use_pallas`` also routes the lockstep
+    mix through the pure ``gossip_mix`` kernel. ``flat=False`` (the
+    reference's legacy per-leaf state, which gives its flat plane's numbers
+    bit for bit) runs on the flat plane, the port's one state layout.
+    ``faults`` (a ``FaultPlan`` or its spec) turns on membership in the
+    decoupled lane and attaches a ``ChaosController`` as ``.chaos``.
+    ``tuning`` (a ``TuningRecord`` or the path of one) replaces the
+    schedule defaults still at their documented values and implies
+    ``overlap=True``; a record that fails to load warns and changes
+    nothing. The default optimizer is momentum 0.9 with its state in the
+    model's dtype, the default schedule a constant 0.1."""
+    from repro_torch.optim import constant, momentum
+    del flat
+    optimizer = optimizer or momentum(0.9, state_dtype=model.cfg.dtype)
+    schedule = schedule or constant(0.1)
+    if tuning is not None:
+        from repro_torch.launch.tuner import apply_tuning, resolve_tuning
+        record = resolve_tuning(tuning)
+        if record is not None:
+            tuned = apply_tuning(record, fb_ratio=fb_ratio,
+                                 update_delay=update_delay,
+                                 max_inflight_steps=max_inflight_steps)
+            fb_ratio = tuned["fb_ratio"]
+            update_delay = tuned["update_delay"]
+            max_inflight_steps = tuned["max_inflight_steps"]
+            overlap = True
+    decoupled = fb_ratio > 1 or update_delay > 0 or overlap
+    membership = faults is not None
+    if streams > 1 and not overlap:
+        raise ValueError("streams > 1 is a property of the stage-graph "
+                         "pipeline; it requires overlap=True")
+    _check_wire(wire, compensate)
+    if (wire != "param" or float(compensate) > 0.0 or membership) \
+            and not decoupled:
+        raise ValueError("wire='int8' / compensate > 0 / faults belong to "
+                         "the decoupled LayUp lane (fb_ratio/update_delay/"
+                         "overlap)")
+    if decoupled and (shape.kind != "train" or algo == "ddp"):
+        raise ValueError(
+            "fb_ratio/update_delay/overlap define the decoupled LayUp lane; "
+            f"they do not apply to algo={algo!r} kind={shape.kind!r}")
+    if shape.kind == "train":
+        if algo == "ddp":
+            return make_ddp_train_step(model, mesh, optimizer, schedule,
+                                       shape)
+        if decoupled:
+            if accum_steps > 1:
+                raise ValueError(
+                    "the decoupled lane does not compose with accum_steps")
+            lane = dict(shifts=shifts, fb_ratio=fb_ratio,
+                        update_delay=update_delay, use_pallas=use_pallas,
+                        wire=wire, compensate=compensate,
+                        membership=membership)
+            if overlap:
+                from repro_torch.launch.pipeline import \
+                    make_layup_decoupled_pipeline
+                step = make_layup_decoupled_pipeline(
+                    model, mesh, optimizer, schedule, shape, streams=streams,
+                    max_inflight_steps=max_inflight_steps, **lane)
+            else:
+                step = make_layup_decoupled_train_step(
+                    model, mesh, optimizer, schedule, shape, **lane)
+            if membership:
+                from repro_torch.chaos import ChaosController
+                step.chaos = ChaosController(
+                    faults, mesh.workers, update_delay=update_delay,
+                    compensate=compensate)
+                engine = getattr(step, "engine", None)
+                step.chaos.attach(engine=engine,
+                                  board=getattr(engine, "board", None))
+            return step
+        return make_layup_train_step(model, mesh, optimizer, schedule, shape,
+                                     shifts, accum_steps, use_pallas)
+    if shape.kind == "prefill":
+        return make_prefill_step(model, mesh, shape)
+    return make_decode_step(model, mesh, shape)

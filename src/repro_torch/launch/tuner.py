@@ -330,7 +330,8 @@ def score_candidate(cand: Candidate, stage_times: Dict[str, float], *,
     * ``grouping="legacy"`` multiplies the gossip time by
       ``legacy_gossip_factor`` (the per-step f32 ravel repack + the f32
       wire, vs. the zero-repack param-dtype plane: the JAX package's
-      factor; the port has no legacy route to measure); off-128 tiles pay
+      factor; the port runs ``flat=False`` on the flat plane, so it has no
+      legacy route to measure); off-128 tiles pay
       a modeled launch
       (smaller) or padding (larger) penalty;
     * one step runs R forward slices against the update+gossip tail.

@@ -16,7 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.pytree import tree_flatten_with_path, tree_unflatten
+from repro_torch.core.pytree import (tree_flatten_with_path, tree_leaves,
+                                    tree_map, tree_unflatten)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import attention_ref, rmsnorm_ref
@@ -73,6 +74,25 @@ def init_params(specs, *, seed: int = 0, dtype=torch.float32, device=None):
                         device=device) * spec.scale
         leaves.append(w.to(dt))
     return tree_unflatten(treedef, leaves)
+
+
+def abstract_params(specs, dtype=torch.float32):
+    """The spec tree as tensors on the ``meta`` device: shapes and dtypes,
+    nothing allocated (the JAX package's ``ShapeDtypeStruct`` tree)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype or dtype,
+                                          device="meta"), specs)
+
+
+def logical_axes(specs):
+    """The tree of each parameter's logical axis names."""
+    return tree_map(lambda s: s.axes, specs)
+
+
+def param_count(params) -> int:
+    """Elements over every leaf of a parameter tree (tensors, meta tensors
+    or specs)."""
+    return sum(int(np.prod(x.shape, dtype=np.int64))
+               for x in tree_leaves(params))
 
 
 # ---------------------------------------------------------------------------

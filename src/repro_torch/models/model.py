@@ -16,6 +16,8 @@ dict of the JAX package's tree:
   decode_fn(params, cache, token, position) -> (logits, cache)
   cache_specs(B, seq_len)  ``CacheSpec`` tree (``transformer.alloc_cache``
                            makes the zeros on a named device)
+  abstract_params()        the params tree on the ``meta`` device
+  logical_axes()           each parameter's logical axis names
 
 ``prefill_fn`` and ``decode_fn`` run under ``torch.inference_mode()``;
 ``decode_fn`` writes ``cache`` in place and returns it. ``DecoderLM``
@@ -49,6 +51,13 @@ class Model:
     def init(self, seed: int = 0, *, device=None, dtype=None):
         return L.init_params(self.specs, seed=seed,
                              dtype=dtype or self.cfg.dtype, device=device)
+
+    def abstract_params(self, dtype=None):
+        """The params tree on the ``meta`` device (nothing allocated)."""
+        return L.abstract_params(self.specs, dtype or self.cfg.dtype)
+
+    def logical_axes(self):
+        return L.logical_axes(self.specs)
 
 
 def _decoder_embed_inputs(params, batch, cfg):

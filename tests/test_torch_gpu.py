@@ -1251,3 +1251,98 @@ def test_family_model_on_card_as_on_cpu(cuda_device, name):
     for a, b in zip(gg, cg):
         assert (_gap(a, b) <= 1e-4 if bool(b.abs().max() > 0)
                 else not bool(a.abs().max() > 0))
+
+
+# ---------------------------------------------------------------------------
+# the Model-level step factories (make_step) on the card
+# ---------------------------------------------------------------------------
+
+
+def _model_path_setup(M, steps=3):
+    """A 2-layer decoder at GPT-2 Medium's width on the card (seed-0
+    weights) and ``steps`` global batches of M·4 sequences of 128."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("gpt2-medium").with_(num_layers=2)
+    model = build_model(cfg)
+    rng = np.random.default_rng(0)
+    toks = [torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                          (M * 4, 129))).cuda()
+            for _ in range(steps)]
+    batches = [{"tokens": t[:, :-1], "labels": t[:, 1:]} for t in toks]
+    return model, model.init(seed=0, device="cuda"), batches
+
+
+def _model_step(model, M, **kw):
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.mesh import WorkerMesh
+    from repro_torch.launch.train import make_step
+    from repro_torch.optim import constant, momentum
+
+    return make_step(model, WorkerMesh(M, "cuda"),
+                     ShapeConfig("t", 128, M * 4, "train"),
+                     optimizer=momentum(0.9), schedule=constant(3e-3), **kw)
+
+
+def _stacked(params, M):
+    from repro_torch.core.pytree import tree_map
+    return tree_map(lambda x: x[None].expand((M,) + tuple(x.shape)), params)
+
+
+@pytest.mark.gpu
+def test_lockstep_pure_mix_kernel_against_plain(cuda_device):
+    """The lockstep step with ``use_pallas``: the pure ``gossip_mix``
+    kernel once per layer group per step, its losses and parameters within
+    1e-6 of the largest |value| of the same steps through the plain
+    ``gossip_plane_lane``."""
+    from repro_torch.core.pytree import tree_leaves
+
+    M = 2
+    model, params, batches = _model_path_setup(M)
+    runs = {}
+    for pallas in (True, False):
+        step = _model_step(model, M, use_pallas=pallas)
+        p, o, w = step.init_state(_stacked(params, M))
+        gm_kernel.reset_launches()
+        losses = []
+        for t, b in enumerate(batches):
+            p, o, w, loss = step.fn(p, o, w, b, t, 0)
+            losses.append(float(loss))
+        runs[pallas] = (losses, tree_leaves(p), gm_kernel.launches)
+    (kl, kp, kn), (pl, pp, pn) = runs[True], runs[False]
+    assert kn == 3 * len(batches) and pn == 0  # 3 groups a step
+    for a, b in zip(kl, pl):
+        assert abs(a - b) <= 1e-6 * abs(b)
+    for a, b in zip(kp, pp):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+
+
+@pytest.mark.gpu
+def test_model_path_decoupled_bit_exact_vs_backend(cuda_device):
+    """``make_step``'s decoupled step on the global batch against
+    ``make_backend("prod")`` on the same worker rows, R=2, D=1, the fused
+    kernel route: every metric and the read plane, bit for bit."""
+    from repro_torch.core.backend import make_backend
+    from repro_torch.optim import constant, momentum
+
+    M = 2
+    model, params, batches = _model_path_setup(M)
+    kw = dict(fb_ratio=2, update_delay=1, use_pallas=True)
+    be = make_backend("prod", "layup", M=M, loss_fn=model.loss_fn,
+                      optimizer=momentum(0.9), schedule=constant(3e-3),
+                      device="cuda", measure_drift=False, **kw)
+    bst = be.init(None, params)
+    step = _model_step(model, M, **kw)
+    st = step.init_state(_stacked(params, M))
+    for t, b in enumerate(batches):
+        sim = {k: v.reshape((M, 4) + tuple(v.shape[1:]))
+               for k, v in b.items()}
+        bst, bm = be.step(bst, sim)
+        st, m = step.fn(st, b, t, 0)  # M=2: one shift, index 0
+        for k in ("loss", "update_staleness", "layer_staleness",
+                  "weight_sum", "staleness_mean"):
+            assert torch.equal(m[k], bm[k]), (k, t)
+    for k, v in bst["read"].items():
+        assert torch.equal(st["read"][k], v), k

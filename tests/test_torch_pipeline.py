@@ -422,13 +422,11 @@ def test_stage_cutouts_after_first_step():
     batch = {k: torch.zeros(s, dtype=d) for k, (s, d) in args[1].items()}
     losses, grads = fn(read, batch)
     assert len(losses) == 2 and set(grads) == set(read)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        be.engine.lower()
 
 
 def test_pipeline_step_wraps_the_engine():
-    """``PipelineStep``: the engine behind the monolithic step's signature;
-    ``lower`` names the item that has the XLA notion."""
+    """``PipelineStep``: the engine behind the monolithic step's
+    signature."""
     from repro_torch.convert import to_torch
 
     be = make_backend("prod", "layup", M=2, loss_fn=torch_mlp_loss,
@@ -440,21 +438,40 @@ def test_pipeline_step_wraps_the_engine():
     st, m = ps.fn(st, to_torch(np_tree(mlp_batch(0, M=2, b=8)), "cpu"), 0, 0)
     assert np.isfinite(float(m["loss"])) and ps.timeline is be.timeline
     assert "pipeline backend (M=2" in ps.describe
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ps.lower()
 
 
 # ids as they were before the item-10 (membership) and item-11
-# (publisher) cases left
+# (publisher) cases left; item 15a ported both options this case pinned
 @pytest.mark.parametrize("kw,item", [
     pytest.param(dict(flat=False), "item 15", id="kw2-item 15")])
 def test_unported_engine_options_name_their_roadmap_item(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        P.make_pipeline_backend_trainer(torch_mlp_loss, momentum(0.9),
-                                        constant(0.05), 2, device="cpu",
-                                        **kw)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        P.make_layup_decoupled_pipeline()
+    """Once guards naming ``item``, now working: the engine with
+    ``flat=False`` (run on the flat plane, the port's one state layout)
+    gives its monolithic step's bits, and the Model-level factory builds an
+    engine that ``PipelineStep.fn`` steps with the global batch."""
+    from repro_torch.configs import ShapeConfig, get_config, reduced
+    from repro_torch.launch.mesh import WorkerMesh
+    from repro_torch.models import build_model
+
+    assert item == "item 15"
+    assert_runs_equal(run_port(2, 2, 1, steps=3, overlap=True, **kw),
+                      run_port(2, 2, 1, steps=3, **kw))
+    model = build_model(reduced(get_config("stablelm-1.6b")))
+    ps = P.make_layup_decoupled_pipeline(
+        model, WorkerMesh(2, "cpu"), momentum(0.9), constant(0.05),
+        ShapeConfig("t", 8, 4, "train"))
+    params = model.init(seed=0, device="cpu")
+    st = ps.init_state(_stack(params, 2))
+    toks = torch.randint(0, 512, (4, 9), generator=torch.Generator()
+                         .manual_seed(0), dtype=torch.int32)
+    st, m = ps.fn(st, {"tokens": toks[:, :-1], "labels": toks[:, 1:]}, 0, 0)
+    assert np.isfinite(float(m["loss"]))
+    assert "layup decoupled pipeline (M=2" in ps.describe
+
+
+def _stack(tree, M):
+    from repro_torch.core.pytree import tree_map
+    return tree_map(lambda x: x[None].expand((M,) + tuple(x.shape)), tree)
 
 
 def test_engine_defaults_to_cuda():

@@ -137,15 +137,31 @@ def test_default_device_needs_cuda():
 
 # ids as they were before the item-8 (int8 wire, compensation), item-9
 # (the engines), item-10 (faults), item-11 (publisher) and item-12
-# (tuning) cases left
+# (tuning) cases left, and before item 15a ported ``flat=False``
 @pytest.mark.parametrize("kw,item", [
-    pytest.param(dict(mesh=object()), "item 15", id="kw8-item 15"),
-    pytest.param(dict(flat=False), "item 15", id="kw9-item 15")])
+    pytest.param(dict(mesh=object()), "item 15b", id="kw8-item 15"),
+    pytest.param(dict(flat=False), None, id="kw9-item 15")])
 def test_unported_options_name_their_roadmap_item(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        make_backend("prod", "layup", M=2, loss_fn=torch_mlp_loss,
-                     optimizer=momentum(0.9), schedule=constant(0.05),
-                     device="cpu", **kw)
+    """``mesh=`` (the multi-GPU ring) still names its item, 15b.
+    ``flat=False`` trains on the flat plane, the port's one state layout:
+    the numbers of ``flat=True`` bit for bit (the reference's legacy state
+    gives its flat plane's), with the options the reference keeps to the
+    flat plane too."""
+    from _torch_parity import assert_runs_equal, run_port
+
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            make_backend("prod", "layup", M=2, loss_fn=torch_mlp_loss,
+                         optimizer=momentum(0.9), schedule=constant(0.05),
+                         device="cpu", **kw)
+        return
+    for opts in (dict(), dict(use_pallas=True, wire="int8",
+                              compensate=0.5, faults="")):
+        got = run_port(2, 2, 1, steps=3, **kw, **opts)
+        assert_runs_equal(got, run_port(2, 2, 1, steps=3, **opts))
+    be = got[3]
+    read = be.export_params(be.init(None, np_tree(mlp_problem()[1])))
+    assert sorted(read) == ["l1", "l2"] and read["l1"].shape[0] == 2
 
 
 def test_streams_without_overlap_raises():

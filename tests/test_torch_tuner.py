@@ -375,5 +375,14 @@ def test_bad_record_path_warns_and_keeps_defaults(tmp_path):
 
 
 def test_legacy_record_reaches_the_flat_guard():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        _backend(M=1, tuning=_record(grouping="legacy"))
+    """A record whose best grouping is ``"legacy"`` once reached the
+    ``flat=False`` guard; the port now runs ``flat=False`` on the flat
+    plane, its one state layout, so the record trains: the pipeline
+    engine."""
+    be = _backend(M=2, tuning=_record(grouping="legacy"))
+    assert be.overlap and be.tuning is not None
+    st = be.init(None, mlp_params())
+    st, m = be.step(st, np_tree(mlp_batch(0, M=2, b=8)))
+    assert np.isfinite(float(m["loss"]))
+    assert "pipeline backend (M=2" in be.engine.describe
+    assert sorted(be.export_params(st)) == ["l1", "l2"]
