@@ -251,10 +251,28 @@ not 0:
    start, launches, ``model_flops`` and ``analytic_costs`` of the step's
    shape and the FLOPs shares against the card's float32 rate, with the
    ``nvidia-smi`` name and power limit.
+5j. train_ring: the multi-process worker ring (``WorkerMesh`` with a
+   ``torch.distributed`` group, ROADMAP item 15b). GPT-2 Medium (f32,
+   seed-0 weights, the first 3 of train's batches, R=2, D=1, M=4, no
+   drift) runs 3 steps as one stacked process, fused on the param wire and
+   then on the int8 wire with λ=0.5, each with a per-row bit digest of its
+   read plane (an int64 sum of each worker's row viewed as int32) and its
+   losses; its state is freed. Then this script starts itself twice on the
+   same card (``--ring-rank r``), two ranks of a gloo group (file store
+   under ``build/ring``) with L=2 workers each; each runs the same 3 + 3
+   steps, monolithic and ``overlap=True``. Every rank's digests (at its
+   global rows) and losses must equal the stacked run's bit for bit, and
+   #1 (param) and #6, #7 (int8) launch 9 times a rank and route (3 steps x
+   3 groups). Printed: step times, the seconds of the pinned-host staging
+   (gloo on CUDA tensors), the wire bytes a round, each rank's peak, and
+   ``nccl``: run the same way over NCCL on two cards where
+   ``torch.cuda.device_count() >= 2``, else "not run (1 device)". A failed
+   rank fails the phase.
 6. the kernels line (with ``sim_launches``, ``tune_launches``,
    ``moe_launches``, the families' ``hybrid_launches``,
    ``vlm_launches``, ``encdec_launches``, ``model_path_launches`` by
-   route, #1's ``hybrid_blocks`` and #2-#4's ``family_shapes`` times), the
+   route, ``ring_launches`` by rank and route, #1's ``hybrid_blocks`` and
+   #2-#4's ``family_shapes`` times), the
    card's ``nvidia-smi`` line, and last the result.
 
 TF32 is off for matrix products and cuDNN (both set below), so float32 is
@@ -4110,7 +4128,230 @@ def phase_train_model_path(torch, train, smi):
     return all_launches
 
 
+# the worker ring (train_ring): GPT-2 Medium at M=4 over RING_WORLD ranks
+# that share the card (L = 2 workers each), RING_STEPS steps a run; the
+# runs each rank makes, held to the stacked run of the same wire
+RING_WORLD, RING_STEPS = 2, 3
+RING_WIRES = {"param": 0.0, "int8": LAMBDA}
+RING_RUNS = [(wire, overlap) for wire in RING_WIRES
+             for overlap in (False, True)]
+RING_TIMEOUT_S = 600  # each rank's process, build included
+RING_KERNELS = {"param": ("gossip_mix",),
+                "int8": ("quantize_plane", "dequant_mix")}
+
+
+def row_digests(torch, plane) -> dict:
+    """Each group's per worker row digest: the int64 sum of the row's bits
+    viewed as int32 (computed on the card)."""
+    return {g: buf.reshape(buf.shape[0], -1).view(torch.int32)
+            .sum(dim=1, dtype=torch.int64).tolist()
+            for g, buf in plane.items()}
+
+
+def ring_run(torch, model, params, batches, wire, overlap, mesh=None):
+    """One run of ``RING_STEPS`` steps of the prod backend (stacked, or
+    over ``mesh``), launch counts zeroed before: losses, read-plane row
+    digests, step seconds, peak, the ring kernels' launches, wire bytes a
+    round and staging seconds."""
+    from repro_torch.core.backend import make_backend
+    from repro_torch.optim import constant, momentum
+
+    kw = {"mesh": mesh} if mesh is not None else {"device": "cuda"}
+    backend = make_backend("prod", "layup", M=M, loss_fn=model.loss_fn,
+                           optimizer=momentum(0.9), schedule=constant(LR),
+                           fb_ratio=R, update_delay=1, use_pallas=True,
+                           wire=wire, compensate=RING_WIRES[wire],
+                           overlap=overlap, measure_drift=False, **kw)
+    out, hist, step_s, peak = counted_drive(
+        torch, backend, params, batches, launch_resets(),
+        keys=("loss", "weight_sum", "nonfinite_skips"))
+    every = step_launches()
+    res = {"losses": hist["loss"], "weight_sum": hist["weight_sum"],
+           "skips": hist["nonfinite_skips"],
+           "digests": row_digests(torch, out["state"]["read"]),
+           "step_s": step_s, "peak_bytes": peak,
+           "launches": {k: every[k] for k in RING_KERNELS[wire]},
+           "wire_bytes_per_round": out["wire_bytes_per_round"],
+           "staging_s": out.get("staging_s", 0.0)}
+    del out, backend
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def ring_rank_main(argv) -> int:
+    """One rank of train_ring (``--ring-rank r --ring-world n
+    --ring-backend gloo|nccl --ring-dir d``): joins the group through the
+    file store in ``d``, runs ``RING_RUNS`` over a ``WorkerMesh(M, dev,
+    group)`` and writes its results to ``d/rank<r>.json``."""
+    import datetime
+
+    opt = dict(zip(argv[::2], argv[1::2]))
+    rank, world = int(opt["--ring-rank"]), int(opt["--ring-world"])
+    backend, ring_dir = opt["--ring-backend"], Path(opt["--ring-dir"])
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    # gloo's TCP pairs on the loopback device: the machine has no other
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: a ring rank needs a CUDA card", file=sys.stderr)
+        return 2
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import WorkerMesh
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = f"cuda:{rank}" if backend == "nccl" else "cuda:0"
+    torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
+    dist.init_process_group(backend,
+                            init_method=f"file://{ring_dir / 'store'}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = WorkerMesh(M, dev, dist.group.WORLD)
+        cfg = get_config("gpt2-medium")
+        model = build_model(cfg)
+        params = model.init(seed=0, device=dev)
+        batches = lm_batches(torch, cfg.vocab_size, RING_STEPS, seed=0)
+        batches = [{k: v.to(dev) for k, v in b.items()} for b in batches]
+        runs = {}
+        for wire, overlap in RING_RUNS:
+            res = ring_run(torch, model, params, batches, wire, overlap,
+                           mesh=mesh)
+            res["transport"] = mesh.transport
+            runs[f"{wire}/{'overlap' if overlap else 'monolithic'}"] = res
+        out = {"rank": rank, "rows": list(mesh.rows), "device": dev,
+               "runs": runs, "seconds": time.perf_counter() - t0}
+        (ring_dir / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def ring_ranks(backend: str) -> list:
+    """Start ``RING_WORLD`` ranks of this script over ``backend``, wait
+    for them (``RING_TIMEOUT_S``; every one is killed on a failure) and
+    return their results. A rank that fails fails the phase."""
+    import shutil
+
+    ring_dir = HERE / "build" / "ring" / backend
+    shutil.rmtree(ring_dir, ignore_errors=True)
+    ring_dir.mkdir(parents=True)
+    procs, logs = [], []
+    for rank in range(RING_WORLD):
+        log = open(ring_dir / f"rank{rank}.log", "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, str(HERE / "chip_smoke.py"), "--ring-rank",
+             str(rank), "--ring-world", str(RING_WORLD), "--ring-backend",
+             backend, "--ring-dir", str(ring_dir)],
+            stdout=log, stderr=subprocess.STDOUT, cwd=str(HERE)))
+    deadline = time.monotonic() + RING_TIMEOUT_S
+    try:
+        while True:  # until all exit 0, one fails, or the deadline
+            codes = [p.poll() for p in procs]
+            if (all(c == 0 for c in codes) or any(c not in (None, 0)
+                                                  for c in codes)
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.5)
+        failed = [(r, "timeout" if c is None else c)
+                  for r, c in enumerate(codes) if c != 0]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    if failed:
+        for rank in range(RING_WORLD):
+            tail = (ring_dir / f"rank{rank}.log").read_text()[-3000:]
+            print(f"--- ring rank {rank} ({backend}) log tail ---\n{tail}",
+                  file=sys.stderr)
+        raise AssertionError(f"train_ring: {backend} rank failed {failed}")
+    return [json.loads((ring_dir / f"rank{r}.json").read_text())
+            for r in range(RING_WORLD)]
+
+
+def hold_ring(ranks: list, stacked: dict, backend: str) -> None:
+    """Every rank's run against the stacked run of its wire: the digests
+    of its global rows and the losses bit for bit, Σw, skips, and each
+    ring kernel's launches (once a group a step)."""
+    for res in ranks:
+        for key, run in res["runs"].items():
+            want = stacked[key.split("/")[0]]
+            for g, rows in run["digests"].items():
+                got = dict(zip(res["rows"], rows))
+                check(all(got[r] == want["digests"][g][r] for r in got),
+                      f"train_ring {backend} rank {res['rank']} {key}: "
+                      f"group {g} digests {rows} != "
+                      f"{[want['digests'][g][r] for r in got]}")
+            for k in ("losses", "weight_sum", "skips"):
+                check(run[k] == want[k], f"train_ring {backend} rank "
+                      f"{res['rank']} {key}: {k} {run[k]} != {want[k]}")
+            check(run["launches"] == want["launches"],
+                  f"train_ring {backend} rank {res['rank']} {key}: "
+                  f"launches {run['launches']} != {want['launches']}")
+
+
+def phase_train_ring(torch, smi):
+    """The multi-process ring (docstring item 5j). Returns the phase's
+    result (the ring kernels' launches by backend, rank and run)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    cfg = get_config("gpt2-medium")
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    batches = lm_batches(torch, cfg.vocab_size, RING_STEPS, seed=0)
+    stacked = {wire: ring_run(torch, model, params, batches, wire, False)
+               for wire in RING_WIRES}
+    groups = len(stacked["param"]["digests"])
+    for wire, res in stacked.items():
+        want = {k: RING_STEPS * groups for k in RING_KERNELS[wire]}
+        check(res["launches"] == want,
+              f"train_ring stacked {wire}: launches {res['launches']} != "
+              f"{want}")
+        check(all(math.isfinite(v) for v in res["losses"])
+              and abs(res["losses"][0] - init_loss(cfg)) < 0.5
+              and all(abs(v - 1.0) <= 1e-5 for v in res["weight_sum"])
+              and res["skips"] == [0.0] * RING_STEPS,
+              f"train_ring stacked {wire}: losses {res['losses']}, "
+              f"weight_sum {res['weight_sum']}, skips {res['skips']}")
+    del params, batches, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    stacked_s = time.perf_counter() - t0
+    result = {"stacked": stacked, "stacked_s": stacked_s, "ranks": {}}
+    backends = ["gloo"] + (["nccl"] if torch.cuda.device_count() >= 2
+                           else [])
+    for backend in backends:
+        t1 = time.perf_counter()
+        ranks = ring_ranks(backend)
+        hold_ring(ranks, stacked, backend)
+        result["ranks"][backend] = ranks
+        result[f"{backend}_s"] = time.perf_counter() - t1
+    if "nccl" not in backends:
+        result["nccl"] = (f"not run ({torch.cuda.device_count()} "
+                          "device)")
+    emit("train_ring", model=cfg.name, M=M, world=RING_WORLD,
+         local_workers=M // RING_WORLD, steps=RING_STEPS, fb_ratio=R,
+         update_delay=1, wires=RING_WIRES, held="digests, losses, Σw, "
+         "skips and launches bit for bit against the stacked run",
+         seconds=time.perf_counter() - t0, nvidia_smi=smi, **result)
+    return result
+
+
 def main(argv) -> int:
+    if "--ring-rank" in argv:
+        return ring_rank_main(argv)
     # the step's transients are plane-sized (GBs): growable segments keep
     # the caching allocator from stranding them as fragments
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
@@ -4240,6 +4481,7 @@ def main(argv) -> int:
         fam[name] = fn(torch)
         fam_s[name] = time.perf_counter() - t1
     emit("family_phases", seconds=fam_s, total_s=sum(fam_s.values()))
+    ring = phase_train_ring(torch, smi)
     fused = kern["timing"]["fused"]
     launches = train["flash_launches"]
     rows = [{
@@ -4323,6 +4565,16 @@ def main(argv) -> int:
         row["model_path_launches"] = {
             route: row_launches(c, row["name"])
             for route, c in model_path.items()}
+    # train_ring's launches of #1 (param wire) and #6, #7 (int8 wire) by
+    # backend, rank and run
+    for row in rows:
+        if any(row["name"] in ks for ks in RING_KERNELS.values()):
+            row["ring_launches"] = {
+                b: {res["rank"]: {k: run["launches"].get(row["name"])
+                                  for k, run in res["runs"].items()
+                                  if row["name"] in run["launches"]}
+                    for res in ranks}
+                for b, ranks in ring["ranks"].items()}
     for row, kind in zip(rows[1:4], ("fwd", "bwd", "trainable")):
         row["family_shapes"] = [
             {"shape": c["shape"], "causal": c["causal"], "dtype": c["dtype"],

@@ -13,6 +13,10 @@ Leaves are tensors (copied to the host), numpy arrays or Python scalars.
 bfloat16 has no numpy dtype: it is stored in float32, a lossless
 container, and cast back on restore. ``restore_checkpoint`` gives every
 leaf ``like``'s dtype and, for a tensor, ``like``'s device.
+
+A decoupled step's state on a multi-process mesh (a rank's ``(L, ...)``
+plane rows beside the ``(M,)`` push-sum weights) is neither saved nor
+restored yet: both raise ``NotImplementedError`` (ROADMAP item 15c).
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import torch
 
 from repro_torch.core.pytree import (DictKey, SequenceKey,
                                      tree_flatten_with_path, tree_unflatten)
+from repro_torch.device import not_ported
 
 
 def keystr(path) -> str:
@@ -58,9 +63,29 @@ def _flatten(tree) -> Dict[str, np.ndarray]:
             for path, leaf in tree_flatten_with_path(tree)[0]}
 
 
+def _check_not_mesh_state(tree, what: str) -> None:
+    """Raise for a decoupled step's state of one rank of a multi-process
+    mesh: a dict (at any depth) whose ``"read"`` plane has fewer rows than
+    its ``"w"`` has workers."""
+    if not isinstance(tree, dict):
+        if isinstance(tree, (list, tuple)):
+            for v in tree:
+                _check_not_mesh_state(v, what)
+        return
+    read, w = tree.get("read"), tree.get("w")
+    if isinstance(read, dict) and isinstance(w, torch.Tensor) and read:
+        rows = next(iter(read.values())).shape[0]
+        if w.dim() == 1 and rows != w.shape[0]:
+            raise not_ported(f"{what} of a state spread over a WorkerMesh's "
+                             "ranks", "15c")
+    for v in tree.values():
+        _check_not_mesh_state(v, what)
+
+
 def save_checkpoint(directory: str, step: int, tree: Any) -> str:
     """Write ``tree`` as ``<directory>/ckpt_<step:08d>.npz``; returns the
     path."""
+    _check_not_mesh_state(tree, "checkpoint save")
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, f"ckpt_{step:08d}.npz")
     # np.savez appends ".npz" unless the name already ends with it
@@ -90,6 +115,7 @@ def restore_checkpoint(directory: str, step: Optional[int], like: Any,
 
     ``fill_missing=True`` keeps the ``like`` value for leaves absent from
     the archive instead of raising ``KeyError``."""
+    _check_not_mesh_state(like, "checkpoint restore")
     if step is None:
         step = latest_step(directory)
         if step is None:

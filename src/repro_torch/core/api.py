@@ -257,21 +257,34 @@ def consensus(params, weights: torch.Tensor):
 _DRIFT_CHUNK = 1 << 24
 
 
-def disagreement(params, weights: torch.Tensor) -> torch.Tensor:
+def disagreement(params, weights: torch.Tensor, mesh=None) -> torch.Tensor:
     """Mean over workers of ‖x_i − x̄‖ (the paper's 'model disagreement'),
     x̄ the push-sum consensus. Each leaf is reduced a chunk of its row at a
     time, so no plane-sized f32 copy is made; the sums' order differs from
-    the JAX package's by rounding only."""
+    the JAX package's by rounding only.
+
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.WorkerMesh` with a process
+    group): ``params`` hold the rank's L rows and ``weights`` all M. Each
+    chunk's ``Σ w_i x_i`` over the rank's rows is summed over the ranks to
+    form x̄ (``Σ w`` is the whole vector's, on every rank), and the
+    per-worker squared norms are gathered before the mean: the one-process
+    value to rounding."""
+    ring = mesh is not None and mesh.group is not None
     wsum = torch.clamp(torch.sum(weights), min=1e-12)
-    w = weights.to(torch.float32)[:, None]
+    w = (mesh.local(weights) if ring else weights).to(torch.float32)[:, None]
     per_worker = 0.0
     for p in tree_leaves(params):
         rows = p.reshape(p.shape[0], -1)
         for lo in range(0, rows.shape[1], _DRIFT_CHUNK):
             pc = rows[:, lo:lo + _DRIFT_CHUNK].to(torch.float32)
-            xbar = torch.sum(w * pc, dim=0) / wsum
+            wx = torch.sum(w * pc, dim=0)
+            if ring:
+                mesh.all_reduce_sum_(wx)
+            xbar = wx / wsum
             per_worker = per_worker + torch.sum(
                 torch.square(pc - xbar[None]), dim=1)
+    if ring:
+        per_worker = mesh.all_gather_rows(per_worker)
     return torch.mean(torch.sqrt(per_worker))
 
 

@@ -8,7 +8,8 @@
   numerics, the wall-clock schedule (barriers, NIC serialization,
   decoupled lanes); iteration times, utilization and MFU;
 * the **prod decoupled lane** (``repro_torch.launch.train``): the PD-ASGD
-  step of the layup family, the M workers stacked on one CUDA device.
+  step of the layup family, the M workers stacked on one CUDA device, or
+  spread over the ranks of a ``torch.distributed`` group (``mesh=``).
 
 All three follow the :class:`TrainerBackend` protocol: ``init(rng,
 params_single) → state``, then ``step(state, batch, rng) → (state,
@@ -63,6 +64,43 @@ def _numeric_summary(steps: int, last: Dict[str, Any]) -> Dict[str, float]:
 
 def _add_skips(total, skips):
     return skips.clone() if total is None else total + skips
+
+
+def _check_mesh(mesh, M: int, device, **options):
+    """``(ring, device)`` of the prod backend's ``mesh``: ``(None,
+    device)`` without one; else a ``WorkerMesh`` of ``M`` workers, whose
+    device wins (``None`` is CUDA) and must agree with ``device`` where
+    both are given. ``ring`` is the mesh when it has a process group, else
+    ``None`` (the one-process layout); the options named in ``options``
+    that the ring does not carry yet raise over one with a group."""
+    from repro_torch.launch.mesh import WorkerMesh
+
+    if mesh is None:
+        return None, device
+    if not isinstance(mesh, WorkerMesh):
+        raise TypeError(f"mesh must be a WorkerMesh, got {mesh!r}")
+    if mesh.workers != M:
+        raise ValueError(f"the mesh has {mesh.workers} workers, expected "
+                         f"M={M}")
+    mine = torch.device("cuda" if mesh.device is None else mesh.device)
+    if device is not None:
+        given = torch.device(device)
+        same_index = (given.index is None or mine.index is None
+                      or given.index == mine.index)
+        if given.type != mine.type or not same_index:
+            raise ValueError(f"device={device} differs from the mesh's "
+                             f"device {mine}")
+    if mesh.group is None:
+        return None, mine
+    held = {"streams > 1": int(options["streams"]) > 1,
+            "faults=": options["faults"] is not None,
+            "publisher=": options["publisher"] is not None,
+            "tuning=": options["tuning"] is not None}
+    for what, on in held.items():
+        if on:
+            raise not_ported(f"the prod backend's {what} over a WorkerMesh "
+                             "with a process group", "15c")
+    return mesh, mine
 
 
 def _algo_name(algo) -> str:
@@ -197,7 +235,8 @@ class EventSimBackend:
 
 
 class ProdTrainerBackend:
-    """The decoupled LayUp lane with M workers stacked on one device.
+    """The decoupled LayUp lane with M workers stacked on one device, or
+    spread over the ranks of a process group (``mesh=``).
 
     Keyword arguments keep the reference's names so a call ports one to
     one. ``use_pallas=True`` is the fused Alg. 1 route through the kernels
@@ -242,8 +281,20 @@ class ProdTrainerBackend:
     ``flat=False`` (the reference's legacy per-leaf state, which a record
     whose best grouping is ``"legacy"`` asks for, and which gives the
     reference's flat plane's numbers bit for bit) runs on the flat plane,
-    the port's one state layout. ``mesh`` (the multi-GPU ring) raises
-    ``NotImplementedError`` naming the ROADMAP item that ports it."""
+    the port's one state layout.
+
+    ``mesh`` (a :class:`repro_torch.launch.mesh.WorkerMesh` of M workers
+    with a ``torch.distributed`` group) spreads the workers over the
+    group's ranks: each rank holds its ``L = M // world`` workers on the
+    mesh's device, which wins over ``device`` (both given and different
+    raises), and every rank runs the same program on the same sim-layout
+    batches. The ring hop, the loss mean, the skip count and the drift
+    cross ranks; the planes are the one-process step's bit for bit. Each
+    rank draws the same shifts (checked at ``init``).
+    ``summary()["wire_bytes_per_round"]`` is then the bytes this rank sent
+    to other ranks per gossip round. ``streams > 1``, ``faults``,
+    ``publisher`` and ``tuning`` over such a mesh raise
+    ``NotImplementedError`` (ROADMAP item 15c)."""
 
     kind = "prod"
 
@@ -257,9 +308,9 @@ class ProdTrainerBackend:
                  compensate: float = 0.0, faults=None,
                  max_inflight_steps=None, tuning=None,
                  wait_timeout_s: float = 600.0):
-        if mesh is not None:
-            raise not_ported("an explicit device mesh (multi-GPU ring)",
-                             "15b")
+        self.mesh, device = _check_mesh(mesh, M, device, streams=streams,
+                                        faults=faults, publisher=publisher,
+                                        tuning=tuning)
         # a tuning record (launch/tuner.py, DESIGN.md §16) replaces the
         # hand-picked schedule defaults; kwargs the caller moved off their
         # defaults always win, and a failed load warns and changes nothing
@@ -306,7 +357,8 @@ class ProdTrainerBackend:
                       straggler_delays=straggler_delays,
                       measure_drift=measure_drift, use_pallas=use_pallas,
                       wire=wire, compensate=compensate,
-                      membership=self.membership, publisher=publisher)
+                      membership=self.membership, publisher=publisher,
+                      mesh=self.mesh)
         if overlap:
             self.timeline = StageTimeline()
             self._init_fn, self._step_fn, self._shifts, self._engine_box = \
@@ -352,9 +404,24 @@ class ProdTrainerBackend:
             read = self.engine.materialize(read)
         return part.unpack(read)
 
+    def _check_shift_draws(self) -> None:
+        """Every rank of a mesh must draw the same shifts: each gathers the
+        first 16 draws of a fresh generator and compares them."""
+        draws = torch.as_tensor(np.random.default_rng(0xC0FFEE).integers(
+            0, len(self._shifts), 16), dtype=torch.int64,
+            device=self.mesh.resolved_device())
+        every = self.mesh.all_gather_rows(draws).reshape(
+            self.mesh.world, -1)
+        if not bool((every == draws[None]).all()):
+            raise RuntimeError("the ranks of the mesh draw different gossip "
+                               "shifts")
+
     def init(self, rng, params_single):
         self._steps = 0
         self._shift_rng = np.random.default_rng(0xC0FFEE)
+        if self.mesh is not None:
+            self._check_shift_draws()
+            self.mesh.reset_stats()
         if self.engine is not None:
             # a re-init measures a fresh run: stale events would collide in
             # the overlap accounting's event index
@@ -378,6 +445,9 @@ class ProdTrainerBackend:
         checkpoint taken after ``step`` steps (``repro_torch.checkpoint``):
         the schedule, the FIFO's stamps and the host's gossip-shift draws
         go on where the saved run left off. Call it after ``init``."""
+        if self.mesh is not None:
+            raise not_ported("resuming a run over a WorkerMesh with a "
+                             "process group", "15c")
         self._steps = 0
         self._shift_rng = np.random.default_rng(0xC0FFEE)
         for _ in range(int(step)):
@@ -411,7 +481,12 @@ class ProdTrainerBackend:
         out = _numeric_summary(self._steps, self._last)
         out["wire_dtype"] = self.wire
         part = self._engine_box.get("part")
-        if part is not None:
+        if self.mesh is not None:
+            # what this rank sent to other ranks, per round of the run
+            out["wire_bytes_per_round"] = (self.mesh.stats["bytes_sent"]
+                                           / max(self._steps, 1))
+            out["staging_s"] = self.mesh.stats["staging_s"]
+        elif part is not None:
             # one full plane crosses the ring per gossip round per worker
             out["wire_bytes_per_round"] = float(
                 part.plane_nbytes(wire=self.wire))

@@ -1,30 +1,280 @@
-"""The worker mesh of one device (port of ``repro/launch/mesh.py``).
+"""The worker mesh (port of ``repro/launch/mesh.py``).
 
-The JAX package spreads its gossip workers over the ``("pod", "data")`` axes
-of a device mesh and shards each worker's parameters over ``"model"``. The
-port stacks the M workers on the leading dimension of every buffer on one
-device, as its lanes already do, so its mesh is just that count and the
-device: :class:`WorkerMesh`, which ``make_step(model, mesh, shape, ...)``
-takes where the reference takes its mesh.
+The JAX package spreads its M gossip workers over the ``("pod", "data")``
+axes of a device mesh, one worker a device, and shards each worker's
+parameters over ``"model"``. The port's :class:`WorkerMesh` has two
+layouts:
+
+* without a process group, the M workers are stacked on the leading
+  dimension of every plane buffer on one device;
+* with a ``torch.distributed`` group of ``world`` ranks, rank ``r`` holds
+  the ``L = M // world`` consecutive workers ``[r·L, (r+1)·L)``, stacked
+  the same way on its own device. The push-sum ring hop
+  (:meth:`WorkerMesh.ring_hop`) then crosses ranks, as the reference's
+  ``ppermute`` does, and the loss, skip and drift reductions go through
+  :meth:`WorkerMesh.all_gather_rows` and :meth:`WorkerMesh.all_reduce_sum_`
+  (its ``pmean`` and ``psum``).
+
+The transport follows the group's backend: ``nccl`` moves device tensors
+directly; ``gloo`` moves CPU tensors directly and stages CUDA tensors
+through pinned host buffers (gloo's point-to-point ops take host memory),
+timing that staging apart in ``stats["staging_s"]``. An ``nccl`` group on a
+CPU device is refused. Nothing falls back from one transport to another.
+
+A user launches the ring on N cards with ``torchrun --nproc_per_node=N``,
+``dist.init_process_group("nccl")`` and ``WorkerMesh(M,
+f"cuda:{local_rank}", dist.group.WORLD)``.
 
 ``make_production_mesh`` (the TPU pod's (16, 16) and expert-parallel
-layouts) has no analogue. The multi-GPU ring over ``torch.distributed`` is
-ROADMAP item 15b, which gives ``WorkerMesh`` its process group.
+layouts) has no analogue.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor's bytes as a flat uint8 view: the wire is
+    indifferent to the dtype (int8, bf16, f32 alike)."""
+    return t.reshape(-1).view(torch.uint8)
 
 
 @dataclass(frozen=True)
 class WorkerMesh:
-    """``workers`` gossip workers stacked on ``device`` (``None``: CUDA,
-    which must exist)."""
+    """``workers`` gossip workers. Without ``group``, all of them are
+    stacked on ``device`` (``None``: CUDA, which must exist). With a
+    ``torch.distributed`` process group, this rank holds the ``L = workers
+    // world`` consecutive workers :attr:`rows` on ``device`` (the caller's
+    ``cuda:<local_rank>``, or ``cpu``).
+
+    ``stats`` counts what crossed ranks: ``bytes_sent`` (this rank's ring
+    bytes sent to other ranks) and ``staging_s`` (host seconds of the
+    pinned-buffer copies of a gloo group on CUDA tensors)."""
 
     workers: int
     device: Any = None
+    group: Any = field(default=None, compare=False)
+    stats: Dict[str, float] = field(default_factory=dict, init=False,
+                                    compare=False, repr=False)
+    _host: Dict[Tuple[str, int], torch.Tensor] = field(
+        default_factory=dict, init=False, compare=False, repr=False)
 
     def __post_init__(self):
         if int(self.workers) < 1:
             raise ValueError(f"a mesh needs >= 1 worker, got {self.workers}")
+        if self.group is not None:
+            world = self.world
+            if self.workers % world:
+                raise ValueError(
+                    f"{self.workers} workers do not split over {world} "
+                    "ranks: WorkerMesh needs workers % world == 0")
+            backend = self.backend
+            if backend not in ("gloo", "nccl"):
+                raise ValueError(f"unsupported process group backend "
+                                 f"{backend!r} (expected 'gloo' or 'nccl')")
+            dev = torch.device("cuda" if self.device is None
+                               else self.device)
+            if backend == "nccl" and dev.type != "cuda":
+                raise ValueError(f"an nccl group moves CUDA tensors; the "
+                                 f"mesh's device is {dev}")
+        self.reset_stats()
+
+    # -- layout -------------------------------------------------------------
+
+    @property
+    def world(self) -> int:
+        if self.group is None:
+            return 1
+        import torch.distributed as dist
+        return dist.get_world_size(self.group)
+
+    @property
+    def rank(self) -> int:
+        if self.group is None:
+            return 0
+        import torch.distributed as dist
+        return dist.get_rank(self.group)
+
+    @property
+    def backend(self) -> str:
+        """The group's backend (``"gloo"``, ``"nccl"``), ``None`` without
+        one."""
+        if self.group is None:
+            return None
+        import torch.distributed as dist
+        return str(dist.get_backend(self.group))
+
+    @property
+    def local_workers(self) -> int:
+        """``L``: the workers this rank holds."""
+        return self.workers // self.world
+
+    @property
+    def rows(self) -> range:
+        """The global indices of this rank's workers."""
+        L = self.local_workers
+        return range(self.rank * L, (self.rank + 1) * L)
+
+    def resolved_device(self) -> torch.device:
+        """The device, resolved (``None``: CUDA, which must exist)."""
+        from repro_torch.device import resolve_device
+        return resolve_device(self.device)
+
+    def local(self, t):
+        """This rank's rows of a tensor (or numpy array) over all
+        ``workers`` on its leading dim (a view); the tensor itself without
+        a group."""
+        if self.group is None:
+            return t
+        return t[self.rows.start:self.rows.stop]
+
+    # -- transport ----------------------------------------------------------
+
+    def reset_stats(self) -> None:
+        self.stats.update(bytes_sent=0.0, staging_s=0.0)
+
+    @property
+    def staged(self) -> bool:
+        """True when tensors cross through pinned host buffers: a gloo
+        group on a CUDA device."""
+        return (self.backend == "gloo"
+                and torch.device("cuda" if self.device is None
+                                 else self.device).type == "cuda")
+
+    @property
+    def transport(self) -> str:
+        """``"local"`` (no group), ``"nccl"``, ``"gloo"`` or
+        ``"gloo+pinned-host-staging"``."""
+        if self.group is None:
+            return "local"
+        return self.backend + ("+pinned-host-staging" if self.staged
+                               else "")
+
+    def _host_buffer(self, role: str, peer: int, nbytes: int):
+        """A pinned host buffer of at least ``nbytes`` for (``role``,
+        ``peer``), kept and grown across hops."""
+        buf = self._host.get((role, peer))
+        if buf is None or buf.numel() < nbytes:
+            buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            self._host[(role, peer)] = buf
+        return buf[:nbytes]
+
+    def _timed_copy(self, dst: torch.Tensor, src: torch.Tensor) -> None:
+        t0 = time.perf_counter()
+        dst.copy_(src)
+        self.stats["staging_s"] += time.perf_counter() - t0
+
+    def _exchange(self, sends: List[Tuple[int, torch.Tensor]],
+                  recvs: List[Tuple[int, torch.Tensor]]) -> None:
+        """One batch of point-to-point ops: each ``(peer, tensor)`` of
+        ``sends`` goes to the group rank ``peer``, each of ``recvs`` is
+        filled from it. Every op is waited on before return."""
+        import torch.distributed as dist
+
+        staged = self.staged
+        ops, landing = [], []
+        for peer, t in sends:
+            t = _bytes(t)
+            if staged:
+                h = self._host_buffer("send", peer, t.numel())
+                self._timed_copy(h, t)
+                t = h
+            self.stats["bytes_sent"] += float(t.numel())
+            ops.append(dist.P2POp(dist.isend, t,
+                                  dist.get_global_rank(self.group, peer),
+                                  self.group))
+        for peer, t in recvs:
+            t = _bytes(t)
+            if staged:
+                h = self._host_buffer("recv", peer, t.numel())
+                landing.append((t, h))
+                t = h
+            ops.append(dist.P2POp(dist.irecv, t,
+                                  dist.get_global_rank(self.group, peer),
+                                  self.group))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        for dst, h in landing:
+            self._timed_copy(dst, h)
+
+    def ring_hop(self, buf: torch.Tensor, s: int) -> torch.Tensor:
+        """One push-sum ring hop of this rank's ``(L, ...)`` rows by the
+        shift ``s``: a fresh ``(L, ...)`` buffer in which global row ``j``
+        holds global row ``(j − s) mod M``, exactly ``torch.roll(full, s,
+        0)[rows]`` (worker ``i`` sends to ``i + s mod M``, the reference's
+        ``ppermute``). Without a group it is ``torch.roll(buf, s, 0)``.
+
+        The rank's sources are one run of rows modulo M, held by at most
+        two ranks: rows it holds itself are copied locally, the rest come
+        in one batch of point-to-point ops with the one or two peers, and
+        the matching sends go out in the same batch."""
+        if self.group is None:
+            return torch.roll(buf, s, 0)
+        M, L, me = self.workers, self.local_workers, self.rank
+        lo = me * L
+        s = int(s) % M
+        buf = buf.contiguous()
+        out = torch.empty_like(buf)
+        recvs, sends = [], []
+        k = 0
+        while k < L:  # runs of this rank's rows fed by one source rank
+            src = (lo + k - s) % M
+            n = min(L - k, L - src % L)
+            if src // L == me:
+                out[k:k + n].copy_(buf[src - lo:src - lo + n])
+            else:
+                recvs.append((src // L, out[k:k + n]))
+            k += n
+        k = 0
+        while k < L:  # runs of this rank's rows bound for one rank
+            dst = (lo + k + s) % M
+            n = min(L - k, L - dst % L)
+            if dst // L != me:
+                sends.append((dst // L, buf[k:k + n]))
+            k += n
+        self._exchange(sends, recvs)
+        return out
+
+    def _on_wire(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` where the collective reads it: a host copy when staged."""
+        if not self.staged:
+            return t.contiguous()
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        self._timed_copy(h, t)
+        return h
+
+    def all_gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's ``(L, ...)`` rows gathered into the ``(M, ...)``
+        tensor of every rank's, in global row order (the identity without a
+        group)."""
+        if self.group is None:
+            return t
+        import torch.distributed as dist
+
+        src = self._on_wire(t)
+        parts = [torch.empty_like(src) for _ in range(self.world)]
+        dist.all_gather(parts, src, group=self.group)
+        full = torch.cat(parts)
+        if self.staged:
+            dev = torch.empty(full.shape, dtype=full.dtype, device=t.device)
+            self._timed_copy(dev, full)
+            return dev
+        return full
+
+    def all_reduce_sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the ranks, in place (the identity without a
+        group). Returns ``t``."""
+        if self.group is None:
+            return t
+        import torch.distributed as dist
+
+        src = self._on_wire(t)
+        dist.all_reduce(src, op=dist.ReduceOp.SUM, group=self.group)
+        if src is not t:
+            self._timed_copy(t, src)
+        return t

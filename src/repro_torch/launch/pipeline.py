@@ -78,16 +78,18 @@ from repro_torch.configs.base import input_specs
 from repro_torch.convert import to_torch
 from repro_torch.core.layerview import FlatPartition, send_fractions
 from repro_torch.core.pytree import tree_map
-from repro_torch.device import resolve_device
+from repro_torch.device import not_ported, resolve_device
+from repro_torch.launch.mesh import WorkerMesh
 from repro_torch.launch.train import (_check_wire, _decoupled_metrics,
-                                      _gossip_lanes, _mesh_workers,
-                                      _ring_exchange, _spec, alive_on_device,
+                                      _gossip_lanes, _local_fn,
+                                      _mesh_workers, _ring_exchange,
+                                      _ring_mesh, _spec, alive_on_device,
                                       backward_update_lane,
                                       combine_slice_losses,
                                       forward_slice_lane, gate_update,
                                       live_loss, make_decoupled_state,
-                                      stamp_live, straggler_active_fn,
-                                      worker_batch)
+                                      rank_rows, stamp_live,
+                                      straggler_active_fn, worker_batch)
 from repro_torch.optim.optimizers import Optimizer
 
 
@@ -353,7 +355,7 @@ def _stage_bodies(part: FlatPartition, R: int, M: int, device,
                   fwd_slices: Sequence[Callable], upd: Callable,
                   mix: Callable, shifts: Sequence[int], *,
                   active_fn: Optional[Callable] = None, fused: bool = False,
-                  wire: str = "param"):
+                  wire: str = "param", mesh: Optional[WorkerMesh] = None):
     """The stage bodies, over the SAME lane closures as
     ``launch.train._decoupled_worker_fn``, each the span of the monolithic
     step it replaces:
@@ -384,9 +386,14 @@ def _stage_bodies(part: FlatPartition, R: int, M: int, device,
     (:func:`~repro_torch.launch.train.alive_on_device`), else ``None``:
     the same gates as the monolithic step's, at the same points (a dead
     peer's update selected away in the update stage, the gated hop, the
-    frozen clocks and the live loss)."""
+    frozen clocks and the live loss).
+
+    ``mesh`` (a :class:`WorkerMesh` with a process group): the stages run
+    on the rank's L workers, as the monolithic step does; the update stage
+    sums the skips over the ranks and the metrics gather the losses."""
     int8 = wire == "int8"
     phi = torch.from_numpy(send_fractions(part.num_groups)).to(device)
+    loc = _local_fn(mesh)
 
     def make_fwd_body(r):
         lane = fwd_slices[r]
@@ -395,7 +402,7 @@ def _stage_bodies(part: FlatPartition, R: int, M: int, device,
             grads = ({k: torch.empty_like(v) for k, v in read.items()}
                      if r == 0 else None)
             losses = []
-            for m in range(M):
+            for m in range(next(iter(read.values())).shape[0]):
                 loss_m, g_m = lane(part.unpack(_rows(read, m)),
                                    _rows(batch, m))
                 if grads is not None:
@@ -408,12 +415,14 @@ def _stage_bodies(part: FlatPartition, R: int, M: int, device,
 
     def update_body(write, opt_state, fifo, grads, theta, step_idx,
                     alive=None):
-        active = active_fn(step_idx) if active_fn is not None else None
+        active = loc(active_fn(step_idx)) if active_fn is not None else None
         out = upd(write, opt_state, grads, fifo, step_idx, active=active,
                   theta=theta)
+        if mesh is not None:
+            out = out[:4] + (mesh.all_reduce_sum_(out[4]),) + tuple(out[5:])
         if alive is None:
             return out
-        return (gate_update(out[0], None if fused else write, alive),) \
+        return (gate_update(out[0], None if fused else write, loc(alive)),) \
             + tuple(out[1:])
 
     def stamp(versions, step_idx, alive):
@@ -448,7 +457,8 @@ def _stage_bodies(part: FlatPartition, R: int, M: int, device,
 
     def clock_body(w, versions, step_idx, shift_idx, alive=None):
         if M > 1:
-            _, w_keep, rw, _ = _ring_exchange(w, shift_idx, shifts, alive)
+            _, w_keep, rw, _ = _ring_exchange(w, shift_idx, shifts, alive,
+                                              mesh)
             w = w_keep + rw
         return w, stamp(versions, step_idx, alive)
 
@@ -456,8 +466,9 @@ def _stage_bodies(part: FlatPartition, R: int, M: int, device,
                    alive=None, mask=None):
         per_worker = [combine_slice_losses(losses[0][m],
                                            [lr[m] for lr in losses[1:]], R)
-                      for m in range(M)]
-        return _decoupled_metrics(w, versions, live_loss(per_worker, alive),
+                      for m in range(len(losses[0]))]
+        return _decoupled_metrics(w, versions,
+                                  live_loss(per_worker, alive, mesh),
                                   upd_stale, step_idx, skips, mask)
 
     return {"fwd": [make_fwd_body(r) for r in range(R)],
@@ -683,7 +694,9 @@ def flat_abstract_args(part: FlatPartition, optimizer: Optimizer, M: int,
                        R: int, D: int, *, batch_abs=None,
                        fused: bool = False, wire: str = "param",
                        compensate: float = 0.0,
-                       groups: bool = False) -> Dict[str, tuple]:
+                       groups: bool = False,
+                       local_workers: Optional[int] = None
+                       ) -> Dict[str, tuple]:
     """The argument signature of every stage, keyed like the engines'
     ``abstract_args`` (``"fwd"``/``"update"``/``"gossip"``, plus
     ``"mix:{group}"``/``"clock"`` with ``groups=True``, the stream
@@ -691,18 +704,21 @@ def flat_abstract_args(part: FlatPartition, optimizer: Optimizer, M: int,
     the type ``int``, an absent argument ``None``. Optimizer shapes come
     from running it on meta tensors (nothing is allocated).
     ``batch_abs=None`` leaves a placeholder the backend fills from the
-    first batch it sees."""
-    meta = part.abstract_plane((M,))
+    first batch it sees. ``local_workers`` (a rank's L on a mesh with a
+    process group) sizes the per-worker rows; the weights and clocks stay
+    over all M."""
+    L = M if local_workers is None else int(local_workers)
+    meta = part.abstract_plane((L,))
     plane = tree_map(_spec, meta)
     opt_meta = optimizer.init(meta)
     opt = tree_map(_spec, opt_meta)
     f32 = ((), torch.float32)
     w_abs = ((M,), torch.float32)
     v_abs = ((M, part.num_groups), torch.float32)
-    losses_abs = tuple(tuple(f32 for _ in range(M)) for _ in range(R))
+    losses_abs = tuple(tuple(f32 for _ in range(L)) for _ in range(R))
     fifo = ()
     if D > 0:
-        fifo = {"g": {g: ((M, D, n), part.group_dtypes[g])
+        fifo = {"g": {g: ((L, D, n), part.group_dtypes[g])
                       for g, n in part.group_sizes.items()},
                 "stamp": ((D,), torch.float32)}
     upd = (tree_map(_spec, optimizer.update(meta, opt_meta, meta, 0.1)[0])
@@ -750,20 +766,27 @@ def _build_engine(part: FlatPartition, loss_fn: Callable,
                   active_fn: Optional[Callable] = None,
                   timeline: Optional[StageTimeline] = None,
                   max_inflight_steps: Optional[int] = None,
-                  wait_timeout_s: float = 600.0):
+                  wait_timeout_s: float = 600.0,
+                  mesh: Optional[WorkerMesh] = None):
     """The engine over the decoupled lanes of ``loss_fn``: a
     :class:`PipelineEngine`, or with ``streams > 1`` a
     :class:`repro_torch.launch.streams.StreamEngine` (its gossip stage split
     per layer group)."""
+    if mesh is not None and streams > 1:
+        # the per-group gossip stages run on threads of their own, so the
+        # ranks' hops would not meet in one order
+        raise not_ported("streams > 1 over a WorkerMesh with a process "
+                         "group", "15c")
     fwd_slices = [forward_slice_lane(loss_fn, fb_ratio=R, slice_idx=r)
                   for r in range(R)]
     upd = backward_update_lane(optimizer, schedule, update_delay=D,
                                apply=not use_pallas, compensate=compensate)
     mix, fused = _gossip_lanes(part, M, shifts, use_pallas=use_pallas,
-                               wire=wire)
+                               wire=wire, mesh=mesh)
     bodies = _stage_bodies(part, R, M, device, fwd_slices, upd,
                            mix if fused is None else fused, shifts,
-                           active_fn=active_fn, fused=use_pallas, wire=wire)
+                           active_fn=active_fn, fused=use_pallas, wire=wire,
+                           mesh=mesh)
     common = dict(R=R, D=D, M=M, stages=_make_stages(bodies), device=device,
                   timeline=timeline, fused=use_pallas, wire=wire,
                   compensate=compensate, abstract_args=abstract_args,
@@ -797,8 +820,12 @@ def make_layup_decoupled_pipeline(model, mesh, optimizer: Optimizer,
     mesh's M workers, stepped with the global batch (``PipelineStep.fn``
     splits it over the workers). ``streams > 1`` runs the stream engine.
     The engine's abstract arguments (the tuner's cutouts) are the plane's,
-    with the batch's worker layout from ``input_specs``."""
+    with the batch's worker layout from ``input_specs``. On a mesh with a
+    process group the stages run on the rank's L workers (``init_state``
+    takes all M stacked params and keeps the rank's rows)."""
     M, device = _mesh_workers(mesh)
+    ring = _ring_mesh(mesh, M)
+    L = M if ring is None else ring.local_workers
     R, D = int(fb_ratio), int(update_delay)
     if shape.global_batch % (M * max(R, 1)):
         raise ValueError(
@@ -812,9 +839,10 @@ def make_layup_decoupled_pipeline(model, mesh, optimizer: Optimizer,
                   for k, (s, dt) in input_specs(model.cfg, shape).items()}
     abstract_args = flat_abstract_args(
         part, optimizer, M, R, D,
-        batch_abs=tree_map(_spec, worker_batch(batch_meta, M)),
+        batch_abs=tree_map(_spec, rank_rows(worker_batch(batch_meta, M),
+                                            ring)),
         fused=use_pallas, wire=wire, compensate=compensate,
-        groups=streams > 1)
+        groups=streams > 1, local_workers=L)
     tags = _engine_tags(use_pallas, wire, compensate)
     describe = (f"layup decoupled stream pipeline (M={M}, R={R}, D={D}, "
                 f"shifts={shifts}, streams={streams}, "
@@ -826,17 +854,18 @@ def make_layup_decoupled_pipeline(model, mesh, optimizer: Optimizer,
         shifts=shifts, device=device, use_pallas=use_pallas,
         streams=streams, wire=wire, compensate=compensate, describe=describe,
         abstract_args=abstract_args, timeline=timeline,
-        max_inflight_steps=max_inflight_steps, wait_timeout_s=wait_timeout_s)
+        max_inflight_steps=max_inflight_steps, wait_timeout_s=wait_timeout_s,
+        mesh=ring)
 
     def init_state(params_stacked):
-        return make_decoupled_state(to_torch(params_stacked, device),
-                                    optimizer, update_delay=D, part=part,
-                                    wire=wire, compensate=compensate,
-                                    membership=membership)
+        return make_decoupled_state(
+            to_torch(rank_rows(params_stacked, ring), device), optimizer,
+            update_delay=D, part=part, wire=wire, compensate=compensate,
+            membership=membership, mesh=ring)
 
     return PipelineStep(engine, init_state, engine.describe,
-                        split_batch=lambda b: worker_batch(
-                            to_torch(b, device), M))
+                        split_batch=lambda b: rank_rows(worker_batch(
+                            to_torch(b, device), M), ring))
 
 
 def make_pipeline_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
@@ -853,7 +882,8 @@ def make_pipeline_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
                                   compensate: float = 0.0,
                                   membership: bool = False,
                                   max_inflight_steps: Optional[int] = None,
-                                  wait_timeout_s: float = 600.0):
+                                  wait_timeout_s: float = 600.0,
+                                  mesh: Optional[WorkerMesh] = None):
     """Pipeline-engine counterpart of
     ``launch.train.make_decoupled_backend_trainer``: the same params dict +
     ``loss_fn`` contract and sim-layout batches (a leading ``(M,)`` worker
@@ -872,12 +902,19 @@ def make_pipeline_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
     gossip stage mixes into it), so the publish is ``stable=False``: the
     publisher copies the plane on the device, on the engine's stream.
 
+    ``mesh`` (a :class:`WorkerMesh` with a process group, ``streams=1``)
+    runs the stages on the rank's L workers on the mesh's device, as the
+    monolithic trainer does.
+
     Returns ``(init_fn, step_fn, shifts, box)``: ``box["engine"]`` holds
     the engine and ``box["part"]`` the FlatPartition once ``init_fn`` has
     seen the params."""
     _check_engine_options(streams=streams, publisher=publisher, wire=wire,
                           compensate=compensate)
-    device = resolve_device(device)
+    ring = _ring_mesh(mesh, M)
+    device = resolve_device(device) if ring is None else \
+        ring.resolved_device()
+    L = M if ring is None else ring.local_workers
     R, D = int(fb_ratio), int(update_delay)
     shifts = tuple(s % M for s in shifts if s % M != 0) or (1,)
     active_fn = straggler_active_fn(M, straggler_delays, device)
@@ -892,7 +929,7 @@ def make_pipeline_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
                                       batch_abs=box.get("batch_abs"),
                                       fused=use_pallas, wire=wire,
                                       compensate=compensate,
-                                      groups=streams > 1)
+                                      groups=streams > 1, local_workers=L)
         describe = (f"stream pipeline backend (M={M}, R={R}, D={D}, "
                     f"streams={streams}, "
                     f"groups={len(part.group_sizes)}{tags})" if streams > 1
@@ -904,26 +941,26 @@ def make_pipeline_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
             wire=wire, compensate=compensate, describe=describe,
             abstract_args=absargs, active_fn=active_fn,
             timeline=timeline, max_inflight_steps=max_inflight_steps,
-            wait_timeout_s=wait_timeout_s)
+            wait_timeout_s=wait_timeout_s, mesh=ring)
         return engine, part
 
     def init_fn(rng, params_single):
         del rng
         params_single = to_torch(params_single, device)
-        stacked = tree_map(lambda p: p[None].expand((M,) + tuple(p.shape)),
+        stacked = tree_map(lambda p: p[None].expand((L,) + tuple(p.shape)),
                            params_single)
         if "engine" not in box:
             box["engine"], box["part"] = build(params_single)
         return make_decoupled_state(stacked, optimizer, update_delay=D,
                                     part=box["part"], wire=wire,
                                     compensate=compensate,
-                                    membership=membership)
+                                    membership=membership, mesh=ring)
 
     def step_fn(state, batch, step_idx, shift_idx):
         if "engine" not in box:
             raise RuntimeError("call init_fn before step_fn")
         eng = box["engine"]
-        batch = to_torch(batch, device)
+        batch = rank_rows(to_torch(batch, device), ring)
         if "batch_abs" not in box:
             # the forward batch signature, learnt from the first batch
             box["batch_abs"] = tree_map(_spec, batch)
@@ -933,7 +970,8 @@ def make_pipeline_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
         state, metrics = eng.step(state, batch, step_idx, shift_idx)
         if measure_drift:
             from repro_torch.core.api import disagreement
-            drift = torch.no_grad()(disagreement)
+            drift = torch.no_grad()(lambda read, w: disagreement(
+                read, w, mesh=ring))
             if streams > 1:
                 # on the gossip stream after the step's clock
                 metrics["disagreement"] = eng.submit_aux(

@@ -1,10 +1,14 @@
-"""The PD-ASGD training steps on one device (port of
-``repro/launch/train.py``).
+"""The PD-ASGD training steps (port of ``repro/launch/train.py``).
 
-The M workers live on one device, stacked on the leading axis of every
-plane buffer: the state holds ``{group: (M, n_group)}`` buffers where the
-JAX package holds one ``(n_group,)`` shard per mesh device. The step is
-assembled from the same three lanes:
+The M workers are stacked on the leading axis of every plane buffer: the
+state holds ``{group: (M, n_group)}`` buffers where the JAX package holds
+one ``(n_group,)`` shard per mesh device. On a :class:`~repro_torch.launch.
+mesh.WorkerMesh` with a process group, each rank holds the ``(L, n_group)``
+rows of its ``L = M // world`` workers on its own device, and the ring hop,
+the loss mean, the skip count and the drift cross ranks; the ``(M,)``
+push-sum weights, the ``(M, G)`` version clocks and the straggler mask
+depend on the host-drawn shifts and the step only, so every rank keeps
+them whole. The step is assembled from the same three lanes:
 
 * ``forward_lane``: loss and gradients on the READ plane, with an R:1
   forward:backward ratio (only slice 0 gets a backward; the loss averages
@@ -12,7 +16,8 @@ assembled from the same three lanes:
   gradients straight into its row of a stacked gradient plane.
 * ``backward_update_lane``: a D-deep gradient FIFO feeding the optimizer on
   the WRITE plane, with the nonfinite skip and the straggler mask.
-* the gossip lanes: the push-sum ring hop is ``torch.roll(buf, s, 0)``, the
+* the gossip lanes: the push-sum ring hop is ``torch.roll(buf, s, 0)`` on
+  one process and :meth:`WorkerMesh.ring_hop` across ranks, the
   permutation ``i → i+s mod M`` of the reference's ``ppermute``, with the
   shift ``s`` drawn on the host each step. ``gossip_fused_lane`` (the
   ``use_pallas`` route) folds apply and mix into one pass per layer group
@@ -71,7 +76,7 @@ from repro_torch.core.layerview import (FlatPartition, LayerPartition,
                                         version_metrics)
 from repro_torch.core.pytree import (tree_flatten, tree_leaves, tree_map,
                                      tree_unflatten)
-from repro_torch.device import resolve_device
+from repro_torch.device import not_ported, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (dequant_mix_ref, gossip_mix_ref,
                                      quantize_plane_ref)
@@ -335,15 +340,18 @@ def fifo_init(plane_single: Dict[str, torch.Tensor], update_delay: int,
 # ---------------------------------------------------------------------------
 
 
-def _ring_exchange(w, shift_idx, shifts: Sequence[int], alive=None):
+def _ring_exchange(w, shift_idx, shifts: Sequence[int], alive=None,
+                   mesh: Optional[WorkerMesh] = None):
     """One push-sum ring hop on the stacked plane: worker ``i`` sends its
     buffers and half its weight to worker ``i + s mod M``, i.e. row ``j``
-    receives row ``j − s`` (``torch.roll(buf, s, 0)``).
+    receives row ``j − s`` (``torch.roll(buf, s, 0)``; across the ranks of
+    ``mesh``'s group, :meth:`WorkerMesh.ring_hop` on the rank's rows).
 
     Returns ``(hop, w_keep, rw, use)``. ``hop(buf)`` makes the received copy
     of one stacked buffer, so a caller holds one group's copy at a time, and
     every buffer of a round (an int8 group's q and its scales) moves by the
-    same shift.
+    same shift. The weights and ``use`` are over all M workers: the lanes
+    take the rank's rows of them (:meth:`WorkerMesh.local`).
 
     ``alive`` (an ``(M,)`` 0/1 float32 device mask, DESIGN.md §15) gates
     the exchange for fault-tolerant membership: mass is sent only when
@@ -356,7 +364,10 @@ def _ring_exchange(w, shift_idx, shifts: Sequence[int], alive=None):
     With every peer alive the gated weights are the ungated ones bit for
     bit (``w − w/2 == w/2``)."""
     s = int(shifts[int(shift_idx)])
-    hop = lambda buf: torch.roll(buf, s, 0)  # noqa: E731
+    if mesh is None:
+        hop = lambda buf: torch.roll(buf, s, 0)  # noqa: E731
+    else:
+        hop = lambda buf: mesh.ring_hop(buf, s)  # noqa: E731
     if alive is None:
         return hop, w * 0.5, torch.roll(w * 0.5, s, 0), None
     a_tgt = torch.roll(alive, -s, 0)
@@ -391,8 +402,17 @@ def _check_wire(wire: str, compensate: float) -> None:
         raise ValueError("compensate (λ) must be >= 0")
 
 
+def _local_fn(mesh: Optional[WorkerMesh]) -> Callable:
+    """The rank's rows of an ``(M, ...)`` tensor (the identity on one
+    process); ``None`` passes through."""
+    if mesh is None or mesh.group is None:
+        return lambda t: t
+    return lambda t: None if t is None else mesh.local(t)
+
+
 def gossip_plane_lane(part: FlatPartition, M: int, shifts: Sequence[int], *,
-                      use_pallas: bool = False, wire: str = "param"):
+                      use_pallas: bool = False, wire: str = "param",
+                      mesh: Optional[WorkerMesh] = None):
     """Push-sum ring gossip on the stacked flat plane, after the update was
     applied: ``(w/2·mine + w'/2·recv) / (w/2 + w'/2)`` in f32, plain
     PyTorch. Returns ``mix(plane, w, shift_idx) -> (plane, w)``; the
@@ -412,8 +432,13 @@ def gossip_plane_lane(part: FlatPartition, M: int, shifts: Sequence[int], *,
 
     ``alive=`` (a device mask, see :func:`_ring_exchange`) gates the hop:
     a row whose source or self is dead keeps its own buffer (a select, so
-    nothing it received is read)."""
+    nothing it received is read).
+
+    ``mesh`` (a :class:`WorkerMesh` with a process group) runs the lane on
+    the rank's ``(L, n)`` rows: the hop crosses ranks, the ``(M,)`` weights
+    stay whole and each row mixes with its own."""
     _check_wire(wire, 0.0)
+    loc = _local_fn(mesh)
     if wire == "int8":
         if M == 1:
             return lambda plane, resid, w, shift_idx, alive=None: (
@@ -421,8 +446,9 @@ def gossip_plane_lane(part: FlatPartition, M: int, shifts: Sequence[int], *,
 
         def mix_q(plane, resid, w, shift_idx, alive=None):
             hop, w_keep, rw, use = _ring_exchange(w, shift_idx, shifts,
-                                                  alive)
+                                                  alive, mesh)
             new_w, _, alpha, beta = _mix_weights(w_keep, rw, use)
+            alpha, beta, use = loc(alpha), loc(beta), loc(use)
             mixed = {}
             for name, mine in plane.items():
                 q, s, _ = quantize_plane_ref(mine, resid[name],
@@ -438,8 +464,11 @@ def gossip_plane_lane(part: FlatPartition, M: int, shifts: Sequence[int], *,
         return lambda plane, w, shift_idx, alive=None: (plane, w)
 
     def mix(plane, w, shift_idx, alive=None):
-        hop, w_keep, rw, use = _ring_exchange(w, shift_idx, shifts, alive)
+        hop, w_keep, rw, use = _ring_exchange(w, shift_idx, shifts, alive,
+                                              mesh)
         new_w, denom, alpha, beta = _mix_weights(w_keep, rw, use)
+        w_keep, rw, denom = loc(w_keep), loc(rw), loc(denom)
+        alpha, beta, use = loc(alpha), loc(beta), loc(use)
         mixed = {}
         for name, mine in plane.items():
             r = hop(mine)
@@ -461,15 +490,18 @@ def gossip_plane_lane(part: FlatPartition, M: int, shifts: Sequence[int], *,
 
 
 def gossip_lane(part: FlatPartition, M: int, shifts: Sequence[int], *,
-                use_pallas: bool = False):
+                use_pallas: bool = False,
+                mesh: Optional[WorkerMesh] = None):
     """Tree-level gossip for the lockstep LayUp step, whose state stays a
     parameter tree: pack the stacked tree into the plane through ``part``,
     mix each group (:func:`gossip_plane_lane`; ``use_pallas``: the pure
     ``gossip_mix`` kernel), unpack (views of the mixed plane). Returns
-    ``mix(tree, w, shift_idx) -> (tree, w)``; the identity when M == 1."""
+    ``mix(tree, w, shift_idx) -> (tree, w)``; the identity when M == 1.
+    ``mesh``: the rank's ``(L, ...)`` tree, as :func:`gossip_plane_lane`."""
     if M == 1:
         return lambda tree, w, shift_idx, alive=None: (tree, w)
-    plane_mix = gossip_plane_lane(part, M, shifts, use_pallas=use_pallas)
+    plane_mix = gossip_plane_lane(part, M, shifts, use_pallas=use_pallas,
+                                  mesh=mesh)
 
     def mix(tree, w, shift_idx, alive=None):
         plane, w = plane_mix(part.pack(tree), w, shift_idx, alive=alive)
@@ -479,7 +511,8 @@ def gossip_lane(part: FlatPartition, M: int, shifts: Sequence[int], *,
 
 
 def gossip_fused_lane(part: FlatPartition, M: int, shifts: Sequence[int], *,
-                      use_pallas: bool = True, wire: str = "param"):
+                      use_pallas: bool = True, wire: str = "param",
+                      mesh: Optional[WorkerMesh] = None):
     """The paper's Alg. 1 ordering, fused: ship the PRE-update plane, then
     one pass per group computes ``mixed = α·x + β·recv + upd`` (3 reads + 1
     write). Returns ``mix_apply(plane, updates, w, shift_idx) -> (plane,
@@ -506,18 +539,26 @@ def gossip_fused_lane(part: FlatPartition, M: int, shifts: Sequence[int], *,
     select after it: a degraded row (``use`` false) receives its own
     buffer with ``α = 1, β = 0`` and computes ``op(x, x, u, 1, 0)``, its
     own update and nothing of the dead source's row; on the int8 wire its
-    received scales are zeroed instead."""
+    received scales are zeroed instead.
+
+    ``mesh`` (a :class:`WorkerMesh` with a process group) runs the lane on
+    the rank's ``(L, n)`` rows, as :func:`gossip_plane_lane`: q and the
+    scales cross ranks by the same hop, the kernels see ``(L, n)``
+    buffers."""
     _check_wire(wire, 0.0)
     op = ops.gossip_mix if use_pallas else gossip_mix_ref
+    loc = _local_fn(mesh)
 
     def apply_m1(plane, updates, w, out):
-        one, zero = torch.ones_like(w), torch.zeros_like(w)
+        one, zero = torch.ones_like(loc(w)), torch.zeros_like(loc(w))
         return {name: op(x, x, updates[name], one, zero, out=out[name])
                 for name, x in plane.items()}
 
     def weights(w, shift_idx, alive):
-        hop, w_keep, rw, use = _ring_exchange(w, shift_idx, shifts, alive)
+        hop, w_keep, rw, use = _ring_exchange(w, shift_idx, shifts, alive,
+                                              mesh)
         new_w, _, alpha, beta = _mix_weights(w_keep, rw, use)
+        alpha, beta, use = loc(alpha), loc(beta), loc(use)
         if use is not None:
             # a degraded row applies its own update and mixes nothing in
             alpha = torch.where(use, alpha, torch.ones_like(alpha))
@@ -602,10 +643,16 @@ def gate_update(lane_out, write, alive) -> Dict[str, torch.Tensor]:
             for k, v in lane_out.items()}
 
 
-def live_loss(losses: Sequence[torch.Tensor], alive):
+def live_loss(losses: Sequence[torch.Tensor], alive,
+              mesh: Optional[WorkerMesh] = None):
     """The mean of the per-worker losses; over the live peers only when a
-    device mask is given (a dead peer's loss must not drag the mean)."""
+    device mask is given (a dead peer's loss must not drag the mean).
+    ``mesh`` (with a process group): ``losses`` are the rank's L workers',
+    gathered over the ranks in global row order before the mean, so that
+    it is the one-process mean bit for bit (the reference's ``pmean``)."""
     stacked = torch.stack(list(losses))
+    if mesh is not None:
+        stacked = mesh.all_gather_rows(stacked)
     if alive is None:
         return stacked.mean()
     return (stacked * alive).sum() / alive.sum()
@@ -623,15 +670,19 @@ def stamp_live(versions, stamp, alive):
 def _decoupled_worker_fn(part: FlatPartition, fwd: Callable, upd: Callable,
                          mix: Optional[Callable], M: int, D: int, *,
                          active_fn: Optional[Callable] = None,
-                         fused_mix: Optional[Callable] = None):
-    """The decoupled step over all M stacked workers:
+                         fused_mix: Optional[Callable] = None,
+                         mesh: Optional[WorkerMesh] = None):
+    """The decoupled step over the stacked workers (all M, or with a
+    ``mesh`` of a process group this rank's L rows):
     ``step(state, batch, step_idx, shift_idx) -> (state, metrics)``.
 
     Order: forward on the READ plane → delayed update on the WRITE plane →
     gossip (``fused_mix`` folds apply+mix; else apply then ``mix``) → the
     read plane adopts the mixed write plane → each group's clock is stamped
     ``t + φ_g`` (only when M > 1: with one worker nothing is received).
-    ``batch`` carries a leading ``(M,)`` worker axis on every leaf.
+    ``batch`` carries a leading worker axis on every leaf: the step's rows
+    (``(L,)`` on a mesh). On a mesh the per-worker losses are gathered and
+    ``nonfinite_skips`` summed over the ranks.
 
     A state with ``"resid"`` (``wire="int8"``, see
     :func:`make_decoupled_state`) threads the error-feedback residual
@@ -648,6 +699,7 @@ def _decoupled_worker_fn(part: FlatPartition, fwd: Callable, upd: Callable,
     phi = send_fractions(part.num_groups)
     phi_on: Dict[torch.device, torch.Tensor] = {}  # φ copied once per device
     masks: Dict[tuple, torch.Tensor] = {}  # device copies of host masks
+    loc = _local_fn(mesh)
 
     def step(state, batch, step_idx, shift_idx):
         read, write = state["read"], state["write"]
@@ -657,13 +709,13 @@ def _decoupled_worker_fn(part: FlatPartition, fwd: Callable, upd: Callable,
         alive = alive_on_device(alive_host, w.device, masks)
         grads = {k: torch.empty_like(v) for k, v in read.items()}
         losses = []
-        for m in range(M):
+        for m in range(next(iter(read.values())).shape[0]):
             loss_m, g_m = fwd(part.unpack({k: v[m] for k, v in read.items()}),
                               {k: v[m] for k, v in batch.items()})
             part.pack(g_m, out={k: v[m] for k, v in grads.items()})
             del g_m
             losses.append(loss_m)
-        active = active_fn(step_idx) if active_fn is not None else None
+        active = loc(active_fn(step_idx)) if active_fn is not None else None
         resid, theta = state.get("resid"), state.get("theta")
         upd_out = upd(write, opt_state, grads, fifo, step_idx, active=active,
                       theta=theta)
@@ -674,9 +726,12 @@ def _decoupled_worker_fn(part: FlatPartition, fwd: Callable, upd: Callable,
         if theta is not None:
             theta = upd_out[5]
         del upd_out
+        if mesh is not None:
+            skips = mesh.all_reduce_sum_(skips)
         if alive is not None:
             lane_out = gate_update(
-                lane_out, None if fused_mix is not None else write, alive)
+                lane_out, None if fused_mix is not None else write,
+                loc(alive))
         int8 = resid is not None
         if fused_mix is not None:
             if int8:
@@ -697,7 +752,7 @@ def _decoupled_worker_fn(part: FlatPartition, fwd: Callable, upd: Callable,
                     versions.device)
             stamp = phi_on[versions.device] + float(np.float32(step_idx))
             versions = stamp_live(versions, stamp, alive)
-        loss = live_loss(losses, alive)
+        loss = live_loss(losses, alive, mesh)
         new_state = {"read": read, "write": write, "opt": opt_state, "w": w,
                      "versions": versions}
         if D > 0:
@@ -718,7 +773,8 @@ def make_decoupled_state(params_stacked, optimizer: Optimizer, *,
                          update_delay: int = 0,
                          part: Optional[FlatPartition] = None,
                          wire: str = "param", compensate: float = 0.0,
-                         membership: bool = False):
+                         membership: bool = False,
+                         mesh: Optional[WorkerMesh] = None):
     """Initial step state: the params packed ONCE into the stacked plane,
     as two separate copies (read, write), optimizer state in plane layout,
     push-sum weights ``1/M``, zero version clocks and, with D > 0, a zero
@@ -727,10 +783,17 @@ def make_decoupled_state(params_stacked, optimizer: Optimizer, *,
     ``compensate > 0`` adds ``"theta"``, a third copy of the initial plane
     (the θ_prev of step 0); ``membership`` adds ``"alive"``, the host
     membership mask (numpy float32, all ones; the chaos controller replaces
-    it at fault events, DESIGN.md §15)."""
+    it at fault events, DESIGN.md §15).
+
+    ``mesh`` (with a process group): ``params_stacked`` holds the rank's L
+    workers; the plane, optimizer state, FIFO, residual and θ get L rows,
+    the push-sum weights ``1/M`` and the clocks all M."""
     _check_wire(wire, compensate)
     leaves, _ = tree_flatten(params_stacked)
-    M = leaves[0].shape[0]
+    M = leaves[0].shape[0] if mesh is None else mesh.workers
+    if mesh is not None and leaves[0].shape[0] != mesh.local_workers:
+        raise ValueError(f"the mesh's rank holds {mesh.local_workers} "
+                         f"workers, the params {leaves[0].shape[0]}")
     D = int(update_delay)
     if part is None:
         part = FlatPartition(tree_map(lambda x: x[0], params_stacked))
@@ -753,7 +816,8 @@ def make_decoupled_state(params_stacked, optimizer: Optimizer, *,
         "versions": part.init_versions(M, device=device),
     }
     if D > 0:
-        state["fifo"] = fifo_init({k: v[0] for k, v in read.items()}, D, M)
+        state["fifo"] = fifo_init({k: v[0] for k, v in read.items()}, D,
+                                  leaves[0].shape[0])
     if wire == "int8":
         state["resid"] = {k: torch.zeros_like(v) for k, v in read.items()}
     if theta is not None:
@@ -764,12 +828,13 @@ def make_decoupled_state(params_stacked, optimizer: Optimizer, *,
 
 
 def _gossip_lanes(part: FlatPartition, M: int, shifts: Sequence[int], *,
-                  use_pallas: bool, wire: str):
+                  use_pallas: bool, wire: str,
+                  mesh: Optional[WorkerMesh] = None):
     """``(mix, fused_mix)`` of the decoupled step: the fused Alg. 1 lane on
     ``use_pallas``, else the plain plane lane."""
     if use_pallas:
-        return None, gossip_fused_lane(part, M, shifts, wire=wire)
-    return gossip_plane_lane(part, M, shifts, wire=wire), None
+        return None, gossip_fused_lane(part, M, shifts, wire=wire, mesh=mesh)
+    return gossip_plane_lane(part, M, shifts, wire=wire, mesh=mesh), None
 
 
 def _decoupled_metrics(w, versions, loss, upd_stale, step_idx, skips,
@@ -802,6 +867,28 @@ def straggler_active_fn(M: int, straggler_delays, device) -> Optional[Callable]:
     return active_fn
 
 
+def _ring_mesh(mesh: Optional[WorkerMesh], M: int) -> Optional[WorkerMesh]:
+    """``mesh`` when it spreads the workers over a process group (checked
+    against ``M``), else ``None``: the one-process lanes."""
+    if mesh is None:
+        return None
+    if not isinstance(mesh, WorkerMesh):
+        raise TypeError(f"expected a WorkerMesh, got {mesh!r}")
+    if mesh.workers != M:
+        raise ValueError(f"the mesh has {mesh.workers} workers, expected "
+                         f"M={M}")
+    return mesh if mesh.group is not None else None
+
+
+def rank_rows(batch, mesh: Optional[WorkerMesh]):
+    """The rank's rows of a batch in the worker layout (leading ``(M,)``
+    axis on every leaf; views); the batch itself without a process
+    group."""
+    if mesh is None or mesh.group is None:
+        return batch
+    return tree_map(mesh.local, batch)
+
+
 def make_decoupled_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
                                    schedule: Callable, M: int, *,
                                    device=None,
@@ -813,13 +900,17 @@ def make_decoupled_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
                                    wire: str = "param",
                                    compensate: float = 0.0,
                                    membership: bool = False,
-                                   publisher=None):
+                                   publisher=None,
+                                   mesh: Optional[WorkerMesh] = None):
     """Decoupled LayUp over a params dict + ``loss_fn``: the engine behind
     the ``"prod"`` backend. ``M`` workers are stacked on ``device`` (the
-    reference takes a mesh with M devices on its worker axis).
+    reference takes a mesh with M devices on its worker axis), or, with a
+    ``mesh`` of a process group, this rank's L of them on the mesh's
+    device.
 
     Batches use the sim layout: every leaf carries a leading ``(M,)``
-    worker axis. Only the flat plane is ported. ``use_pallas=True`` is the
+    worker axis (on every rank of a mesh, which keeps its own rows). Only
+    the flat plane is ported. ``use_pallas=True`` is the
     fused Alg. 1 route through the kernels (:func:`gossip_fused_lane`); the
     default applies the update and then mixes in plain PyTorch
     (:func:`gossip_plane_lane`). ``wire`` (``"param"`` or ``"int8"``) and
@@ -836,7 +927,10 @@ def make_decoupled_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
     step_idx, shift_idx) -> (state, metrics)``, the effective gossip shift
     set, and ``box["part"]`` (the FlatPartition, after ``init_fn``)."""
     _check_wire(wire, compensate)
-    device = resolve_device(device)
+    ring = _ring_mesh(mesh, M)
+    device = resolve_device(device) if ring is None else \
+        ring.resolved_device()
+    L = M if ring is None else ring.local_workers
     R, D = int(fb_ratio), int(update_delay)
     shifts = tuple(s % M for s in shifts if s % M != 0) or (1,)
     active_fn = straggler_active_fn(M, straggler_delays, device)
@@ -848,20 +942,18 @@ def make_decoupled_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
         upd = backward_update_lane(optimizer, schedule, update_delay=D,
                                    apply=not use_pallas,
                                    compensate=compensate)
-        if use_pallas:
-            mix, fused = None, gossip_fused_lane(part, M, shifts, wire=wire)
-        else:
-            mix, fused = gossip_plane_lane(part, M, shifts, wire=wire), None
+        mix, fused = _gossip_lanes(part, M, shifts, use_pallas=use_pallas,
+                                   wire=wire, mesh=ring)
         base_step = _decoupled_worker_fn(part, fwd, upd, mix, M, D,
                                          active_fn=active_fn,
-                                         fused_mix=fused)
+                                         fused_mix=fused, mesh=ring)
 
         def step(state, batch, step_idx, shift_idx):
             new_state, metrics = base_step(state, batch, step_idx, shift_idx)
             if measure_drift:
                 from repro_torch.core.api import disagreement
-                metrics["disagreement"] = disagreement(new_state["read"],
-                                                       new_state["w"])
+                metrics["disagreement"] = disagreement(
+                    new_state["read"], new_state["w"], mesh=ring)
             return new_state, metrics
 
         return step, part
@@ -869,19 +961,19 @@ def make_decoupled_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
     def init_fn(rng, params_single):
         del rng
         params_single = to_torch(params_single, device)
-        stacked = tree_map(lambda p: p[None].expand((M,) + tuple(p.shape)),
+        stacked = tree_map(lambda p: p[None].expand((L,) + tuple(p.shape)),
                            params_single)
         if "step" not in part_box:
             part_box["step"], part_box["part"] = build(params_single)
         return make_decoupled_state(stacked, optimizer, update_delay=D,
                                     part=part_box["part"], wire=wire,
                                     compensate=compensate,
-                                    membership=membership)
+                                    membership=membership, mesh=ring)
 
     def step_fn(state, batch, step_idx, shift_idx):
         if "step" not in part_box:
             raise RuntimeError("call init_fn before step_fn")
-        batch = to_torch(batch, device)
+        batch = rank_rows(to_torch(batch, device), ring)
         with torch.no_grad():
             new_state, metrics = part_box["step"](state, batch, int(step_idx),
                                                   int(shift_idx))
@@ -928,7 +1020,23 @@ def _mesh_workers(mesh) -> Tuple[int, torch.device]:
     if not isinstance(mesh, WorkerMesh):
         raise TypeError(f"expected a WorkerMesh, got {mesh!r} (build one "
                         "with WorkerMesh(M, device))")
-    return mesh.workers, resolve_device(mesh.device)
+    return mesh.workers, mesh.resolved_device()
+
+
+def _mean_over_ranks_(tensors: Sequence[torch.Tensor],
+                      mesh: WorkerMesh) -> None:
+    """Each tensor summed over the mesh's ranks and divided by their
+    number, in place: one all-reduce per dtype, over a flat copy."""
+    by_dtype: Dict[torch.dtype, list] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for ts in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        mesh.all_reduce_sum_(flat).div_(mesh.world)
+        lo = 0
+        for t in ts:
+            t.copy_(flat[lo:lo + t.numel()].view(t.shape))
+            lo += t.numel()
 
 
 def worker_batch(batch, M: int):
@@ -970,16 +1078,29 @@ def make_ddp_train_step(model, mesh, optimizer: Optimizer,
     holds it). ``fn(params, opt_state, batch, step_idx) -> (params,
     opt_state, loss)``; the optimizer state is over the params'
     ``{leaf_key: leaf}`` dict (``init_state(params)``) and is updated in
-    place."""
+    place.
+
+    On a mesh with a process group every rank holds the replica and takes
+    its ``1/world`` of the global batch (the contiguous shard ``rank``);
+    the gradient leaves are summed over the ranks and divided by ``world``
+    before the same optimizer, and the loss is the ranks' mean: one replica
+    over the global batch, to rounding."""
     _, device = _mesh_workers(mesh)
+    ring = mesh if mesh.group is not None else None
     part = LayerPartition(model.abstract_params())
     fwd = forward_lane(model.loss_fn)
     upd = backward_update_lane(optimizer, schedule)
 
     def step(params, opt_state, batch, step_idx):
         batch = to_torch(batch, device)
+        if ring is not None:
+            batch = tree_map(lambda x: x[ring.rank],
+                             worker_batch(batch, ring.world))
         with torch.no_grad():
             loss, grads = fwd(params, batch)
+            if ring is not None:
+                loss = loss.clone()
+                _mean_over_ranks_([loss] + tree_leaves(grads), ring)
             new, opt_state, _, _, _ = upd(
                 _lead(part.by_key(params)), _lead(opt_state),
                 _lead(part.by_key(grads)), (), int(step_idx))
@@ -1010,21 +1131,28 @@ def make_layup_train_step(model, mesh, optimizer: Optimizer,
     shift_idx) -> (params, opt_state, w, loss)``: ``params`` the stacked
     ``(M, ...)`` tree, the optimizer state over its ``{leaf_key: (M, ...)}``
     dict (``init_state``), ``w`` the ``(M,)`` push-sum weights, ``loss`` the
-    mean over the workers."""
+    mean over the workers.
+
+    On a mesh with a process group the rank runs its L workers: ``params``
+    and the optimizer state hold its ``(L, ...)`` rows (``init_state``
+    takes all M and keeps them), ``w`` stays ``(M,)``, the step takes the
+    global batch and keeps the rank's shards, and the mix crosses ranks."""
     M, device = _mesh_workers(mesh)
+    ring = _ring_mesh(mesh, M)
+    L = M if ring is None else ring.local_workers
     shifts = tuple(s % M for s in shifts if s % M != 0) or (1,)
     part = FlatPartition(model.abstract_params())
     fwd = forward_lane(model.loss_fn, accum_steps=accum_steps)
     upd = backward_update_lane(optimizer, schedule)
-    mix = gossip_lane(part, M, shifts, use_pallas=use_pallas)
+    mix = gossip_lane(part, M, shifts, use_pallas=use_pallas, mesh=ring)
 
     def step(params, opt_state, w, batch, step_idx, shift_idx):
-        batch = worker_batch(to_torch(batch, device), M)
+        batch = rank_rows(worker_batch(to_torch(batch, device), M), ring)
         with torch.no_grad():
             keyed = part.by_key(params)
             grads = {k: torch.empty_like(v) for k, v in keyed.items()}
             losses = []
-            for m in range(M):
+            for m in range(L):
                 loss_m, g_m = fwd(tree_map(lambda x: x[m], params),
                                   {k: v[m] for k, v in batch.items()})
                 for k, g in part.by_key(g_m).items():
@@ -1035,17 +1163,18 @@ def make_layup_train_step(model, mesh, optimizer: Optimizer,
                                           int(step_idx))
             del grads
             params, w = mix(part.from_keys(new), w, int(shift_idx))
-        return params, opt_state, w, live_loss(losses, None)
+        return params, opt_state, w, live_loss(losses, None, ring)
 
     def init_state(params_stacked):
         params = tree_map(
             lambda x: x.to(device).clone(
-                memory_format=torch.contiguous_format), params_stacked)
+                memory_format=torch.contiguous_format),
+            rank_rows(params_stacked, ring))
         return (params, optimizer.init(part.by_key(params)),
                 torch.full((M,), 1.0 / M, dtype=torch.float32,
                            device=device))
 
-    stacked = _stacked_meta(model.abstract_params(), M)
+    stacked = _stacked_meta(model.abstract_params(), L)
     abstract = (tree_map(_spec, stacked),
                 tree_map(_spec, optimizer.init(part.by_key(stacked))),
                 ((M,), torch.float32), input_specs(model.cfg, shape),
@@ -1071,8 +1200,13 @@ def make_layup_decoupled_train_step(model, mesh, optimizer: Optimizer,
     the global batch (split over the workers by :func:`worker_batch`).
     ``fn(state, batch, step_idx, shift_idx) -> (state, metrics)``, the
     state from ``init_state(stacked params)`` (:func:`make_decoupled_state`
-    with the step's flags), consumed in place."""
+    with the step's flags), consumed in place. On a mesh with a process
+    group the rank runs its L workers: ``init_state`` takes all M stacked
+    params and keeps the rank's rows, the step takes the global batch and
+    keeps the rank's shards."""
     M, device = _mesh_workers(mesh)
+    ring = _ring_mesh(mesh, M)
+    L = M if ring is None else ring.local_workers
     R, D = int(fb_ratio), int(update_delay)
     if shape.global_batch % (M * max(R, 1)):
         raise ValueError(
@@ -1085,22 +1219,22 @@ def make_layup_decoupled_train_step(model, mesh, optimizer: Optimizer,
     upd = backward_update_lane(optimizer, schedule, update_delay=D,
                                apply=not use_pallas, compensate=compensate)
     mix, fused = _gossip_lanes(part, M, shifts, use_pallas=use_pallas,
-                               wire=wire)
+                               wire=wire, mesh=ring)
     base_step = _decoupled_worker_fn(part, fwd, upd, mix, M, D,
-                                     fused_mix=fused)
+                                     fused_mix=fused, mesh=ring)
 
     def step(state, batch, step_idx, shift_idx):
-        batch = worker_batch(to_torch(batch, device), M)
+        batch = rank_rows(worker_batch(to_torch(batch, device), M), ring)
         with torch.no_grad():
             return base_step(state, batch, int(step_idx), int(shift_idx))
 
     def init_state(params_stacked):
-        return make_decoupled_state(to_torch(params_stacked, device),
-                                    optimizer, update_delay=D, part=part,
-                                    wire=wire, compensate=compensate,
-                                    membership=membership)
+        return make_decoupled_state(
+            to_torch(rank_rows(params_stacked, ring), device), optimizer,
+            update_delay=D, part=part, wire=wire, compensate=compensate,
+            membership=membership, mesh=ring)
 
-    meta = part.abstract_plane((M,))
+    meta = part.abstract_plane((L,))
     plane = tree_map(_spec, meta)
     abstract_state = {"read": plane, "write": plane,
                       "opt": tree_map(_spec, optimizer.init(meta)),
@@ -1108,7 +1242,7 @@ def make_layup_decoupled_train_step(model, mesh, optimizer: Optimizer,
                       "versions": ((M, part.num_groups), torch.float32)}
     if D > 0:
         abstract_state["fifo"] = {
-            "g": {k: ((M, D) + tuple(b.shape[1:]), b.dtype)
+            "g": {k: ((L, D) + tuple(b.shape[1:]), b.dtype)
                   for k, b in meta.items()},
             "stamp": ((D,), torch.float32)}
     if wire == "int8":
@@ -1128,10 +1262,18 @@ def make_layup_decoupled_train_step(model, mesh, optimizer: Optimizer,
                     init_state=init_state)
 
 
+def _no_ring(mesh: WorkerMesh, what: str) -> None:
+    """The guard of what the multi-process ring does not carry yet."""
+    if mesh.group is not None:
+        raise not_ported(f"{what} over a WorkerMesh with a process group",
+                         "15c")
+
+
 def make_prefill_step(model, mesh, shape: ShapeConfig) -> ProdStep:
     """``fn(params, batch) -> (cache, last_logits)``: ``model.prefill_fn``
     on the batch (the flash forward on the card)."""
     _, device = _mesh_workers(mesh)
+    _no_ring(mesh, "make_prefill_step")
 
     def step(params, batch):
         return model.prefill_fn(params, to_torch(batch, device))
@@ -1146,6 +1288,7 @@ def make_decode_step(model, mesh, shape: ShapeConfig) -> ProdStep:
     ``model.decode_fn``, the cache written in place (the reference donates
     it). The cache's abstract form is ``model.cache_specs(B, seq_len)``."""
     _mesh_workers(mesh)
+    _no_ring(mesh, "make_decode_step")
     B = shape.global_batch
 
     def step(params, cache, token, position):
@@ -1179,8 +1322,9 @@ def make_step(model, mesh, shape: ShapeConfig, *, algo: str = "layup",
               max_inflight_steps: Optional[int] = None,
               tuning=None):
     """The step of ``model`` at ``shape`` on ``mesh`` (a
-    :class:`~repro_torch.launch.mesh.WorkerMesh`: M workers on one device;
-    ``WorkerMesh(M, "cpu")`` runs on the CPU), routed as the reference's:
+    :class:`~repro_torch.launch.mesh.WorkerMesh`: M workers on one device,
+    ``WorkerMesh(M, "cpu")`` on the CPU; with a process group, each rank's
+    L workers on its own device), routed as the reference's:
 
     * ``shape.kind == "train"``: ``algo="ddp"`` is
       :func:`make_ddp_train_step`; ``fb_ratio > 1``, ``update_delay > 0``
@@ -1203,9 +1347,20 @@ def make_step(model, mesh, shape: ShapeConfig, *, algo: str = "layup",
     schedule defaults still at their documented values and implies
     ``overlap=True``; a record that fails to load warns and changes
     nothing. The default optimizer is momentum 0.9 with its state in the
-    model's dtype, the default schedule a constant 0.1."""
+    model's dtype, the default schedule a constant 0.1.
+
+    On a mesh with a process group the three training routes (and
+    ``overlap=True``) run over the ranks; ``streams > 1``, ``faults``,
+    ``tuning``, prefill and decode raise ``NotImplementedError`` (ROADMAP
+    item 15c)."""
     from repro_torch.optim import constant, momentum
     del flat
+    if isinstance(mesh, WorkerMesh) and mesh.group is not None:
+        for what, on in (("streams > 1", streams > 1),
+                         ("faults=", faults is not None),
+                         ("tuning=", tuning is not None)):
+            if on:
+                _no_ring(mesh, f"make_step({what})")
     optimizer = optimizer or momentum(0.9, state_dtype=model.cfg.dtype)
     schedule = schedule or constant(0.1)
     if tuning is not None:

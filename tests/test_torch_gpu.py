@@ -1346,3 +1346,81 @@ def test_model_path_decoupled_bit_exact_vs_backend(cuda_device):
             assert torch.equal(m[k], bm[k]), (k, t)
     for k, v in bst["read"].items():
         assert torch.equal(st["read"][k], v), k
+
+
+# ---------------------------------------------------------------------------
+# the multi-process worker ring (WorkerMesh with a process group)
+# ---------------------------------------------------------------------------
+
+
+def _cuda_hops_equal_roll(ranks):
+    import _torch_ring_worker as W
+
+    for res in ranks:
+        got = res[("cuda_hops",)]
+        for Mh in (4, 8):
+            for dt in W.HOP_DTYPES:
+                rows, hops = got[(Mh, dt)]
+                full = W.hop_full(Mh, dt)
+                for s, g in zip(range(1, Mh), hops):
+                    want = torch.roll(full, s, 0)[rows[0]:rows[-1] + 1]
+                    assert torch.equal(g, want), (Mh, dt, s, rows)
+    return [res[("cuda_hops",)] for res in ranks]
+
+
+@pytest.mark.gpu
+def test_ring_hop_two_gloo_ranks_share_the_card(cuda_device, tmp_path):
+    """Two gloo ranks on ``cuda:0``: ``ring_hop`` of CUDA tensors, staged
+    through pinned host buffers, equals ``torch.roll`` bit for bit
+    (float32, bfloat16, int8; M 4 and 8, every shift)."""
+    import _torch_ring_worker as W
+
+    ranks, _ = W.spawn(2, str(tmp_path), [("cuda_hops",)])
+    for got in _cuda_hops_equal_roll(ranks):
+        assert got["transport"] == "gloo+pinned-host-staging"
+        assert got["staging_s"] > 0.0
+
+
+@pytest.mark.gpu
+def test_ring_hop_over_nccl(cuda_device, tmp_path):
+    """Two nccl ranks, one card each: device tensors go straight to NCCL,
+    no staging. Needs two cards."""
+    import _torch_ring_worker as W
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("an nccl ring needs two cards")
+    ranks, _ = W.spawn(2, str(tmp_path), [("cuda_hops",)], backend="nccl")
+    for got in _cuda_hops_equal_roll(ranks):
+        assert got["transport"] == "nccl" and got["staging_s"] == 0.0
+
+
+@pytest.mark.gpu
+def test_gloo_point_to_point_does_not_take_cuda_tensors(cuda_device,
+                                                       tmp_path):
+    """Why ``WorkerMesh`` stages a gloo group's CUDA tensors through
+    pinned host buffers: handed a CUDA tensor directly, gloo's
+    point-to-point ops do not deliver its bits (they raise, or the rank
+    dies). Each rank runs in a process of its own, killed after 90 s."""
+    import multiprocessing as mp
+
+    import _torch_ring_worker as W
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=W.direct_gloo_cuda_p2p,
+                         args=(r, 2, str(tmp_path / "store"), str(tmp_path)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(90)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    outcomes = []
+    for r, p in enumerate(procs):
+        f = tmp_path / f"probe{r}.txt"
+        outcomes.append(f.read_text() if f.exists()
+                        else f"died (exit code {p.exitcode})")
+    print("gloo p2p of CUDA tensors:", outcomes)
+    assert "delivered" not in outcomes, outcomes
+

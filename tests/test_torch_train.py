@@ -137,12 +137,16 @@ def test_default_device_needs_cuda():
 
 # ids as they were before the item-8 (int8 wire, compensation), item-9
 # (the engines), item-10 (faults), item-11 (publisher) and item-12
-# (tuning) cases left, and before item 15a ported ``flat=False``
+# (tuning) cases left, before item 15a ported ``flat=False`` and before
+# item 15b ported ``mesh=``
 @pytest.mark.parametrize("kw,item", [
-    pytest.param(dict(mesh=object()), "item 15b", id="kw8-item 15"),
+    pytest.param(dict(overlap=True, streams=2), "item 15c",
+                 id="kw8-item 15"),
     pytest.param(dict(flat=False), None, id="kw9-item 15")])
-def test_unported_options_name_their_roadmap_item(kw, item):
-    """``mesh=`` (the multi-GPU ring) still names its item, 15b.
+def test_unported_options_name_their_roadmap_item(kw, item, tmp_path):
+    """``mesh=`` (the multi-GPU ring, item 15b) takes a ``WorkerMesh``
+    (anything else is a ``TypeError``); over a process group (here one
+    gloo rank) the stream engine still names its item, 15c.
     ``flat=False`` trains on the flat plane, the port's one state layout:
     the numbers of ``flat=True`` bit for bit (the reference's legacy state
     gives its flat plane's), with the options the reference keeps to the
@@ -150,10 +154,21 @@ def test_unported_options_name_their_roadmap_item(kw, item):
     from _torch_parity import assert_runs_equal, run_port
 
     if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            make_backend("prod", "layup", M=2, loss_fn=torch_mlp_loss,
-                         optimizer=momentum(0.9), schedule=constant(0.05),
-                         device="cpu", **kw)
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import WorkerMesh
+
+        common = dict(loss_fn=torch_mlp_loss, optimizer=momentum(0.9),
+                      schedule=constant(0.05), device="cpu")
+        with pytest.raises(TypeError, match="WorkerMesh"):
+            make_backend("prod", "layup", M=2, mesh=object(), **common)
+        dist.init_process_group("gloo", rank=0, world_size=1,
+                                init_method=f"file://{tmp_path / 'store'}")
+        try:
+            with pytest.raises(NotImplementedError, match=item):
+                make_backend("prod", "layup", M=2, **common, **kw,
+                             mesh=WorkerMesh(2, "cpu", dist.group.WORLD))
+        finally:
+            dist.destroy_process_group()
         return
     for opts in (dict(), dict(use_pallas=True, wire="int8",
                               compensate=0.5, faults="")):
