@@ -162,8 +162,8 @@ not 0:
    the quantize kernels and through their plain versions
    (``gossip_fused_lane(use_pallas=False, wire="int8")``), attention on the
    flash kernels on both: losses, planes, residuals and θ bit-identical.
-5c. sim: the sim trainer on GPT-2 Medium (f32, M=4, the train phase's
-   batches, momentum 0.9, lr 3e-3), each of the nine registered
+5c. sim: the sim trainer on GPT-2 Medium cut to 12 layers (f32, M=4, the
+   train phase's batches, momentum 0.9, lr 3e-3), each of the nine registered
    algorithms for 4 steps (layup, layup-hypercube, gosgd at R=2, D=1; the
    rest at R=1, D=0; localsgd, slowmo and co2 sync every 2 steps): finite
    loss near ln V, Σw with the block queue's mass in flight = 1 ± 1e-5,
@@ -182,7 +182,8 @@ not 0:
    card's floors; the record saved under ``build/tune``, loaded by key,
    and a fresh ``make_backend(..., tuning=path)`` must take its R, D and
    max_inflight_steps, train a step and launch gossip_mix.
-5f. checkpoint: the prod state of GPT-2 Medium at M=1, R=2, D=1 saved and
+5f. checkpoint: the prod state of GPT-2 Medium cut to 12 layers at M=1,
+   R=2, D=1 saved and
    restored into a fresh state (read plane SHA-256s, every leaf equal);
    two more steps from each, the restored one after ``resume``,
    identical; save and restore seconds, bytes on disk.
@@ -267,7 +268,30 @@ not 0:
    (gloo on CUDA tensors), the wire bytes a round, each rank's peak, and
    ``nccl``: run the same way over NCCL on two cards where
    ``torch.cuda.device_count() >= 2``, else "not run (1 device)". A failed
-   rank fails the phase.
+   rank fails the phase. (The param wire's ``overlap=True`` rank run is
+   cut: ``overlap=True`` over the ranks runs on the int8 wire.)
+   Then the options over the ranks (ROADMAP item 15c), int8 wire with
+   λ=0.5, after each a line a rank with its step times, staging seconds,
+   wire bytes and peak beside the card's ``nvidia-smi`` name and limit:
+   GPT-2 Medium cut to 12 layers: ``streams=3`` (3 steps, one step in
+   flight) held to a stacked monolithic int8 run of the cut model
+   (digests, histories), #6 and #7 9 times, flash 144 forward and 72 + 72
+   backward a rank (half the stacked step's); a faulted run
+   (``RING_FAULTS``: peer 3 of rank 1 crashes at step 1 and is re-admitted
+   at step 3 from donor 0 of rank 0, a cross-rank re-sync of one row of
+   every row entry, its seconds and bytes printed) with a publisher and a
+   ``LiveServer`` on each rank serving its first worker, held to a
+   stacked run of the same (row digests, histories, the controller's
+   counters, each server's decisions and served params). At full depth:
+   ``make_prefill_step`` on 8 prompts of 504 tokens and 8
+   greedy ``make_decode_step`` steps in a 512-slot cache, the rows split
+   over the ranks (4 a rank's cache), held to the one-process steps within
+   1e-5 (max |Δ| / max |ref|) and the same tokens; ``tuning=`` a record
+   built here, keyed for the world: the schedule each rank resolves is the
+   record's; a checkpoint round trip 4 layers deep (2 steps, ``save``
+   gathered to rank 0, one step; a fresh state restored on both ranks,
+   ``resume(2)``, one step): restored and resumed states equal bit for bit,
+   save and restore seconds printed.
 6. the kernels line (with ``sim_launches``, ``tune_launches``,
    ``moe_launches``, the families' ``hybrid_launches``,
    ``vlm_launches``, ``encdec_launches``, ``model_path_launches`` by
@@ -2916,6 +2940,9 @@ SIM_RUNS = (("layup", 2, 1, {}), ("layup-hypercube", 2, 1, {}),
             ("slowmo", 1, 0, {"sync_every": 2}),
             ("co2", 1, 0, {"sync_every": 2}))
 SIM_STEPS = 4  # steps 1-2 timed, step 3 profiled for the idle share
+# the sim and checkpoint phases' depth, cut from 24 layers at full width
+# to keep the script within its time with train_ring's option runs
+SIM_LAYERS = CKPT_LAYERS = 12
 SIM_PROD_POINTS, SIM_PROD_STEPS = ((1, 0), (2, 1)), 4
 TUNE_STEPS, TUNE_WARMUP, TUNE_REPS = 3, 1, 3
 CKPT_STEPS = 2  # steps before the save, and again after it
@@ -2939,12 +2966,15 @@ def row_launches(counts: dict, name: str) -> int:
     return sum(counts.get(k, 0) for k in keys)
 
 
-def gpt2_medium(torch):
-    """GPT-2 Medium, its seed-0 parameters on the card and its loss."""
+def gpt2_medium(torch, layers=None):
+    """GPT-2 Medium (its depth cut to ``layers`` where given), its seed-0
+    parameters on the card and its loss."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
     cfg = get_config("gpt2-medium")
+    if layers is not None:
+        cfg = cfg.with_(num_layers=layers)
     model = build_model(cfg)
     return cfg, model, model.init(seed=0, device="cuda")
 
@@ -3065,14 +3095,14 @@ def sim_run(torch, cfg, model, params, batches, hw, algo, R_, D_, kw):
 
 
 def phase_sim(torch):
-    """The sim trainer on GPT-2 Medium (f32, M=4, the train phase's
-    batches) for each of the nine algorithms, with the event backend in
+    """The sim trainer on GPT-2 Medium cut to ``SIM_LAYERS`` (f32, M=4,
+    the train phase's batches) for each of the nine algorithms, with the event backend in
     lock-step on a HardwareModel of the card's measured forward time and
     backward ratio. Returns the phase's launches and the model's rows."""
     from repro_torch.core.simulator import HardwareModel
     from repro_torch.core.pytree import tree_leaves
 
-    cfg, model, params = gpt2_medium(torch)
+    cfg, model, params = gpt2_medium(torch, SIM_LAYERS)
     batches = lm_batches(torch, cfg.vocab_size, SIM_STEPS, seed=0)
     t_fwd, bwd_ratio = fwd_bwd_times(torch, model, params, batches[0])
     plane_bytes = sum(p.numel() * p.element_size()
@@ -3294,8 +3324,8 @@ def phase_tune(torch):
 
 
 def phase_checkpoint(torch):
-    """The prod state of GPT-2 Medium at M=1, R=2, D=1 (read, write,
-    momentum, FIFO) after 2 steps, saved under ``build/`` and restored into
+    """The prod state of GPT-2 Medium cut to ``CKPT_LAYERS`` at M=1, R=2,
+    D=1 (read, write, momentum, FIFO) after 2 steps, saved under ``build/`` and restored into
     a fresh ``init`` state: the read plane's SHA-256s and every other leaf
     equal; then 2 more steps from each (the restored run after
     ``resume(2)``) give identical histories, digests and leaves. The
@@ -3307,7 +3337,7 @@ def phase_checkpoint(torch):
     from repro_torch.core.pytree import tree_leaves
     from repro_torch.optim import constant, momentum
 
-    cfg, model, params = gpt2_medium(torch)
+    cfg, model, params = gpt2_medium(torch, CKPT_LAYERS)
     batches = [{k: v[:1] for k, v in b.items()} for b in
                lm_batches(torch, cfg.vocab_size, 2 * CKPT_STEPS, seed=0)]
 
@@ -4133,11 +4163,28 @@ def phase_train_model_path(torch, train, smi):
 # runs each rank makes, held to the stacked run of the same wire
 RING_WORLD, RING_STEPS = 2, 3
 RING_WIRES = {"param": 0.0, "int8": LAMBDA}
-RING_RUNS = [(wire, overlap) for wire in RING_WIRES
-             for overlap in (False, True)]
+# the param wire's overlap run is cut (its rank step took 3.3-8.6 s on
+# gloo loopback on an H100, 700 W): overlap over the ranks runs on the
+# int8 wire
+RING_RUNS = [("param", False), ("int8", False), ("int8", True)]
 RING_TIMEOUT_S = 600  # each rank's process, build included
 RING_KERNELS = {"param": ("gossip_mix",),
                 "int8": ("quantize_plane", "dequant_mix")}
+# the options over the ranks, after RING_RUNS (int8 wire, λ = LAMBDA):
+# prefill and decode at serve's 8 x 512, full depth; a faulted run with a
+# publisher and a live server on each rank, and streams=3, RING_CUT_LAYERS
+# deep (two ranks' full-depth int8 states with two snapshots and a
+# server's params, or with the stream engine's second plane and its
+# per-stream allocator pools, do not fit one card), each held to a stacked
+# run of the cut model; a checkpoint round trip RING_CKPT_LAYERS deep (a
+# full-depth rank state is ~17 GB of disk)
+RING_STREAMS = 3
+RING_FAULTS = "crash:peer=3,step=1,recover=3"  # rank 1's peer, donor 0
+RING_FAULT_STEPS = 4
+RING_CUT_LAYERS, RING_CKPT_LAYERS = 12, 4
+RING_DECODE_STEPS = 8
+RING_SERVE_RTOL = 1e-5
+RING_TUNED = {"R": 2, "D": 1, "max_inflight_steps": 2}
 
 
 def row_digests(torch, plane) -> dict:
@@ -4148,42 +4195,317 @@ def row_digests(torch, plane) -> dict:
             for g, buf in plane.items()}
 
 
-def ring_run(torch, model, params, batches, wire, overlap, mesh=None):
+def tree_digest(torch, tree) -> list:
+    """Each tensor leaf's int64 sum of its bits viewed as int32 (bf16 and
+    int8 leaves as their bytes), in leaf order."""
+    from repro_torch.core.pytree import tree_leaves
+
+    out = []
+    for x in tree_leaves(tree):
+        if isinstance(x, torch.Tensor):
+            b = x.detach().reshape(-1).contiguous().view(torch.uint8)
+            pad = (-b.numel()) % 4
+            if pad:
+                b = torch.cat([b, b.new_zeros(pad)])
+            out.append(int(b.view(torch.int32).sum(dtype=torch.int64)))
+    return out
+
+
+RING_ROWS = ("gossip_mix", "flash_attention", "flash_attention_bwd",
+             "flash_attention_trainable", "quantize_plane", "dequant_mix")
+
+
+def ring_launches(counts: dict) -> dict:
+    """A run's launches by kernel row of the kernels line."""
+    return {"gossip_mix": counts["gossip_mix"],
+            "flash_attention": counts["flash_fwd"],
+            "flash_attention_bwd": counts["flash_dq"] + counts["flash_dkv"],
+            "flash_attention_trainable": (counts["flash_fwd"]
+                                          + counts["flash_dq"]
+                                          + counts["flash_dkv"]),
+            "quantize_plane": counts["quantize_plane"],
+            "dequant_mix": counts["dequant_mix"]}
+
+
+def card_memory(torch) -> dict:
+    """This process's allocated and reserved bytes and the card's free
+    bytes (all processes)."""
+    free, total = torch.cuda.mem_get_info()
+    return {"allocated": torch.cuda.memory_allocated(),
+            "reserved": torch.cuda.memory_reserved(), "card_free": free,
+            "card_total": total}
+
+
+def ring_run(torch, model, params, batches, wire, overlap, mesh=None,
+             streams=1):
     """One run of ``RING_STEPS`` steps of the prod backend (stacked, or
     over ``mesh``), launch counts zeroed before: losses, read-plane row
-    digests, step seconds, peak, the ring kernels' launches, wire bytes a
-    round and staging seconds."""
+    digests, step seconds, peak, the ring kernels' launches (and every
+    kernel's by row), wire bytes a round and staging seconds. A stream
+    engine runs one step in flight (``max_inflight_steps=1``: two ranks'
+    engines share the card)."""
     from repro_torch.core.backend import make_backend
     from repro_torch.optim import constant, momentum
 
     kw = {"mesh": mesh} if mesh is not None else {"device": "cuda"}
+    if streams > 1:
+        kw["max_inflight_steps"] = 1
     backend = make_backend("prod", "layup", M=M, loss_fn=model.loss_fn,
                            optimizer=momentum(0.9), schedule=constant(LR),
                            fb_ratio=R, update_delay=1, use_pallas=True,
                            wire=wire, compensate=RING_WIRES[wire],
-                           overlap=overlap, measure_drift=False, **kw)
+                           overlap=overlap, streams=streams,
+                           wait_timeout_s=ENGINE_TIMEOUT_S,
+                           measure_drift=False, **kw)
     out, hist, step_s, peak = counted_drive(
         torch, backend, params, batches, launch_resets(),
         keys=("loss", "weight_sum", "nonfinite_skips"))
     every = step_launches()
+    read = out["state"]["read"]
+    if streams > 1:
+        read = backend.engine.materialize(read)
     res = {"losses": hist["loss"], "weight_sum": hist["weight_sum"],
            "skips": hist["nonfinite_skips"],
-           "digests": row_digests(torch, out["state"]["read"]),
+           "digests": row_digests(torch, read),
            "step_s": step_s, "peak_bytes": peak,
            "launches": {k: every[k] for k in RING_KERNELS[wire]},
+           "kernel_launches": ring_launches(every),
            "wire_bytes_per_round": out["wire_bytes_per_round"],
-           "staging_s": out.get("staging_s", 0.0)}
-    del out, backend
+           "staging_s": out.get("staging_s", 0.0),
+           "memory_before": out["bytes_before_init"]}
+    if streams > 1:
+        backend.engine.close()
+    del out, backend, read
     gc.collect()
     torch.cuda.empty_cache()
     return res
 
 
+def cut_gpt2_medium(torch, layers: int):
+    """GPT-2 Medium at full width cut to ``layers`` layers: (config, model,
+    seed-0 params on the card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("gpt2-medium").with_(num_layers=layers)
+    model = build_model(cfg)
+    return cfg, model, model.init(seed=0, device="cuda")
+
+
+def ring_faults_run(torch, model, params, batches, mesh=None):
+    """The faulted run (``RING_FAULTS`` over ``RING_FAULT_STEPS`` steps,
+    ``model``: GPT-2 Medium cut to ``RING_CUT_LAYERS``; int8 wire) with a publisher
+    and a ``LiveServer`` polled after every step: stacked, one server for
+    each rank's first worker; over ``mesh``, one for this rank's. Row
+    digests, histories, the controller's counters, each server's decisions
+    and served params' digests, the step and resync seconds, the resync's
+    bytes, staging, wire bytes and peak."""
+    from repro_torch.core.backend import make_backend
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.launch.mesh import ROW_ENTRIES
+    from repro_torch.launch.serve import ServeLoop
+    from repro_torch.optim import constant, momentum
+    from repro_torch.serving import LiveServer, PlanePublisher, SwapPolicy
+
+    cfg = model.cfg
+    kw = {"mesh": mesh} if mesh is not None else {"device": "cuda"}
+    pub = PlanePublisher()
+    backend = make_backend("prod", "layup", M=M, loss_fn=model.loss_fn,
+                           optimizer=momentum(0.9), schedule=constant(LR),
+                           fb_ratio=R, update_delay=1, use_pallas=True,
+                           wire="int8", compensate=LAMBDA, faults=RING_FAULTS,
+                           publisher=pub, measure_drift=False, **kw)
+    L = M // RING_WORLD
+    workers = ([mesh.rows.start] if mesh is not None
+               else [r * L for r in range(RING_WORLD)])
+    servers = {j: LiveServer(ServeLoop(model, params, num_slots=2,
+                                       max_len=LIVE_MAX_LEN),
+                             None, pub,
+                             policy=SwapPolicy(min_interval_steps=2),
+                             worker=j, mesh=mesh) for j in workers}
+
+    def on_batch(t):  # before step t: the snapshot of step t - 1
+        for srv in servers.values():
+            srv.part = backend.part
+            if t:
+                srv.poll()
+
+    out, hist, step_s, peak = counted_drive(
+        torch, backend, params, batches[:RING_FAULT_STEPS], launch_resets(),
+        keys=MEMBERSHIP_KEYS, on_batch=on_batch)
+    every = step_launches()
+    for srv in servers.values():  # the last step's snapshot
+        srv.poll()
+    state = out["state"]
+    held, seen = 0, set()
+    for path in ROW_ENTRIES:  # one row of each row entry crossed
+        tree = state
+        for k in path:
+            tree = tree.get(k, {}) if isinstance(tree, dict) else {}
+        for x in tree_leaves(tree):
+            if isinstance(x, torch.Tensor) and x.dim() and id(x) not in seen:
+                seen.add(id(x))
+                held += x[0].numel() * x.element_size()
+    res = {"losses": hist["loss"], "weight_sum": hist["weight_sum"],
+           "skips": hist["nonfinite_skips"],
+           "peers_live": hist["peers_live"],
+           "digests": row_digests(torch, state["read"]),
+           "chaos": chaos_counters(out), "step_s": step_s,
+           "peak_bytes": peak, "layers": cfg.num_layers,
+           "resync_s": backend.chaos.event_s.get("resync", []),
+           "kill_s": backend.chaos.event_s.get("kill", []),
+           "resync_bytes": held,
+           "kernel_launches": ring_launches(every),
+           "wire_bytes_per_round": out["wire_bytes_per_round"],
+           "staging_s": out.get("staging_s", 0.0),
+           "snapshot_rows": (None if pub.latest().rows is None
+                             else list(pub.latest().rows)),
+           "servers": {str(j): {
+               "decisions": [[d.accepted, d.reason] for d in srv.decisions],
+               "swaps": [r.step for r in srv.swaps],
+               "served": tree_digest(torch, srv.loop.params)}
+               for j, srv in servers.items()}}
+    del out, state, backend, servers, pub
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def ring_serve(torch, model, params, mesh):
+    """``make_prefill_step`` on serve's 8 rows of prompts of
+    ``SERVE_MAX_LEN − RING_DECODE_STEPS`` tokens, then
+    ``RING_DECODE_STEPS`` greedy ``make_decode_step`` steps in a cache of
+    ``SERVE_MAX_LEN`` (``mesh``: one process or the ranks). The logits and
+    tokens (returned on the host), the prefill and decode seconds, the
+    flash launches of the prefill and the cache's rows."""
+    import numpy as np
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.launch.train import make_step
+    from repro_torch.models.transformer import alloc_cache
+
+    P = SERVE_MAX_LEN - RING_DECODE_STEPS
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, model.cfg.vocab_size, (SERVE_SLOTS, P)).astype(np.int32)).cuda()
+    prefill = make_step(model, mesh, ShapeConfig("ring_prefill", P,
+                                                 SERVE_SLOTS, "prefill"))
+    decode = make_step(model, mesh, ShapeConfig("ring_decode", SERVE_MAX_LEN,
+                                                SERVE_SLOTS, "decode"))
+    reset_kernel_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, logits = prefill.fn(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    flash = step_launches()["flash_fwd"]
+    big = alloc_cache(decode.abstract_args[1], device="cuda")
+    for lb, la in zip(tree_leaves(big), tree_leaves(cache)):
+        d = next((i for i, (a, b) in enumerate(zip(lb.shape, la.shape))
+                  if a != b), 0)
+        lb.narrow(d, 0, la.shape[d]).copy_(la)
+    rows = tree_leaves(big)[0].shape[1]
+    del cache
+    out = {"prefill": logits.cpu(), "decode": [], "tokens": []}
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    step_s = []
+    for i in range(RING_DECODE_STEPS):
+        pos = torch.full((SERVE_SLOTS,), P + i, dtype=torch.int32,
+                         device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, big = decode.fn(params, big, tok, pos)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        out["decode"].append(lg.cpu())
+        tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+        out["tokens"].append(tok.cpu())
+    del big
+    torch.cuda.empty_cache()
+    return out, {"prefill_s": prefill_s, "decode_step_s": step_s,
+                 "flash_fwd_launches": flash, "cache_rows": rows,
+                 "prefill_describe": prefill.describe}
+
+
+def ring_checkpoint(torch, batches, mesh, directory):
+    """GPT-2 Medium cut to ``RING_CKPT_LAYERS`` over the ranks (int8 wire,
+    λ): 2 steps, ``save_checkpoint(mesh=)`` into ``directory``, one more
+    step; a fresh backend's state restored from the archive
+    (``restore_checkpoint(mesh=)``), ``resume(2)``, one step. The saved,
+    restored, uninterrupted and resumed states' digests, save and restore
+    seconds and the archive's bytes."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.core.backend import make_backend
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.optim import constant, momentum
+
+    cfg, model, params = cut_gpt2_medium(torch, RING_CKPT_LAYERS)
+
+    def backend():
+        return make_backend("prod", "layup", M=M, loss_fn=model.loss_fn,
+                            optimizer=momentum(0.9), schedule=constant(LR),
+                            fb_ratio=R, update_delay=1, use_pallas=True,
+                            wire="int8", compensate=LAMBDA,
+                            measure_drift=False, mesh=mesh)
+
+    be = backend()
+    st = be.init(None, params)
+    for b in batches[:2]:
+        st, _ = be.step(st, b)
+    torch.cuda.synchronize()
+    saved = tree_digest(torch, st)
+    state_bytes = sum(x.numel() * x.element_size()
+                      for x in tree_leaves(st) if isinstance(x, torch.Tensor))
+    t0 = time.perf_counter()
+    path = save_checkpoint(str(directory), 2, st, mesh=mesh)
+    save_s = time.perf_counter() - t0
+    st, m = be.step(st, batches[2])
+    after = (tree_digest(torch, st), float(m["loss"]))
+    del st, be
+    be2 = backend()
+    fresh = be2.init(None, params)
+    t0 = time.perf_counter()
+    back = restore_checkpoint(str(directory), None, fresh, mesh=mesh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del fresh
+    restored = tree_digest(torch, back)
+    be2.resume(2)
+    back, m = be2.step(back, batches[2])
+    resumed = (tree_digest(torch, back), float(m["loss"]))
+    res = {"layers": cfg.num_layers, "save_s": save_s,
+           "restore_s": restore_s, "state_bytes": state_bytes,
+           "bytes_on_disk": os.path.getsize(path),
+           "restored_equal": restored == saved,
+           "resumed_equal": resumed == after,
+           "resumed_loss": resumed[1]}
+    del back, be2, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def ring_tuning(mesh, path):
+    """A backend over ``mesh`` with ``tuning=path`` (GPT-2 Medium's loss,
+    nothing allocated or stepped): the schedule it resolved."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.backend import make_backend
+    from repro_torch.models import build_model
+    from repro_torch.optim import constant, momentum
+
+    model = build_model(get_config("gpt2-medium"))
+    be = make_backend("prod", "layup", M=M, loss_fn=model.loss_fn,
+                      optimizer=momentum(0.9), schedule=constant(LR),
+                      use_pallas=True, wire="int8", compensate=LAMBDA,
+                      mesh=mesh, tuning=path)
+    return dict(be.schedule)
+
+
 def ring_rank_main(argv) -> int:
     """One rank of train_ring (``--ring-rank r --ring-world n
     --ring-backend gloo|nccl --ring-dir d``): joins the group through the
-    file store in ``d``, runs ``RING_RUNS`` over a ``WorkerMesh(M, dev,
-    group)`` and writes its results to ``d/rank<r>.json``."""
+    file store in ``d``, runs ``RING_RUNS`` and then the options over a
+    ``WorkerMesh(M, dev, group)``, writes its results to ``d/rank<r>.json``
+    and its serving logits to ``d/serve<r>.pt``."""
     import datetime
 
     opt = dict(zip(argv[::2], argv[1::2]))
@@ -4217,16 +4539,49 @@ def ring_rank_main(argv) -> int:
         cfg = get_config("gpt2-medium")
         model = build_model(cfg)
         params = model.init(seed=0, device=dev)
-        batches = lm_batches(torch, cfg.vocab_size, RING_STEPS, seed=0)
+        batches = lm_batches(torch, cfg.vocab_size, RING_FAULT_STEPS, seed=0)
         batches = [{k: v.to(dev) for k, v in b.items()} for b in batches]
-        runs = {}
+        runs, seconds = {}, {}
         for wire, overlap in RING_RUNS:
-            res = ring_run(torch, model, params, batches, wire, overlap,
-                           mesh=mesh)
+            res = ring_run(torch, model, params, batches[:RING_STEPS], wire,
+                           overlap, mesh=mesh)
             res["transport"] = mesh.transport
             runs[f"{wire}/{'overlap' if overlap else 'monolithic'}"] = res
+        seconds["runs"] = time.perf_counter() - t0
+        options, memory = {}, {"runs_done": card_memory(torch)}
+        t1 = time.perf_counter()
+        serve, options["serve"] = ring_serve(torch, model, params, mesh)
+        torch.save(serve, ring_dir / f"serve{rank}.pt")
+        seconds["serve"] = time.perf_counter() - t1
+        del params, serve
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, cut, cut_params = cut_gpt2_medium(torch, RING_CUT_LAYERS)
+        memory["cut_model"] = card_memory(torch)
+        t1 = time.perf_counter()
+        options["faults"] = ring_faults_run(torch, cut, cut_params, batches,
+                                            mesh)
+        seconds["faults"] = time.perf_counter() - t1
+        memory["faults_done"] = card_memory(torch)
+        t1 = time.perf_counter()
+        options["streams"] = ring_run(torch, cut, cut_params,
+                                      batches[:RING_STEPS], "int8", True,
+                                      mesh=mesh, streams=RING_STREAMS)
+        seconds["streams"] = time.perf_counter() - t1
+        del cut_params
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        options["tuning"] = ring_tuning(mesh, str(ring_dir.parent
+                                                  / "record.json"))
+        options["checkpoint"] = ring_checkpoint(
+            torch, batches, mesh, ring_dir.parent / "ckpt" / backend)
+        seconds["checkpoint"] = time.perf_counter() - t1
+        for name in ("streams", "serve", "faults", "checkpoint"):
+            options[name]["transport"] = mesh.transport
         out = {"rank": rank, "rows": list(mesh.rows), "device": dev,
-               "runs": runs, "seconds": time.perf_counter() - t0}
+               "runs": runs, "options": options, "seconds": seconds,
+               "memory": memory, "total_s": time.perf_counter() - t0}
         (ring_dir / f"rank{rank}.json").write_text(json.dumps(out))
     finally:
         dist.destroy_process_group()
@@ -4236,7 +4591,8 @@ def ring_rank_main(argv) -> int:
 def ring_ranks(backend: str) -> list:
     """Start ``RING_WORLD`` ranks of this script over ``backend``, wait
     for them (``RING_TIMEOUT_S``; every one is killed on a failure) and
-    return their results. A rank that fails fails the phase."""
+    return their results (each with its serving logits under
+    ``"serve"``). A rank that fails fails the phase."""
     import shutil
 
     ring_dir = HERE / "build" / "ring" / backend
@@ -4269,14 +4625,26 @@ def ring_ranks(backend: str) -> list:
                 p.wait()
         for log in logs:
             log.close()
+        shutil.rmtree(HERE / "build" / "ring" / "ckpt" / backend,
+                      ignore_errors=True)
     if failed:
+        import torch
+
+        print("train_ring: this process's memory", card_memory(torch),
+              file=sys.stderr)
         for rank in range(RING_WORLD):
             tail = (ring_dir / f"rank{rank}.log").read_text()[-3000:]
             print(f"--- ring rank {rank} ({backend}) log tail ---\n{tail}",
                   file=sys.stderr)
         raise AssertionError(f"train_ring: {backend} rank failed {failed}")
-    return [json.loads((ring_dir / f"rank{r}.json").read_text())
-            for r in range(RING_WORLD)]
+    import torch
+
+    out = []
+    for r in range(RING_WORLD):
+        res = json.loads((ring_dir / f"rank{r}.json").read_text())
+        res["serve"] = torch.load(ring_dir / f"serve{r}.pt")
+        out.append(res)
+    return out
 
 
 def hold_ring(ranks: list, stacked: dict, backend: str) -> None:
@@ -4286,35 +4654,119 @@ def hold_ring(ranks: list, stacked: dict, backend: str) -> None:
     for res in ranks:
         for key, run in res["runs"].items():
             want = stacked[key.split("/")[0]]
-            for g, rows in run["digests"].items():
-                got = dict(zip(res["rows"], rows))
-                check(all(got[r] == want["digests"][g][r] for r in got),
-                      f"train_ring {backend} rank {res['rank']} {key}: "
-                      f"group {g} digests {rows} != "
-                      f"{[want['digests'][g][r] for r in got]}")
-            for k in ("losses", "weight_sum", "skips"):
-                check(run[k] == want[k], f"train_ring {backend} rank "
-                      f"{res['rank']} {key}: {k} {run[k]} != {want[k]}")
+            hold_rows(run, want, res, f"{backend} {key}")
             check(run["launches"] == want["launches"],
                   f"train_ring {backend} rank {res['rank']} {key}: "
                   f"launches {run['launches']} != {want['launches']}")
 
 
+def hold_rows(run: dict, want: dict, res: dict, what: str,
+              keys=("losses", "weight_sum", "skips")) -> None:
+    """A rank's row digests (at its global rows) and histories against a
+    stacked run's, bit for bit."""
+    for g, rows in run["digests"].items():
+        got = dict(zip(res["rows"], rows))
+        check(all(got[r] == want["digests"][g][r] for r in got),
+              f"train_ring {what} rank {res['rank']}: group {g} digests "
+              f"{rows} != {[want['digests'][g][r] for r in got]}")
+    for k in keys:
+        check(run[k] == want[k], f"train_ring {what} rank {res['rank']}: "
+              f"{k} {run[k]} != {want[k]}")
+
+
+def hold_ring_options(torch, ranks: list, stacked: dict,
+                      backend: str) -> None:
+    """The options' holds: streams against the stacked int8 run of the cut
+    model (and its launches: #6, #7 once a group a step, flash a rank's
+    half); the
+    faulted run against the stacked faulted one (histories, counters,
+    servers); prefill and decode within ``RING_SERVE_RTOL`` of the
+    one-process step and the same greedy tokens; the tuned schedule equal
+    on every rank and the record's; the checkpoint's restored and resumed
+    states equal the saved and uninterrupted ones."""
+    steps, L, layers = RING_STEPS, M // RING_WORLD, RING_CUT_LAYERS
+    groups = len(stacked["int8_cut"]["digests"])
+    for res in ranks:
+        rank, opts = res["rank"], res["options"]
+        what = f"{backend} rank {rank}"
+        st = opts["streams"]
+        hold_rows(st, stacked["int8_cut"], res, f"{backend} streams")
+        want = {"quantize_plane": steps * groups,
+                "dequant_mix": steps * groups, "gossip_mix": 0,
+                "flash_attention": steps * L * R * layers,
+                "flash_attention_bwd": 2 * steps * L * layers}
+        got = {k: st["kernel_launches"][k] for k in want}
+        check(got == want, f"train_ring {what} streams: launches {got} != "
+              f"{want}")
+        f, wf = opts["faults"], stacked["faults"]
+        hold_rows(f, wf, res, f"{backend} faults",
+                  keys=("losses", "weight_sum", "skips", "peers_live",
+                        "chaos"))
+        check(f["resync_s"] and f["chaos"]["resyncs"] == 1,
+              f"train_ring {what} faults: no resync {f['chaos']}")
+        j = str(res["rows"][0])
+        check(f["servers"][j] == wf["servers"][j],
+              f"train_ring {what} faults: server of worker {j} "
+              f"{f['servers'][j]} != {wf['servers'][j]}")
+        check(f["snapshot_rows"] == res["rows"],
+              f"train_ring {what}: snapshot rows {f['snapshot_rows']}")
+        check(opts["tuning"] == stacked["tuning"],
+              f"train_ring {what}: tuned schedule {opts['tuning']} != "
+              f"{stacked['tuning']}")
+        ck = opts["checkpoint"]
+        check(ck["restored_equal"] and ck["resumed_equal"],
+              f"train_ring {what} checkpoint: restored "
+              f"{ck['restored_equal']}, resumed {ck['resumed_equal']}")
+        sv, ws = res["serve"], stacked["serve"]
+        check(opts["serve"]["flash_fwd_launches"]
+              == stacked["serve_readings"]["flash_fwd_launches"],
+              f"train_ring {what}: prefill flash launches "
+              f"{opts['serve']['flash_fwd_launches']}")
+        gaps = [rel_gap(torch, sv["prefill"], ws["prefill"])] + [
+            rel_gap(torch, a, b) for a, b in zip(sv["decode"], ws["decode"])]
+        opts["serve"]["max_rel_gap"] = max(gaps)
+        check(max(gaps) <= RING_SERVE_RTOL,
+              f"train_ring {what}: logits gaps {gaps} > {RING_SERVE_RTOL}")
+        check(all(torch.equal(a, b) for a, b in zip(sv["tokens"],
+                                                    ws["tokens"])),
+              f"train_ring {what}: greedy tokens differ")
+        check(opts["serve"]["cache_rows"] == SERVE_SLOTS // RING_WORLD,
+              f"train_ring {what}: a rank's cache holds "
+              f"{opts['serve']['cache_rows']} rows")
+
+
+def ring_record(torch, path):
+    """A tuning record of ``RING_TUNED`` keyed for M workers over
+    ``RING_WORLD`` ranks on this card, saved at ``path``."""
+    from repro_torch.launch import tuner
+
+    key = tuner.make_key("gpt2-medium", tuner.mesh_descriptor(
+        "cuda", M, world=RING_WORLD), "int8")
+    rec = tuner.build_record([(tuner.Candidate(**RING_TUNED),
+                               {"fwd": 1.0, "update": 1.0, "gossip": 1.0},
+                               None)], key=key)
+    rec.save(str(path))
+    return key
+
+
 def phase_train_ring(torch, smi):
     """The multi-process ring (docstring item 5j). Returns the phase's
-    result (the ring kernels' launches by backend, rank and run)."""
+    result (the kernels' launches by backend, rank and run)."""
     from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import WorkerMesh
     from repro_torch.models import build_model
 
     t0 = time.perf_counter()
     cfg = get_config("gpt2-medium")
     model = build_model(cfg)
     params = model.init(seed=0, device="cuda")
-    batches = lm_batches(torch, cfg.vocab_size, RING_STEPS, seed=0)
-    stacked = {wire: ring_run(torch, model, params, batches, wire, False)
+    batches = lm_batches(torch, cfg.vocab_size, RING_FAULT_STEPS, seed=0)
+    stacked = {wire: ring_run(torch, model, params, batches[:RING_STEPS],
+                              wire, False)
                for wire in RING_WIRES}
     groups = len(stacked["param"]["digests"])
-    for wire, res in stacked.items():
+    for wire in RING_WIRES:
+        res = stacked[wire]
         want = {k: RING_STEPS * groups for k in RING_KERNELS[wire]}
         check(res["launches"] == want,
               f"train_ring stacked {wire}: launches {res['launches']} != "
@@ -4325,17 +4777,52 @@ def phase_train_ring(torch, smi):
               and res["skips"] == [0.0] * RING_STEPS,
               f"train_ring stacked {wire}: losses {res['losses']}, "
               f"weight_sum {res['weight_sum']}, skips {res['skips']}")
-    del params, batches, model
+    stacked_s = {"runs": time.perf_counter() - t0}
+    t1 = time.perf_counter()
+    serve, stacked["serve_readings"] = ring_serve(
+        torch, model, params, WorkerMesh(M, "cuda"))
+    stacked["serve"] = serve
+    stacked_s["serve"] = time.perf_counter() - t1
+    del params, model
     gc.collect()
     torch.cuda.empty_cache()
-    stacked_s = time.perf_counter() - t0
-    result = {"stacked": stacked, "stacked_s": stacked_s, "ranks": {}}
+    t1 = time.perf_counter()
+    _, cut, cut_params = cut_gpt2_medium(torch, RING_CUT_LAYERS)
+    stacked["int8_cut"] = ring_run(torch, cut, cut_params,
+                                   batches[:RING_STEPS], "int8", False)
+    stacked["faults"] = ring_faults_run(torch, cut, cut_params, batches)
+    del cut_params, cut
+    f = stacked["faults"]
+    check(f["chaos"]["resyncs"] == 1 and f["peers_live"] == live_schedule(
+        RING_FAULTS, RING_FAULT_STEPS)
+        and all(abs(v - 1.0) <= 1e-5 for v in f["weight_sum"]),
+        f"train_ring stacked faults: {f['chaos']}, peers_live "
+        f"{f['peers_live']}, weight_sum {f['weight_sum']}")
+    stacked_s["faults"] = time.perf_counter() - t1
+    del batches
+    record = HERE / "build" / "ring" / "record.json"
+    record.parent.mkdir(parents=True, exist_ok=True)
+    key = ring_record(torch, record)
+    stacked["tuning"] = {"fb_ratio": RING_TUNED["R"],
+                         "update_delay": RING_TUNED["D"],
+                         "max_inflight_steps":
+                             RING_TUNED["max_inflight_steps"],
+                         "overlap": True}
+    gc.collect()
+    torch.cuda.empty_cache()
+    result = {"stacked": {k: v for k, v in stacked.items() if k != "serve"},
+              "stacked_s": stacked_s, "ranks": {}, "record_key": key,
+              "memory_before_ranks": card_memory(torch)}
     backends = ["gloo"] + (["nccl"] if torch.cuda.device_count() >= 2
                            else [])
     for backend in backends:
         t1 = time.perf_counter()
         ranks = ring_ranks(backend)
         hold_ring(ranks, stacked, backend)
+        hold_ring_options(torch, ranks, stacked, backend)
+        for res in ranks:
+            del res["serve"]
+            ring_option_lines(res, backend, smi)
         result["ranks"][backend] = ranks
         result[f"{backend}_s"] = time.perf_counter() - t1
     if "nccl" not in backends:
@@ -4344,9 +4831,26 @@ def phase_train_ring(torch, smi):
     emit("train_ring", model=cfg.name, M=M, world=RING_WORLD,
          local_workers=M // RING_WORLD, steps=RING_STEPS, fb_ratio=R,
          update_delay=1, wires=RING_WIRES, held="digests, losses, Σw, "
-         "skips and launches bit for bit against the stacked run",
+         "skips and launches bit for bit against the stacked run; the "
+         "options against theirs (docstring item 5j)",
          seconds=time.perf_counter() - t0, nvidia_smi=smi, **result)
     return result
+
+
+def ring_option_lines(res: dict, backend: str, smi: str) -> None:
+    """One line a rank and option run: its step times, staging, wire
+    bytes, peak; the faulted run's resync seconds and bytes; the
+    checkpoint's save and restore seconds; the card's name and limit."""
+    keep = ("step_s", "staging_s", "wire_bytes_per_round", "peak_bytes",
+            "resync_s", "kill_s", "resync_bytes", "layers", "save_s",
+            "restore_s", "state_bytes", "bytes_on_disk", "prefill_s",
+            "decode_step_s", "max_rel_gap", "transport", "fb_ratio",
+            "update_delay", "max_inflight_steps", "overlap")
+    for name, run in res["options"].items():
+        emit("train_ring_option", backend=backend, rank=res["rank"],
+             run=name, nvidia_smi=smi,
+             **{k: v for k, v in run.items() if k in keep},
+             seconds=res["seconds"].get(name))
 
 
 def main(argv) -> int:
@@ -4566,13 +5070,23 @@ def main(argv) -> int:
             route: row_launches(c, row["name"])
             for route, c in model_path.items()}
     # train_ring's launches of #1 (param wire) and #6, #7 (int8 wire) by
-    # backend, rank and run
+    # backend, rank and run, and of #1-#4, #6, #7 on the options' runs
+    # (streams, faults, prefill: #2)
     for row in rows:
         if any(row["name"] in ks for ks in RING_KERNELS.values()):
             row["ring_launches"] = {
                 b: {res["rank"]: {k: run["launches"].get(row["name"])
                                   for k, run in res["runs"].items()
                                   if row["name"] in run["launches"]}
+                    for res in ranks}
+                for b, ranks in ring["ranks"].items()}
+        if row["name"] in RING_ROWS:
+            row["ring_option_launches"] = {
+                b: {res["rank"]: {
+                    **{k: res["options"][k]["kernel_launches"][row["name"]]
+                       for k in ("streams", "faults")},
+                    "prefill": (res["options"]["serve"]["flash_fwd_launches"]
+                                if row["name"] == "flash_attention" else 0)}
                     for res in ranks}
                 for b, ranks in ring["ranks"].items()}
     for row, kind in zip(rows[1:4], ("fwd", "bwd", "trainable")):

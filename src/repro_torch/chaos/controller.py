@@ -36,6 +36,17 @@ enqueued on the caller's stream, follows every use of the old values; the
 next step's tasks wait for the caller's stream in turn. ``event_s`` keeps
 the host seconds of each fault event (``kill``, ``resync``,
 ``guard_round``, ``nan``).
+
+Over a :class:`~repro_torch.launch.mesh.WorkerMesh` with a process group
+(``mesh=``) the controller stays host-side and replicated: every rank
+replays the same plan and keeps the same :class:`PeerHealth` of all M
+peers, and the kill's renormalization runs on every rank's copy of the
+``(M,)`` weights alike. A NaN lands on the owner of its peer, at its local
+row. A wire fault's damage lands on the global element the one-process
+round damages (byte 0 of the group's row 0), so only that row's owner
+detects and repairs it; ``summary()`` sums the ranks' reject, drop and
+resend counts. A donor on another rank sends its rows point to point
+(:func:`~repro_torch.chaos.recovery.resync_peer`).
 """
 from __future__ import annotations
 
@@ -82,9 +93,12 @@ def _poison_rows(leaf, peer: int):
 
 class ChaosController:
     def __init__(self, faults, M: int, *, update_delay: int = 0,
-                 compensate: float = 0.0):
+                 compensate: float = 0.0, mesh=None):
         self.plan: FaultPlan = as_plan(faults)
         self.M = int(M)
+        # a mesh with a process group spreads the state's rows over ranks
+        self.mesh = mesh if mesh is not None and mesh.group is not None \
+            else None
         self.D = int(update_delay)
         # λ doubles as the recovery damping: the re-admitted peer's first
         # mixing rounds are under-weighted exactly like a stale gradient
@@ -185,7 +199,11 @@ class ChaosController:
             state = dict(self._materialize(state))
             g = state["fifo"]["g"]
             names = sorted(g)
-            g[names[f.group % len(names)]][f.peer, 0] = float("nan")
+            if self.mesh is None:
+                g[names[f.group % len(names)]][f.peer, 0] = float("nan")
+            elif self.mesh.owner(f.peer) == self.mesh.rank:
+                g[names[f.group % len(names)]][
+                    self.mesh.local_index(f.peer), 0] = float("nan")
             return state, batch
         if isinstance(batch, dict):
             batch = {k: _poison_rows(v, f.peer) for k, v in batch.items()}
@@ -201,6 +219,8 @@ class ChaosController:
         plane = state["read"]
         names = sorted(plane)
         name = names[f.group % len(names)]
+        if self.mesh is not None and self.mesh.owner(0) != self.mesh.rank:
+            name = None  # the damage lands on row 0's owner only
         delivered, _ = self.guard.round_trip(
             plane,
             corrupt_group=name if f.kind == "corrupt" else None,
@@ -217,7 +237,8 @@ class ChaosController:
         if donor < 0:
             donor = next(p for p in range(self.M)
                          if mask[p] > 0 and p != f.peer)
-        state = resync_peer(state, f.peer, donor, self.M, damp=self.damp)
+        state = resync_peer(state, f.peer, donor, self.M, damp=self.damp,
+                            mesh=self.mesh)
         self._crashed.discard(f.peer)
         self.health.readmit(f.peer, step)
         self.resyncs += 1
@@ -248,7 +269,17 @@ class ChaosController:
             "hangs": self.hangs,
             "nan_injections": self.nan_injections,
         }
-        out.update(self.guard.counters())
+        counters = self.guard.counters()
+        if self.mesh is not None:
+            # every rank seals its rows in the same rounds; the damage and
+            # its repair are counted where the damaged row lives
+            keys = ("checksum_rejects", "drops_detected", "resends")
+            summed = self.mesh.all_reduce_sum_(torch.tensor(
+                [float(counters[k]) for k in keys],
+                device=self.mesh.resolved_device()))
+            counters.update({k: int(v) for k, v in zip(keys,
+                                                        summed.tolist())})
+        out.update(counters)
         ttd, ttr = self.time_to_detect(), self.time_to_resync()
         if ttd is not None:
             out["time_to_detect_steps"] = ttd

@@ -14,12 +14,18 @@ re-enters mixing carrying an exact share of the donor's push-sum mass
 ``damp`` < 1 (the delay compensation strength λ when enabled)
 under-weights the re-admitted peer's first mixing rounds.
 
-The M workers are stacked on one device, so a re-sync is a row copy on the
-device, in place, for every worker-stacked tensor (leading dimension M);
-the state's ``read`` and ``write`` may be one plane, and copying its rows
-twice is harmless. The mass split runs in numpy float32 on a host copy of
-the M weights, the reference's arithmetic, and goes back to the device.
-Recovery is a rare event at the step boundary, never part of the step.
+With the M workers stacked on one device a re-sync is a row copy on the
+device, in place, for every worker-stacked tensor (leading dimension M) of
+the state's per-worker entries (``launch.mesh.WORKER_ENTRIES``). Over a
+:class:`~repro_torch.launch.mesh.WorkerMesh` with a process group the row
+entries hold each rank's L rows: a donor on another rank sends its rows
+point to point (:meth:`~repro_torch.launch.mesh.WorkerMesh.copy_row_`),
+and the version clocks, which every rank keeps whole, are copied on every
+rank. The state's ``read`` and ``write`` may be one plane: its rows are
+copied once. The mass split runs in numpy float32 on a host copy of the M
+weights (the reference's arithmetic, on every rank alike) and goes back to
+the device. Recovery is a rare event at the step boundary, never part of
+the step.
 """
 from __future__ import annotations
 
@@ -28,20 +34,26 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.launch.mesh import ROW_ENTRIES, WORKER_ENTRIES
 
-def _row_copy_(tree, peer: int, donor: int, M: int) -> None:
-    """``leaf[peer] = leaf[donor]`` in place for every worker-stacked
-    tensor of a (dict / list / tuple) tree."""
+
+def _leaves(tree):
     if isinstance(tree, torch.Tensor):
-        if tree.dim() >= 1 and tree.shape[0] == M:
-            tree[peer].copy_(tree[donor])
-        # a worker-shared tensor (e.g. FIFO stamps): nothing to sync
+        yield tree
     elif isinstance(tree, dict):
         for v in tree.values():
-            _row_copy_(v, peer, donor, M)
+            yield from _leaves(v)
     elif isinstance(tree, (list, tuple)):
         for v in tree:
-            _row_copy_(v, peer, donor, M)
+            yield from _leaves(v)
+
+
+def _entry(state, path):
+    for k in path:
+        if not isinstance(state, dict) or k not in state:
+            return None
+        state = state[k]
+    return state
 
 
 def split_mass(w: np.ndarray, peer: int, donor: int, damp: float) -> None:
@@ -53,22 +65,36 @@ def split_mass(w: np.ndarray, peer: int, donor: int, damp: float) -> None:
 
 
 def resync_peer(state: Dict[str, object], peer: int, donor: int, M: int, *,
-                damp: float = 1.0) -> Dict[str, object]:
+                damp: float = 1.0, mesh=None) -> Dict[str, object]:
     """Re-sync ``peer``'s replica from ``donor`` and split the donor's
     push-sum mass. The state's tensors are updated in place (the caller
     has made sure no queued work still uses them); ``w`` is replaced by a
     fresh tensor. Returns the state dict (``alive`` is set by the caller
-    from the health tracker's mask)."""
+    from the health tracker's mask).
+
+    ``mesh`` (a ``WorkerMesh`` with a process group): the state is a
+    rank's, its row entries holding the rank's rows; every rank calls this
+    with the same arguments, and the rows cross ranks where the donor's
+    owner is not the peer's."""
     if peer == donor:
         raise ValueError("recovery donor must differ from the peer")
     if not 0.0 < damp <= 1.0:
         raise ValueError(f"recovery damp must be in (0, 1], got {damp}")
+    ring = mesh if mesh is not None and mesh.group is not None else None
     state = dict(state)
-    for key in ("read", "write", "opt", "versions", "resid", "theta"):
-        if key in state:
-            _row_copy_(state[key], peer, donor, M)
-    if "fifo" in state:
-        _row_copy_(state["fifo"]["g"], peer, donor, M)
+    copied = set()
+    for path in WORKER_ENTRIES:
+        spread = ring is not None and path in ROW_ENTRIES
+        rows = ring.local_workers if spread else M
+        for leaf in _leaves(_entry(state, path)):
+            # a worker-shared tensor (e.g. adamw's count) has no rows
+            if leaf.dim() < 1 or leaf.shape[0] != rows or id(leaf) in copied:
+                continue
+            copied.add(id(leaf))
+            if spread:
+                ring.copy_row_(leaf, donor, peer)
+            else:
+                leaf[peer].copy_(leaf[donor])
     w_dev = state["w"]
     w = w_dev.detach().cpu().numpy().copy()
     split_mass(w, peer, donor, damp)

@@ -14,9 +14,14 @@ bfloat16 has no numpy dtype: it is stored in float32, a lossless
 container, and cast back on restore. ``restore_checkpoint`` gives every
 leaf ``like``'s dtype and, for a tensor, ``like``'s device.
 
-A decoupled step's state on a multi-process mesh (a rank's ``(L, ...)``
-plane rows beside the ``(M,)`` push-sum weights) is neither saved nor
-restored yet: both raise ``NotImplementedError`` (ROADMAP item 15c).
+A decoupled step's state on a multi-process mesh (``mesh=``, a
+:class:`~repro_torch.launch.mesh.WorkerMesh` with a process group: a
+rank's ``(L, ...)`` rows of the row entries ``launch.mesh.ROW_ENTRIES``
+beside the ``(M,)`` push-sum weights and clocks) goes to the same one
+archive, in the one-process layout: ``save_checkpoint`` gathers the rows
+on rank 0, which writes the file while the others wait, and
+``restore_checkpoint`` lets every rank read the archive and take its own
+rows. Every rank calls both alike; a failure on one raises on all.
 """
 from __future__ import annotations
 
@@ -30,7 +35,6 @@ import torch
 
 from repro_torch.core.pytree import (DictKey, SequenceKey,
                                      tree_flatten_with_path, tree_unflatten)
-from repro_torch.device import not_ported
 
 
 def keystr(path) -> str:
@@ -63,41 +67,75 @@ def _flatten(tree) -> Dict[str, np.ndarray]:
             for path, leaf in tree_flatten_with_path(tree)[0]}
 
 
-def _check_not_mesh_state(tree, what: str) -> None:
-    """Raise for a decoupled step's state of one rank of a multi-process
-    mesh: a dict (at any depth) whose ``"read"`` plane has fewer rows than
-    its ``"w"`` has workers."""
-    if not isinstance(tree, dict):
-        if isinstance(tree, (list, tuple)):
-            for v in tree:
-                _check_not_mesh_state(v, what)
-        return
-    read, w = tree.get("read"), tree.get("w")
-    if isinstance(read, dict) and isinstance(w, torch.Tensor) and read:
-        rows = next(iter(read.values())).shape[0]
-        if w.dim() == 1 and rows != w.shape[0]:
-            raise not_ported(f"{what} of a state spread over a WorkerMesh's "
-                             "ranks", "15c")
-    for v in tree.values():
-        _check_not_mesh_state(v, what)
+def _ring(mesh):
+    return mesh if mesh is not None and mesh.group is not None else None
 
 
-def save_checkpoint(directory: str, step: int, tree: Any) -> str:
-    """Write ``tree`` as ``<directory>/ckpt_<step:08d>.npz``; returns the
-    path."""
-    _check_not_mesh_state(tree, "checkpoint save")
+def _row_leaf(path, leaf) -> bool:
+    """A leaf of the row entries (``launch.mesh.ROW_ENTRIES``) with rows:
+    spread over the ranks of a mesh (a 0-d leaf there, such as adamw's
+    count, is every rank's)."""
+    from repro_torch.launch.mesh import ROW_ENTRIES
+
+    if not isinstance(leaf, torch.Tensor) or leaf.dim() < 1:
+        return False
+    keys = tuple(e.key for e in path if isinstance(e, DictKey))
+    return any(keys[:len(e)] == e for e in ROW_ENTRIES)
+
+
+def _all_ok(ring, err: Optional[BaseException], what: str) -> None:
+    """Raise on every rank when ``err`` was raised on any of them (the
+    ranks' failures summed through the mesh: also the barrier)."""
+    flag = torch.tensor([0.0 if err is None else 1.0],
+                        device=ring.resolved_device())
+    ring.all_reduce_sum_(flag)
+    if err is not None:
+        raise err
+    if float(flag.item()) > 0.0:
+        raise RuntimeError(f"{what} failed on another rank of the mesh")
+
+
+def _write(directory: str, step: int, arrays: Dict[str, np.ndarray]) -> str:
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, f"ckpt_{step:08d}.npz")
     # np.savez appends ".npz" unless the name already ends with it
     fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp.npz")
     os.close(fd)
     try:
-        np.savez(tmp, **_flatten(tree))
+        np.savez(tmp, **arrays)
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return path
+
+
+def save_checkpoint(directory: str, step: int, tree: Any,
+                    mesh=None) -> str:
+    """Write ``tree`` as ``<directory>/ckpt_<step:08d>.npz``; returns the
+    path. ``mesh`` (a ``WorkerMesh`` with a process group): ``tree`` is a
+    rank's; its row leaves are gathered on rank 0, which writes the whole
+    state, and every rank returns once the file is in place."""
+    ring = _ring(mesh)
+    if ring is None:
+        return _write(directory, step, _flatten(tree))
+    ring.agree(int(step), "checkpoint steps")
+    arrays: Dict[str, np.ndarray] = {}
+    for path, leaf in tree_flatten_with_path(tree)[0]:
+        if _row_leaf(path, leaf):
+            leaf = ring.gather_rows_to(leaf, 0)
+        if ring.rank == 0:
+            arrays[keystr(path)] = _to_numpy(leaf)
+    err = None
+    out = os.path.join(directory, f"ckpt_{step:08d}.npz")
+    if ring.rank == 0:
+        try:
+            out = _write(directory, step, arrays)
+        except Exception as e:  # noqa: BLE001 - raised on every rank below
+            err = e
+    del arrays
+    _all_ok(ring, err, "checkpoint save")
+    return out
 
 
 def _like(arr: np.ndarray, leaf):
@@ -109,18 +147,36 @@ def _like(arr: np.ndarray, leaf):
 
 
 def restore_checkpoint(directory: str, step: Optional[int], like: Any,
-                       fill_missing: bool = False) -> Any:
+                       fill_missing: bool = False, mesh=None) -> Any:
     """Restore into the structure of ``like`` (each leaf's dtype and device
     kept). ``step=None`` takes the latest step in ``directory``.
 
     ``fill_missing=True`` keeps the ``like`` value for leaves absent from
-    the archive instead of raising ``KeyError``."""
-    _check_not_mesh_state(like, "checkpoint restore")
+    the archive instead of raising ``KeyError``.
+
+    ``mesh`` (a ``WorkerMesh`` with a process group): ``like`` is a rank's
+    state; every rank reads the one archive (the step checked to agree
+    over the ranks) and takes its own rows of the row leaves."""
+    ring = _ring(mesh)
     if step is None:
         step = latest_step(directory)
-        if step is None:
-            raise FileNotFoundError(f"no checkpoints in {directory}")
+    if ring is not None:
+        ring.agree(step, "checkpoint steps")
+    if step is None:
+        raise FileNotFoundError(f"no checkpoints in {directory}")
     path = os.path.join(directory, f"ckpt_{step:08d}.npz")
+    if ring is None:
+        return _restore(path, like, fill_missing, None)
+    err, out = None, None
+    try:
+        out = _restore(path, like, fill_missing, ring)
+    except Exception as e:  # noqa: BLE001 - raised on every rank below
+        err = e
+    _all_ok(ring, err, "checkpoint restore")
+    return out
+
+
+def _restore(path: str, like: Any, fill_missing: bool, ring) -> Any:
     flat, treedef = tree_flatten_with_path(like)
     new_leaves = []
     with np.load(path) as data:
@@ -131,7 +187,14 @@ def restore_checkpoint(directory: str, step: Optional[int], like: Any,
                     new_leaves.append(leaf)
                     continue
                 raise KeyError(f"checkpoint missing leaf {key}")
-            new_leaves.append(_like(data[key], leaf))
+            arr = data[key]
+            if ring is not None and _row_leaf(path_, leaf):
+                if arr.shape[0] != ring.workers:
+                    raise ValueError(f"checkpoint leaf {key} has "
+                                     f"{arr.shape[0]} rows, the mesh "
+                                     f"{ring.workers} workers")
+                arr = ring.local(arr)
+            new_leaves.append(_like(arr, leaf))
     return tree_unflatten(treedef, new_leaves)
 
 

@@ -40,7 +40,7 @@ import torch
 from repro_torch.core.api import (DistAlgorithm, get_algorithm,
                                   make_sim_trainer)
 from repro_torch.core.simulator import EventSimulator, HardwareModel, SimResult
-from repro_torch.device import not_ported, resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.launch.pipeline import (StageTimeline,
                                          make_pipeline_backend_trainer)
 from repro_torch.launch.train import make_decoupled_backend_trainer
@@ -66,13 +66,12 @@ def _add_skips(total, skips):
     return skips.clone() if total is None else total + skips
 
 
-def _check_mesh(mesh, M: int, device, **options):
+def _check_mesh(mesh, M: int, device):
     """``(ring, device)`` of the prod backend's ``mesh``: ``(None,
     device)`` without one; else a ``WorkerMesh`` of ``M`` workers, whose
     device wins (``None`` is CUDA) and must agree with ``device`` where
     both are given. ``ring`` is the mesh when it has a process group, else
-    ``None`` (the one-process layout); the options named in ``options``
-    that the ring does not carry yet raise over one with a group."""
+    ``None`` (the one-process layout)."""
     from repro_torch.launch.mesh import WorkerMesh
 
     if mesh is None:
@@ -92,14 +91,6 @@ def _check_mesh(mesh, M: int, device, **options):
                              f"device {mine}")
     if mesh.group is None:
         return None, mine
-    held = {"streams > 1": int(options["streams"]) > 1,
-            "faults=": options["faults"] is not None,
-            "publisher=": options["publisher"] is not None,
-            "tuning=": options["tuning"] is not None}
-    for what, on in held.items():
-        if on:
-            raise not_ported(f"the prod backend's {what} over a WorkerMesh "
-                             "with a process group", "15c")
     return mesh, mine
 
 
@@ -288,13 +279,17 @@ class ProdTrainerBackend:
     group's ranks: each rank holds its ``L = M // world`` workers on the
     mesh's device, which wins over ``device`` (both given and different
     raises), and every rank runs the same program on the same sim-layout
-    batches. The ring hop, the loss mean, the skip count and the drift
+    batches (and calls ``summary()`` alike: it sums counters over the
+    ranks). The ring hop, the loss mean, the skip count and the drift
     cross ranks; the planes are the one-process step's bit for bit. Each
     rank draws the same shifts (checked at ``init``).
     ``summary()["wire_bytes_per_round"]`` is then the bytes this rank sent
-    to other ranks per gossip round. ``streams > 1``, ``faults``,
-    ``publisher`` and ``tuning`` over such a mesh raise
-    ``NotImplementedError`` (ROADMAP item 15c)."""
+    to other ranks per gossip round. Every option runs over such a mesh:
+    the stream engine's threads each cross ranks on a process group of
+    their own; the chaos controller is replicated on every rank (a donor
+    on another rank sends its rows); a publisher publishes the rank's
+    rows; a tuning record must resolve to the same schedule on every rank,
+    or every rank raises ``RuntimeError``."""
 
     kind = "prod"
 
@@ -308,9 +303,7 @@ class ProdTrainerBackend:
                  compensate: float = 0.0, faults=None,
                  max_inflight_steps=None, tuning=None,
                  wait_timeout_s: float = 600.0):
-        self.mesh, device = _check_mesh(mesh, M, device, streams=streams,
-                                        faults=faults, publisher=publisher,
-                                        tuning=tuning)
+        self.mesh, device = _check_mesh(mesh, M, device)
         # a tuning record (launch/tuner.py, DESIGN.md §16) replaces the
         # hand-picked schedule defaults; kwargs the caller moved off their
         # defaults always win, and a failed load warns and changes nothing
@@ -327,6 +320,16 @@ class ProdTrainerBackend:
                 max_inflight_steps = tuned["max_inflight_steps"]
                 overlap = True
                 self.tuning = record
+        # the schedule the run takes (the record's, where one loaded)
+        self.schedule = {"fb_ratio": int(fb_ratio),
+                         "update_delay": int(update_delay),
+                         "max_inflight_steps": max_inflight_steps,
+                         "overlap": bool(overlap)}
+        if tuning is not None and self.mesh is not None:
+            # a record that loads on one rank and not on another would run
+            # different schedules into a hang: every rank raises
+            self.mesh.agree(self.schedule if self.tuning else None,
+                            "tuning schedules")
         if int(streams) > 1 and not overlap:
             raise ValueError("streams > 1 is a property of the stage-graph "
                              "pipeline; it requires overlap=True")
@@ -380,7 +383,7 @@ class ProdTrainerBackend:
         from repro_torch.chaos import ChaosController
         return ChaosController(self._faults, self.M,
                                update_delay=self.update_delay,
-                               compensate=self.compensate)
+                               compensate=self.compensate, mesh=self.mesh)
 
     @property
     def engine(self):
@@ -405,16 +408,12 @@ class ProdTrainerBackend:
         return part.unpack(read)
 
     def _check_shift_draws(self) -> None:
-        """Every rank of a mesh must draw the same shifts: each gathers the
-        first 16 draws of a fresh generator and compares them."""
-        draws = torch.as_tensor(np.random.default_rng(0xC0FFEE).integers(
-            0, len(self._shifts), 16), dtype=torch.int64,
-            device=self.mesh.resolved_device())
-        every = self.mesh.all_gather_rows(draws).reshape(
-            self.mesh.world, -1)
-        if not bool((every == draws[None]).all()):
-            raise RuntimeError("the ranks of the mesh draw different gossip "
-                               "shifts")
+        """Every rank of a mesh must draw the same shifts: the first 16
+        draws of a fresh generator go through the mesh's agreement."""
+        draws = np.random.default_rng(0xC0FFEE).integers(
+            0, len(self._shifts), 16)
+        self.mesh.agree([list(self._shifts), draws.tolist()],
+                        "gossip shifts")
 
     def init(self, rng, params_single):
         self._steps = 0
@@ -444,15 +443,20 @@ class ProdTrainerBackend:
         """Continue at ``step`` a run whose state was restored from a
         checkpoint taken after ``step`` steps (``repro_torch.checkpoint``):
         the schedule, the FIFO's stamps and the host's gossip-shift draws
-        go on where the saved run left off. Call it after ``init``."""
-        if self.mesh is not None:
-            raise not_ported("resuming a run over a WorkerMesh with a "
-                             "process group", "15c")
+        go on where the saved run left off. Call it after ``init``. Over a
+        mesh with a process group every rank replays the same draws, and the
+        step and the next draw go through the mesh's agreement."""
         self._steps = 0
         self._shift_rng = np.random.default_rng(0xC0FFEE)
         for _ in range(int(step)):
             self._shift_rng.integers(0, len(self._shifts))
         self._steps = int(step)
+        if self.mesh is not None:
+            ahead = np.random.default_rng()
+            ahead.bit_generator.state = self._shift_rng.bit_generator.state
+            self.mesh.agree([int(step),
+                             int(ahead.integers(0, len(self._shifts)))],
+                            "resume steps and next shift draws")
 
     def step(self, state, batch, rng=None):
         # ``rng`` belongs to the TrainerBackend protocol; the ring's shift

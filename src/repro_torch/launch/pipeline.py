@@ -78,7 +78,7 @@ from repro_torch.configs.base import input_specs
 from repro_torch.convert import to_torch
 from repro_torch.core.layerview import FlatPartition, send_fractions
 from repro_torch.core.pytree import tree_map
-from repro_torch.device import not_ported, resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import WorkerMesh
 from repro_torch.launch.train import (_check_wire, _decoupled_metrics,
                                       _gossip_lanes, _local_fn,
@@ -88,7 +88,7 @@ from repro_torch.launch.train import (_check_wire, _decoupled_metrics,
                                       combine_slice_losses,
                                       forward_slice_lane, gate_update,
                                       live_loss, make_decoupled_state,
-                                      rank_rows, stamp_live,
+                                      published_rows, rank_rows, stamp_live,
                                       straggler_active_fn, worker_batch)
 from repro_torch.optim.optimizers import Optimizer
 
@@ -355,7 +355,8 @@ def _stage_bodies(part: FlatPartition, R: int, M: int, device,
                   fwd_slices: Sequence[Callable], upd: Callable,
                   mix: Callable, shifts: Sequence[int], *,
                   active_fn: Optional[Callable] = None, fused: bool = False,
-                  wire: str = "param", mesh: Optional[WorkerMesh] = None):
+                  wire: str = "param", mesh: Optional[WorkerMesh] = None,
+                  update_mesh: Optional[WorkerMesh] = None):
     """The stage bodies, over the SAME lane closures as
     ``launch.train._decoupled_worker_fn``, each the span of the monolithic
     step it replaces:
@@ -390,8 +391,10 @@ def _stage_bodies(part: FlatPartition, R: int, M: int, device,
 
     ``mesh`` (a :class:`WorkerMesh` with a process group): the stages run
     on the rank's L workers, as the monolithic step does; the update stage
-    sums the skips over the ranks and the metrics gather the losses."""
+    sums the skips over the ranks (on ``update_mesh``, default ``mesh``)
+    and the metrics gather the losses."""
     int8 = wire == "int8"
+    update_mesh = mesh if update_mesh is None else update_mesh
     phi = torch.from_numpy(send_fractions(part.num_groups)).to(device)
     loc = _local_fn(mesh)
 
@@ -418,8 +421,9 @@ def _stage_bodies(part: FlatPartition, R: int, M: int, device,
         active = loc(active_fn(step_idx)) if active_fn is not None else None
         out = upd(write, opt_state, grads, fifo, step_idx, active=active,
                   theta=theta)
-        if mesh is not None:
-            out = out[:4] + (mesh.all_reduce_sum_(out[4]),) + tuple(out[5:])
+        if update_mesh is not None:
+            out = out[:4] + (update_mesh.all_reduce_sum_(out[4]),) \
+                + tuple(out[5:])
         if alive is None:
             return out
         return (gate_update(out[0], None if fused else write, loc(alive)),) \
@@ -771,22 +775,31 @@ def _build_engine(part: FlatPartition, loss_fn: Callable,
     """The engine over the decoupled lanes of ``loss_fn``: a
     :class:`PipelineEngine`, or with ``streams > 1`` a
     :class:`repro_torch.launch.streams.StreamEngine` (its gossip stage split
-    per layer group)."""
+    per layer group). The engine's ``aux_mesh`` is the mesh that work
+    submitted after a step crosses ranks on (the drift).
+
+    Over a ``mesh`` with a process group the stream engine's update thread
+    (the skip count) and gossip thread (the per-group hops, the loss
+    gather, the drift) each cross ranks on a process group of their own
+    (:meth:`WorkerMesh.role_meshes`, made here on every rank in the same
+    order); the forward threads cross none. One thread issues a role's
+    operations in its FIFO order, the same on every rank: the per-group
+    mixes in the plane's group order, whatever order the groups' updates
+    come in."""
+    hop_mesh = upd_mesh = mesh
     if mesh is not None and streams > 1:
-        # the per-group gossip stages run on threads of their own, so the
-        # ranks' hops would not meet in one order
-        raise not_ported("streams > 1 over a WorkerMesh with a process "
-                         "group", "15c")
+        roles = mesh.role_meshes(("update", "gossip"))
+        hop_mesh, upd_mesh = roles["gossip"], roles["update"]
     fwd_slices = [forward_slice_lane(loss_fn, fb_ratio=R, slice_idx=r)
                   for r in range(R)]
     upd = backward_update_lane(optimizer, schedule, update_delay=D,
                                apply=not use_pallas, compensate=compensate)
     mix, fused = _gossip_lanes(part, M, shifts, use_pallas=use_pallas,
-                               wire=wire, mesh=mesh)
+                               wire=wire, mesh=hop_mesh)
     bodies = _stage_bodies(part, R, M, device, fwd_slices, upd,
                            mix if fused is None else fused, shifts,
                            active_fn=active_fn, fused=use_pallas, wire=wire,
-                           mesh=mesh)
+                           mesh=hop_mesh, update_mesh=upd_mesh)
     common = dict(R=R, D=D, M=M, stages=_make_stages(bodies), device=device,
                   timeline=timeline, fused=use_pallas, wire=wire,
                   compensate=compensate, abstract_args=abstract_args,
@@ -795,11 +808,14 @@ def _build_engine(part: FlatPartition, loss_fn: Callable,
         common["max_inflight_steps"] = int(max_inflight_steps)
     if streams > 1:
         from repro_torch.launch.streams import StreamEngine
-        return StreamEngine(
+        engine = StreamEngine(
             group_names=list(part.group_sizes),
             group_stages=_make_group_stages(bodies, part.group_sizes),
             n_streams=streams, wait_timeout_s=wait_timeout_s, **common)
-    return PipelineEngine(**common)
+    else:
+        engine = PipelineEngine(**common)
+    engine.aux_mesh = hop_mesh
+    return engine
 
 
 def make_layup_decoupled_pipeline(model, mesh, optimizer: Optimizer,
@@ -902,9 +918,10 @@ def make_pipeline_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
     gossip stage mixes into it), so the publish is ``stable=False``: the
     publisher copies the plane on the device, on the engine's stream.
 
-    ``mesh`` (a :class:`WorkerMesh` with a process group, ``streams=1``)
-    runs the stages on the rank's L workers on the mesh's device, as the
-    monolithic trainer does.
+    ``mesh`` (a :class:`WorkerMesh` with a process group) runs the stages
+    on the rank's L workers on the mesh's device, as the monolithic trainer
+    does; the stream engine's threads cross ranks on groups of their own
+    (:func:`_build_engine`).
 
     Returns ``(init_fn, step_fn, shifts, box)``: ``box["engine"]`` holds
     the engine and ``box["part"]`` the FlatPartition once ``init_fn`` has
@@ -971,7 +988,7 @@ def make_pipeline_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
         if measure_drift:
             from repro_torch.core.api import disagreement
             drift = torch.no_grad()(lambda read, w: disagreement(
-                read, w, mesh=ring))
+                read, w, mesh=eng.aux_mesh))
             if streams > 1:
                 # on the gossip stream after the step's clock
                 metrics["disagreement"] = eng.submit_aux(
@@ -983,7 +1000,7 @@ def make_pipeline_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
             publisher.publish(state["read"], state["versions"], state["w"],
                               int(step_idx),
                               drift=metrics.get("disagreement"),
-                              stable=False)
+                              stable=False, rows=published_rows(ring))
         return state, metrics
 
     return init_fn, step_fn, shifts, box

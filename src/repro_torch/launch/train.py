@@ -76,7 +76,7 @@ from repro_torch.core.layerview import (FlatPartition, LayerPartition,
                                         version_metrics)
 from repro_torch.core.pytree import (tree_flatten, tree_leaves, tree_map,
                                      tree_unflatten)
-from repro_torch.device import not_ported, resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (dequant_mix_ref, gossip_mix_ref,
                                      quantize_plane_ref)
@@ -880,6 +880,12 @@ def _ring_mesh(mesh: Optional[WorkerMesh], M: int) -> Optional[WorkerMesh]:
     return mesh if mesh.group is not None else None
 
 
+def published_rows(mesh: Optional[WorkerMesh]) -> Optional[range]:
+    """The global rows a rank's published plane holds (``None``: all M,
+    the one-process plane)."""
+    return None if mesh is None or mesh.group is None else mesh.rows
+
+
 def rank_rows(batch, mesh: Optional[WorkerMesh]):
     """The rank's rows of a batch in the worker layout (leading ``(M,)``
     axis on every leaf; views); the batch itself without a process
@@ -920,7 +926,9 @@ def make_decoupled_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
     ``publisher`` (a :class:`repro_torch.serving.PlanePublisher`) receives
     the read plane, version clocks, push-sum weights and drift after every
     step. The step consumes its state in place, so the publish is
-    ``stable=False``: the publisher copies the plane on the device.
+    ``stable=False``: the publisher copies the plane on the device. On a
+    mesh with a process group a rank publishes its rows, and the snapshot
+    names them (``rows``).
 
     Returns ``(init_fn, step_fn, shifts, box)`` as the reference does:
     ``init_fn(rng, params_single) -> state``, ``step_fn(state, batch,
@@ -981,7 +989,7 @@ def make_decoupled_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
             publisher.publish(new_state["read"], new_state["versions"],
                               new_state["w"], int(step_idx),
                               drift=metrics.get("disagreement"),
-                              stable=False)
+                              stable=False, rows=published_rows(ring))
         return new_state, metrics
 
     return init_fn, step_fn, shifts, part_box
@@ -1055,6 +1063,15 @@ def worker_batch(batch, M: int):
     return tree_map(split, batch)
 
 
+def _rank_batch_rows(tree, ring: Optional[WorkerMesh]):
+    """The rank's contiguous share of each leaf's batch dim
+    (:func:`_batch_dim`); the tree itself without ``ring``."""
+    if ring is None:
+        return tree
+    return tree_map(lambda x: x[ring.rank],
+                    worker_batch(tree, ring.world))
+
+
 def _stacked_meta(tree, M: int):
     """A meta tree with a leading worker axis of M (nothing allocated)."""
     return tree_map(lambda t: t.expand((M,) + tuple(t.shape)), tree)
@@ -1092,10 +1109,7 @@ def make_ddp_train_step(model, mesh, optimizer: Optimizer,
     upd = backward_update_lane(optimizer, schedule)
 
     def step(params, opt_state, batch, step_idx):
-        batch = to_torch(batch, device)
-        if ring is not None:
-            batch = tree_map(lambda x: x[ring.rank],
-                             worker_batch(batch, ring.world))
+        batch = _rank_batch_rows(to_torch(batch, device), ring)
         with torch.no_grad():
             loss, grads = fwd(params, batch)
             if ring is not None:
@@ -1262,42 +1276,69 @@ def make_layup_decoupled_train_step(model, mesh, optimizer: Optimizer,
                     init_state=init_state)
 
 
-def _no_ring(mesh: WorkerMesh, what: str) -> None:
-    """The guard of what the multi-process ring does not carry yet."""
-    if mesh.group is not None:
-        raise not_ported(f"{what} over a WorkerMesh with a process group",
-                         "15c")
+def _serve_ring(mesh: WorkerMesh, B: int) -> Optional[WorkerMesh]:
+    """The mesh whose ranks split a serving batch of ``B`` rows: a mesh
+    with a process group when ``B`` divides over its ranks; else ``None``,
+    and every rank runs the whole batch (the reference's replicated batch,
+    ``db = None``)."""
+    if mesh.group is None or B % mesh.world:
+        return None
+    return mesh
 
 
 def make_prefill_step(model, mesh, shape: ShapeConfig) -> ProdStep:
     """``fn(params, batch) -> (cache, last_logits)``: ``model.prefill_fn``
-    on the batch (the flash forward on the card)."""
+    on the batch (the flash forward on the card).
+
+    On a mesh with a process group every rank holds the params; the
+    batch's rows are split over the ranks when ``global_batch`` divides by
+    their number (rank r takes the contiguous share r), else every rank
+    runs the whole batch. The cache stays the rank's (its rows); the
+    logits are gathered in row order, the global batch's on every rank."""
     _, device = _mesh_workers(mesh)
-    _no_ring(mesh, "make_prefill_step")
+    ring = _serve_ring(mesh, shape.global_batch)
 
     def step(params, batch):
-        return model.prefill_fn(params, to_torch(batch, device))
+        batch = _rank_batch_rows(to_torch(batch, device), ring)
+        cache, logits = model.prefill_fn(params, batch)
+        if ring is not None:
+            logits = ring.all_gather_rows(logits)
+        return cache, logits
 
     abstract = (tree_map(_spec, model.abstract_params()),
                 input_specs(model.cfg, shape))
-    return ProdStep(step, abstract, "prefill")
+    return ProdStep(step, abstract,
+                    "prefill" if ring is None else
+                    f"prefill (rows over {ring.world} ranks)")
 
 
 def make_decode_step(model, mesh, shape: ShapeConfig) -> ProdStep:
     """``fn(params, cache, token, position) -> (logits, cache)``:
     ``model.decode_fn``, the cache written in place (the reference donates
-    it). The cache's abstract form is ``model.cache_specs(B, seq_len)``."""
+    it). The cache's abstract form is ``model.cache_specs(B, seq_len)``.
+
+    On a mesh with a process group, as :func:`make_prefill_step`: the
+    token and position rows are split over the ranks when ``B`` divides by
+    their number, and the cache holds the rank's ``B / world`` rows (the
+    one its prefill made); the logits are gathered in row order."""
     _mesh_workers(mesh)
-    _no_ring(mesh, "make_decode_step")
     B = shape.global_batch
+    ring = _serve_ring(mesh, B)
+    B_rank = B if ring is None else B // ring.world
 
     def step(params, cache, token, position):
-        return model.decode_fn(params, cache, token, position)
+        token, position = _rank_batch_rows((token, position), ring)
+        logits, cache = model.decode_fn(params, cache, token, position)
+        if ring is not None:
+            logits = ring.all_gather_rows(logits)
+        return logits, cache
 
     abstract = (tree_map(_spec, model.abstract_params()),
-                model.cache_specs(B, shape.seq_len),
+                model.cache_specs(B_rank, shape.seq_len),
                 ((B, 1), torch.int32), ((B,), torch.int32))
-    return ProdStep(step, abstract, "decode")
+    return ProdStep(step, abstract,
+                    "decode" if ring is None else
+                    f"decode (rows over {ring.world} ranks)")
 
 
 # ---------------------------------------------------------------------------
@@ -1349,18 +1390,14 @@ def make_step(model, mesh, shape: ShapeConfig, *, algo: str = "layup",
     nothing. The default optimizer is momentum 0.9 with its state in the
     model's dtype, the default schedule a constant 0.1.
 
-    On a mesh with a process group the three training routes (and
-    ``overlap=True``) run over the ranks; ``streams > 1``, ``faults``,
-    ``tuning``, prefill and decode raise ``NotImplementedError`` (ROADMAP
-    item 15c)."""
+    On a mesh with a process group every route and option runs over the
+    ranks: the training routes with ``overlap``, ``streams``, ``faults``
+    (the controller replicated on every rank) and ``tuning`` (the resolved
+    schedule must agree over the ranks, else every rank raises
+    ``RuntimeError``), and prefill and decode on the rank's share of the
+    batch."""
     from repro_torch.optim import constant, momentum
     del flat
-    if isinstance(mesh, WorkerMesh) and mesh.group is not None:
-        for what, on in (("streams > 1", streams > 1),
-                         ("faults=", faults is not None),
-                         ("tuning=", tuning is not None)):
-            if on:
-                _no_ring(mesh, f"make_step({what})")
     optimizer = optimizer or momentum(0.9, state_dtype=model.cfg.dtype)
     schedule = schedule or constant(0.1)
     if tuning is not None:
@@ -1374,6 +1411,10 @@ def make_step(model, mesh, shape: ShapeConfig, *, algo: str = "layup",
             update_delay = tuned["update_delay"]
             max_inflight_steps = tuned["max_inflight_steps"]
             overlap = True
+        if isinstance(mesh, WorkerMesh):
+            mesh.agree(None if record is None else
+                       [int(fb_ratio), int(update_delay), max_inflight_steps,
+                        bool(overlap)], "tuning schedules")
     decoupled = fb_ratio > 1 or update_delay > 0 or overlap
     membership = faults is not None
     if streams > 1 and not overlap:
@@ -1414,7 +1455,7 @@ def make_step(model, mesh, shape: ShapeConfig, *, algo: str = "layup",
                 from repro_torch.chaos import ChaosController
                 step.chaos = ChaosController(
                     faults, mesh.workers, update_delay=update_delay,
-                    compensate=compensate)
+                    compensate=compensate, mesh=mesh)
                 engine = getattr(step, "engine", None)
                 step.chaos.attach(engine=engine,
                                   board=getattr(engine, "board", None))

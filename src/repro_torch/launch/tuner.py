@@ -26,8 +26,8 @@ defaults.
   :class:`TuningRecord`): copied from the JAX package, value for value,
   and the JSON record format with them: a record written by either
   package loads in the other. The key is not interchangeable:
-  :func:`mesh_descriptor` names the device and the worker count M, since
-  the port has no mesh.
+  :func:`mesh_descriptor` names the device, the worker count M and,
+  over a ``WorkerMesh`` with a process group, the world of ranks.
 """
 from __future__ import annotations
 
@@ -382,17 +382,20 @@ def score_candidate(cand: Candidate, stage_times: Dict[str, float], *,
 # ---------------------------------------------------------------------------
 
 
-def mesh_descriptor(device, M: int) -> str:
+def mesh_descriptor(device, M: int, world: int = 1) -> str:
     """Key component naming where the workers run: the device (its type and,
-    on CUDA, the card's name) and the worker count, e.g.
-    ``cuda:NVIDIA H100 80GB HBM3:M4``. The port stacks its M workers on one
-    device and has no mesh, so its keys are not interchangeable with the
-    JAX package's (``data4xmodel1``); the JSON record format is."""
+    on CUDA, the card's name), the worker count and, for M workers spread
+    over ``world > 1`` ranks of a process group (a ``WorkerMesh``'s
+    ``world``), the world, e.g. ``cuda:NVIDIA H100 80GB HBM3:M4`` and
+    ``cuda:NVIDIA H100 80GB HBM3:M4:world2``: a schedule tuned on one
+    process is not taken for a ranked one. The keys are not interchangeable
+    with the JAX package's (``data4xmodel1``); the JSON record format is."""
     dev = torch.device(device)
     name = dev.type
     if dev.type == "cuda":
         name = f"cuda:{torch.cuda.get_device_name(dev)}"
-    return f"{name}:M{int(M)}"
+    ranks = f":world{int(world)}" if int(world) > 1 else ""
+    return f"{name}:M{int(M)}{ranks}"
 
 
 def problem_descriptor(part) -> str:

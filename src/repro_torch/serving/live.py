@@ -18,6 +18,12 @@ snapshot. The swap itself is a single reference assignment performed
 between decode steps (``poll`` runs at step boundaries): a decode step
 either sees the whole old tree or the whole new one.
 
+**Over ranks.** Behind a trainer over a ``WorkerMesh`` with a process
+group, ``LiveServer(worker=j, mesh=mesh)`` serves global worker ``j`` on
+the rank that owns it, from its local row of the rank's published plane;
+on another rank the constructor raises ``ValueError``. No row crosses
+ranks for serving.
+
 **Streams.** Before it reads a snapshot the server's current CUDA stream
 waits on the snapshot's event (the trainer's copies). The copies were made
 on the trainer's stream; when the server reads them from another stream it
@@ -57,6 +63,8 @@ class LiveServer:
 
     ``worker`` selects which of the trainer's M per-worker replicas
     serves (the replicas converge through gossip; worker 0 by default).
+    ``mesh`` (the trainer's ``WorkerMesh``): with a process group the
+    worker must be one of this rank's.
     ``poll`` checks the publisher once and swaps if the policy accepts;
     ``step`` = admit → one decode step → poll, the serving inner loop.
     """
@@ -64,7 +72,9 @@ class LiveServer:
     def __init__(self, loop, part, publisher: PlanePublisher,
                  policy: Optional[SwapPolicy] = None,
                  admission: Optional[AdmissionQueue] = None,
-                 worker: int = 0):
+                 worker: int = 0, mesh=None):
+        if mesh is not None and mesh.group is not None:
+            mesh.local_index(worker)  # raises on another rank's worker
         self.loop = loop
         self.part = part
         self.publisher = publisher
@@ -83,7 +93,7 @@ class LiveServer:
         buffers in use on this stream."""
         if snap is not None:
             snap_ready(snap)
-        w = self.worker
+        w = self.worker if snap is None else snap.row_of(self.worker)
         row = {}
         with torch.no_grad():
             for g, b in plane.items():

@@ -18,6 +18,11 @@ engine never writes its read plane and publishes zero-copy). ``versions``
 and ``w`` are always cloned. ``stable=True`` keeps the handles as they are,
 for a producer that never writes them again.
 
+**Over ranks.** A trainer over a ``WorkerMesh`` with a process group
+publishes on each rank that rank's ``(L, group_size)`` rows, and the
+snapshot names the global rows it holds (``rows``); ``versions`` and ``w``
+are over all M, as the state holds them.
+
 **No host wait.** The clones are queued on the trainer's stream; the
 snapshot carries a CUDA event recorded after them (and after the drift
 metric, computed earlier on the same stream), and consumers make their
@@ -39,7 +44,8 @@ class PlaneSnapshot:
     """One published read plane: buffers + provenance, immutable.
 
     ``plane`` maps plane-buffer name → stacked ``(M, group_size)`` tensor
-    (the FlatPartition layout); ``versions`` is the ``(M, G)`` per-group
+    (the FlatPartition layout), or a rank's ``(L, group_size)`` rows, the
+    global workers ``rows`` (``None``: all M); ``versions`` is the ``(M, G)`` per-group
     version clock and ``step`` the training step that produced the plane.
     ``drift`` is the figA1 disagreement metric when the producing backend
     measures it (``measure_drift=True``), else None. On a CUDA device
@@ -56,6 +62,17 @@ class PlaneSnapshot:
     published_at: float = 0.0     # host monotonic time of publish
     event: Optional[Any] = None   # torch.cuda.Event after the copies
     stream: Optional[Any] = None  # the CUDA stream the copies were made on
+    rows: Optional[range] = None  # global rows of ``plane`` (None: all M)
+
+    def row_of(self, worker: int) -> int:
+        """Global ``worker``'s row in ``plane``; ``ValueError`` when this
+        snapshot does not hold it (another rank's worker)."""
+        if self.rows is None:
+            return int(worker)
+        if int(worker) not in self.rows:
+            raise ValueError(f"worker {worker} is not in this snapshot's "
+                             f"rows {self.rows.start}..{self.rows.stop - 1}")
+        return int(worker) - self.rows.start
 
 
 @dataclass
@@ -89,9 +106,11 @@ class PlanePublisher:
         self._calls = 0
 
     def publish(self, plane: Dict[str, Any], versions, w, step: int, *,
-                drift=None, stable: bool = True) -> Optional[PlaneSnapshot]:
+                drift=None, stable: bool = True,
+                rows: Optional[range] = None) -> Optional[PlaneSnapshot]:
         """Publish the current read plane; returns the snapshot, or None
-        when skipped by the ``every`` cadence.
+        when skipped by the ``every`` cadence. ``rows``: the global workers
+        the plane's rows are (a rank's; ``None``: all M).
 
         ``stable=True`` promises the plane buffers are never written by a
         later training step; with ``stable=False`` each group buffer is
@@ -118,7 +137,9 @@ class PlanePublisher:
                                  versions=snap_versions, w=snap_w,
                                  drift=drift,
                                  published_at=time.monotonic(),
-                                 event=event, stream=stream)
+                                 event=event, stream=stream,
+                                 rows=None if rows is None else range(
+                                     rows.start, rows.stop))
             self._latest = snap
             self.stats.published += 1
             self._cond.notify_all()

@@ -1394,6 +1394,77 @@ def test_ring_hop_over_nccl(cuda_device, tmp_path):
         assert got["transport"] == "nccl" and got["staging_s"] == 0.0
 
 
+def _ring_engine_equals_stacked(ranks, name):
+    import _torch_ring_worker as W
+
+    want = W.run_option(name, None, "cuda:0")
+    job = ("cuda_option", name)
+    for g, v in want["read"].items():
+        got = torch.cat([r[job]["read"][g] for r in ranks])
+        assert torch.equal(got, v), (name, g)
+    for r in ranks:
+        assert torch.equal(r[job]["w"], want["w"])
+        assert torch.equal(r[job]["versions"], want["versions"])
+        for k in ("loss", "weight_sum", "nonfinite_skips"):
+            assert (r[job]["history"][k] == want["history"][k]).all(), k
+    return [r[job] for r in ranks]
+
+
+@pytest.mark.gpu
+def test_ring_stream_engine_two_gloo_ranks_share_the_card(cuda_device,
+                                                          tmp_path):
+    """The stream engine (``streams=3``, int8 wire; ``streams=2``, param
+    wire) over two gloo ranks on ``cuda:0``: its threads' hops, loss
+    gathers and skip sums on groups of their own, staged through pinned
+    host buffers on the stages' CUDA streams; the read plane, ``w``,
+    ``versions`` and the histories bit for bit against the stacked engine
+    (MLP, M=4, R=2, D=1)."""
+    import _torch_ring_worker as W
+
+    names = ("streams3_int8", "streams2")
+    ranks, _ = W.spawn(2, str(tmp_path), [("cuda_option", n) for n in names])
+    for n in names:
+        for got in _ring_engine_equals_stacked(ranks, n):
+            assert got["summary"]["staging_s"] > 0.0
+
+
+@pytest.mark.gpu
+def test_ring_row_copy_of_staged_cuda_rows(cuda_device, tmp_path):
+    """``copy_row_`` between two gloo ranks on ``cuda:0`` (every pair of
+    rows, across ranks staged) and ``gather_rows_to`` rank 0, bit for
+    bit."""
+    import _torch_ring_worker as W
+
+    ranks, _ = W.spawn(2, str(tmp_path), [("cuda_rows",)])
+    full = W.hop_full(W.M, "float32")
+    for rank, res in enumerate(ranks):
+        got = res[("cuda_rows",)]
+        assert got["transport"] == "gloo+pinned-host-staging"
+        for (src, dst), rows in got["copies"].items():
+            want = full.clone()
+            want[dst] = full[src]
+            assert torch.equal(rows, want[2 * rank:2 * rank + 2]), (src, dst)
+        if rank == 0:
+            assert torch.equal(got["gather"], full)
+        else:
+            assert got["gather"] is None
+    assert ranks[0][("cuda_rows",)]["staging_s"] > 0.0
+
+
+@pytest.mark.gpu
+def test_ring_stream_engine_over_nccl(cuda_device, tmp_path):
+    """The stream engine over two nccl ranks, one card each (each thread's
+    collectives on a communicator of its own). Needs two cards."""
+    import _torch_ring_worker as W
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("an nccl ring needs two cards")
+    ranks, _ = W.spawn(2, str(tmp_path), [("cuda_option", "streams3_int8")],
+                       backend="nccl")
+    for got in _ring_engine_equals_stacked(ranks, "streams3_int8"):
+        assert got["summary"]["staging_s"] == 0.0
+
+
 @pytest.mark.gpu
 def test_gloo_point_to_point_does_not_take_cuda_tensors(cuda_device,
                                                        tmp_path):

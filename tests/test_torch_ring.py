@@ -23,9 +23,10 @@ torch thread too.
 * (d) The reduced dense LM at M=4 over world 2 (fused, int8 wire, λ=0.5)
   against the JAX package's ``ProdTrainerBackend`` on a (4, 1) CPU host
   mesh, at ``test_torch_train_multiworker.py``'s tolerances.
-* (e) What the ring does not carry yet raises ``NotImplementedError``
-  naming item 15c; an uneven split and an ``nccl`` group on the CPU raise
-  ``ValueError``.
+* (e) An uneven split and an ``nccl`` group on the CPU raise
+  ``ValueError``; the backend's mesh arguments are checked. The options
+  that run over the ring (streams, faults, publisher, tuning, prefill and
+  decode, checkpoints) are held in ``tests/test_torch_ring_options.py``.
 """
 import pytest
 
@@ -37,7 +38,6 @@ if not dist.is_available() or not dist.is_gloo_available():
 import numpy as np  # noqa: E402
 
 import _torch_ring_worker as W  # noqa: E402
-from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.core.pytree import tree_leaves  # noqa: E402
 from repro_torch.launch.mesh import WorkerMesh  # noqa: E402
 
@@ -238,7 +238,7 @@ def test_ring_matches_jax_prod_backend(jax_ring):
 
 
 # ---------------------------------------------------------------------------
-# (e) the guards and the mesh's checks
+# (e) the mesh's checks
 # ---------------------------------------------------------------------------
 
 
@@ -260,7 +260,7 @@ def test_mesh_checks_over_two_ranks(world2):
 
 @pytest.fixture(scope="module")
 def solo_group(tmp_path_factory):
-    """A one-rank gloo group in this process, for the guards."""
+    """A one-rank gloo group in this process, for the argument checks."""
     if dist.is_initialized():
         pytest.skip("a process group is already initialised here")
     store = tmp_path_factory.mktemp("solo") / "store"
@@ -270,78 +270,6 @@ def solo_group(tmp_path_factory):
         yield dist.group.WORLD
     finally:
         dist.destroy_process_group()
-
-
-def _backend(group, **kw):
-    from repro_torch.core.backend import make_backend
-    from repro_torch.optim import constant, momentum
-
-    return make_backend("prod", "layup", M=2, loss_fn=W.mlp_loss,
-                        optimizer=momentum(0.9), schedule=constant(0.1),
-                        mesh=WorkerMesh(2, "cpu", group), device="cpu", **kw)
-
-
-def _step(group, kind="train", **kw):
-    from repro_torch.launch.train import make_step
-    from repro_torch.models import build_model
-
-    return make_step(build_model(W.lm_cfg()), WorkerMesh(2, "cpu", group),
-                     ShapeConfig("t", 16, 4, kind), **kw)
-
-
-def _engine(group, tmp):
-    from repro_torch.launch.pipeline import make_layup_decoupled_pipeline
-    from repro_torch.models import build_model
-    from repro_torch.optim import constant, momentum
-
-    make_layup_decoupled_pipeline(
-        build_model(W.lm_cfg()), WorkerMesh(2, "cpu", group), momentum(0.9),
-        constant(0.1), ShapeConfig("t", 16, 4, "train"), streams=2)
-
-
-def _mesh_state():
-    """A rank's decoupled state on a two-rank mesh: one of two rows."""
-    return {"read": {"g": torch.zeros(1, 3)}, "w": torch.full((2,), 0.5)}
-
-
-def _save(group, tmp):
-    from repro_torch.checkpoint import save_checkpoint
-    save_checkpoint(str(tmp), 0, _mesh_state())
-
-
-def _restore(group, tmp):
-    from repro_torch.checkpoint import restore_checkpoint
-    restore_checkpoint(str(tmp), 0, _mesh_state())
-
-
-def _resume(group, tmp):
-    be = _backend(group)
-    be.init(None, W.problem("mlp")[1])
-    be.resume(1)
-
-
-GUARDS = {
-    "backend_streams": lambda g, t: _backend(g, overlap=True, streams=2),
-    "backend_faults": lambda g, t: _backend(g, faults=""),
-    "backend_publisher": lambda g, t: _backend(g, publisher=object()),
-    "backend_tuning": lambda g, t: _backend(g, tuning=str(t / "r.json")),
-    "backend_resume": _resume,
-    "make_step_streams": lambda g, t: _step(g, fb_ratio=2, overlap=True,
-                                            streams=2),
-    "stream_engine": _engine,
-    "make_step_faults": lambda g, t: _step(g, fb_ratio=2, faults=""),
-    "make_step_tuning": lambda g, t: _step(g, tuning=str(t / "r.json")),
-    "make_prefill_step": lambda g, t: _step(g, kind="prefill"),
-    "make_decode_step": lambda g, t: _step(g, kind="decode"),
-    "checkpoint_save": _save,
-    "checkpoint_restore": _restore,
-}
-
-
-@pytest.mark.parametrize("what", list(GUARDS))
-def test_guard_names_15c(solo_group, tmp_path, what):
-    with pytest.raises(NotImplementedError, match="15c"):
-        GUARDS[what](solo_group, tmp_path)
 
 
 def test_backend_mesh_arguments(solo_group):

@@ -140,13 +140,13 @@ def test_default_device_needs_cuda():
 # (tuning) cases left, before item 15a ported ``flat=False`` and before
 # item 15b ported ``mesh=``
 @pytest.mark.parametrize("kw,item", [
-    pytest.param(dict(overlap=True, streams=2), "item 15c",
-                 id="kw8-item 15"),
+    pytest.param(dict(overlap=True, streams=2), "ring", id="kw8-item 15"),
     pytest.param(dict(flat=False), None, id="kw9-item 15")])
 def test_unported_options_name_their_roadmap_item(kw, item, tmp_path):
     """``mesh=`` (the multi-GPU ring, item 15b) takes a ``WorkerMesh``
     (anything else is a ``TypeError``); over a process group (here one
-    gloo rank) the stream engine still names its item, 15c.
+    gloo rank) the stream engine (item 15c) gives the one-process run's
+    numbers bit for bit.
     ``flat=False`` trains on the flat plane, the port's one state layout:
     the numbers of ``flat=True`` bit for bit (the reference's legacy state
     gives its flat plane's), with the options the reference keeps to the
@@ -164,11 +164,12 @@ def test_unported_options_name_their_roadmap_item(kw, item, tmp_path):
         dist.init_process_group("gloo", rank=0, world_size=1,
                                 init_method=f"file://{tmp_path / 'store'}")
         try:
-            with pytest.raises(NotImplementedError, match=item):
-                make_backend("prod", "layup", M=2, **common, **kw,
-                             mesh=WorkerMesh(2, "cpu", dist.group.WORLD))
+            got = run_port(2, 2, 1, steps=3, **kw,
+                           mesh=WorkerMesh(2, "cpu", dist.group.WORLD))
         finally:
             dist.destroy_process_group()
+        assert got[3].mesh is not None
+        assert_runs_equal(got, run_port(2, 2, 1, steps=3, **kw))
         return
     for opts in (dict(), dict(use_pallas=True, wire="int8",
                               compensate=0.5, faults="")):
