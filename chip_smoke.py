@@ -70,7 +70,17 @@ not 0:
    (random weights from a seed), 6 steps. Kernel launch counts are zeroed
    just before and read just after: ``gossip_mix`` must run once per layer
    group per step, the flash forward once per layer, forward slice and
-   worker, and each backward kernel once per layer and worker.
+   worker and once more per layer and worker for the backward slice's
+   recompute (every block runs through ``transformer.remat_block``), and
+   each backward kernel once per layer and worker (``flash_want``).
+   train_remat: the same entry points priced with and without that
+   recompute, ``remat_block`` patched to the identity for the unwrapped
+   runs, alternated (remat, unwrapped, unwrapped, remat; the first run is
+   train's own, the others 3 steps on its first batches): each run's peak
+   over start, the backward slice's peak, median step, one more step's
+   device time under torch.profiler with the idle share, and flash
+   forward launches; every run's losses and Σw bit-identical to train's,
+   and the later runs' read-plane rows to each other.
 4a. train_pipeline, train_streams: the train phase's run (same model,
    weights, batches and options) through the stage-graph pipeline engine
    (``overlap=True``) and through the stream engine (``overlap=True,
@@ -223,9 +233,12 @@ not 0:
    forward slices on their dim 1) and train_encdec (Whisper large-v3
    whole, M=2, 1500 audio frames and 256 tokens a sequence). Each: flash
    launches equal to ``attention_calls`` (96 a forward slice and worker on
-   Whisper: encoder, decoder and cross-attention), ``gossip_mix`` once per
+   Whisper: encoder, decoder and cross-attention) through ``flash_want``
+   (the backward slice's recompute included), ``gossip_mix`` once per
    group per step, the first loss within 0.5 of ``init_loss``, ce and aux
-   of one ``loss_fn`` call on worker 0's read plane. serve_hybrid and
+   of one ``loss_fn`` call on worker 0's read plane; after train_encdec,
+   train_encdec_remat prices the recompute as train_remat does, with one
+   unwrapped run against train_encdec's own. serve_hybrid and
    serve_vlm: ServeLoop (8 slots x 256), ``prefill_fn`` against
    prefill-by-decode in float32 (the VLM's prefill on the tokens'
    embeddings with ``arange`` on the three axes; the hybrid at capacity
@@ -1438,13 +1451,27 @@ def family_batches(torch, cfg, steps, seed, *, workers):
 
 def attention_calls(cfg) -> int:
     """``layers.attention`` calls in one forward of ``cfg``'s model (each a
-    flash forward on the card, and in the backward slice a dq and a dk/dv
-    launch): one an attention layer (none in an SSM decoder, one a
-    super-block's attention sub-layer in the hybrid); the encoder-decoder's
-    encoder layers, decoder layers and their cross-attention."""
+    flash forward on the card; in the backward slice the recompute of its
+    block, ``remat_block``, runs the forward again before a dq and a dk/dv
+    launch: ``flash_want``): one an attention layer (none in an SSM
+    decoder, one a super-block's attention sub-layer in the hybrid); the
+    encoder-decoder's encoder layers, decoder layers and their
+    cross-attention."""
     if cfg.enc_dec:
         return cfg.enc_layers + 2 * cfg.num_layers
     return sum(cfg.is_attn_layer(l) for l in range(cfg.num_layers))
+
+
+def flash_want(calls: int, passes: int = R, backward: int = 1,
+               remat: bool = True) -> dict:
+    """The flash launches of ``passes`` forward passes of ``calls``
+    attention calls each (summed over steps and workers), ``backward`` of
+    them with a backward: such a pass rematerializes its blocks
+    (``transformer.remat_block``), so it runs each forward (#2) once more
+    before its dq and dk/dv (#3); ``remat=False``: the blocks patched to
+    the identity, no recompute."""
+    return {"fwd": calls * (passes + (backward if remat else 0)),
+            "dq": calls * backward, "dkv": calls * backward}
 
 
 def init_loss(cfg) -> float:
@@ -1912,8 +1939,7 @@ def phase_train_chaos(torch):
           f"{CHAOS_STEPS} x {n_groups}")
     per_pass = CHAOS_STEPS * M * cfg.num_layers
     flash = {k: launches[f"flash_{k}"] for k in ("fwd", "dq", "dkv")}
-    check(flash == {"fwd": per_pass * R, "dq": per_pass, "dkv": per_pass},
-          f"train_chaos flash launches {flash}")
+    check(flash == flash_want(per_pass), f"train_chaos flash launches {flash}")
     emit("train_chaos", **res)
     del state
     torch.cuda.empty_cache()
@@ -2003,8 +2029,7 @@ def phase_train(torch, profile, name: str = "train", cfg=None,
     n_groups = len(backend.part.group_sizes)
     check(launches == TRAIN_STEPS * n_groups,
           f"gossip_mix launches {launches} != {TRAIN_STEPS} x {n_groups}")
-    per_pass = TRAIN_STEPS * workers * attention_calls(cfg)
-    want = {"fwd": per_pass * R, "dq": per_pass, "dkv": per_pass}
+    want = flash_want(TRAIN_STEPS * workers * attention_calls(cfg))
     check(flash == want, f"flash launches {flash} != {want}")
     check(every["rmsnorm"] == every["ssd_scan"] == 0,
           f"{name}: norm or SSD kernel launched on the step {every}")
@@ -2043,6 +2068,133 @@ def phase_train(torch, profile, name: str = "train", cfg=None,
     del out, read, params
     torch.cuda.empty_cache()
     return res, backend
+
+
+REMAT_STEPS = 3  # steps a run of the remat alternation
+# the runs after the phase's own (remat) run: A, B, B, A with the first A
+# the train phase's
+REMAT_ORDER = ("unwrapped", "unwrapped", "remat")
+REMAT_KEYS = ("loss", "weight_sum")
+
+
+def backward_slice_peak(torch, model, backend, state, batch) -> int:
+    """The device bytes one backward slice takes above what is allocated
+    before it: worker 0's forward slice 0 with its backward
+    (``forward_slice_lane``) on its read plane and first batch, the
+    gradients kept until the peak is read."""
+    from repro_torch.launch.train import forward_slice_lane
+
+    params = backend.part.unpack({k: v[0] for k, v in state["read"].items()})
+    lane = forward_slice_lane(model.loss_fn, fb_ratio=R)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = lane(params, {k: v[0] for k, v in batch.items()})
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out, params
+    return peak
+
+
+def remat_readings(model, backend, state, batches) -> dict:
+    """After a counted window: the backward slice's own peak
+    (``backward_slice_peak``), then one more step on the first batch under
+    torch.profiler (``profiled_busy``): its device time, the kernels of
+    all streams merged, and its kernel count."""
+    import torch
+
+    slice_peak = backward_slice_peak(torch, model, backend, state,
+                                     batches[0])
+
+    def step():
+        backend.step(state, batches[0])
+        settle(torch, backend)
+
+    busy, _, kernels = profiled_busy(torch, step)
+    return {"slice_peak_above_start": slice_peak, "device_s_per_step": busy,
+            "kernels_per_step": kernels}
+
+
+def remat_row(label, res, median_step_s) -> dict:
+    """One run of the remat alternation as ``phase_remat``'s line keeps
+    it; idle share = 1 − device time of the profiled step / the counted
+    window's median step."""
+    return {"label": label, "median_step_s": median_step_s,
+            "peak_above_start": res["peak_bytes"] - res["bytes_before_init"],
+            "slice_peak_above_start": res["slice_peak_above_start"],
+            "device_s_per_step": res["device_s_per_step"],
+            "idle_share": 1.0 - res["device_s_per_step"] / median_step_s,
+            "kernels_per_step": res["kernels_per_step"],
+            "flash_fwd_launches": res["flash_launches"]["fwd"]}
+
+
+def phase_remat(torch, name, cfg, workers, batches, first,
+                order=REMAT_ORDER):
+    """Per-block activation checkpointing priced both ways on train's
+    entry points. ``first`` is the phase's own run of ``cfg`` on
+    ``workers`` workers (remat, read by ``remat_readings``); then runs of
+    ``REMAT_STEPS`` steps of ``batches`` (``first``'s first batches) in
+    ``order``, "unwrapped" with ``transformer.remat_block`` patched to the
+    identity for the run. Each run: the peak over ``bytes_before_init``,
+    the backward slice's own peak, the median step (steps 1..), the
+    profiled step's device time and the idle share, and the flash
+    launches, held to ``flash_want`` with and without the recompute;
+    every run's losses and Σw must be ``first``'s bit for bit, and its
+    read-plane row digests the first later run's. One line, ``name``."""
+    import contextlib
+    from unittest import mock
+
+    from repro_torch.core.backend import make_backend
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import constant, momentum
+
+    batches = batches[:REMAT_STEPS]
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    calls = REMAT_STEPS * workers * attention_calls(cfg)
+    want_hist = {k: first["history"][k][:REMAT_STEPS] for k in REMAT_KEYS}
+    runs = [remat_row("remat", first, first["median_step_s"])]
+    digests = None
+    for label in order:
+        with (mock.patch.object(T, "remat_block", lambda f: f)
+              if label == "unwrapped" else contextlib.nullcontext()):
+            backend = make_backend(
+                "prod", "layup", M=workers, loss_fn=model.loss_fn,
+                optimizer=momentum(0.9), schedule=constant(LR), fb_ratio=R,
+                update_delay=1, use_pallas=True, device="cuda",
+                measure_drift=False)
+            out, hist, step_s, peak = counted_drive(
+                torch, backend, params, batches, launch_resets(),
+                keys=REMAT_KEYS)
+            flash = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
+                     "dkv": fa.dkv_launches}
+            res = {"peak_bytes": peak,
+                   "bytes_before_init": out["bytes_before_init"],
+                   "flash_launches": flash,
+                   **remat_readings(model, backend, out["state"], batches)}
+        want = flash_want(calls, remat=label == "remat")
+        check(flash == want, f"{name} {label}: flash launches {flash} != "
+              f"{want}")
+        rows = row_digests(torch, out["state"]["read"])
+        check(hist == want_hist and rows == (digests or rows),
+              f"{name}: {label} run differs from the phase's own run")
+        digests = rows
+        runs.append(remat_row(label, res, statistics.median(step_s[1:])))
+        del out, backend
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    summary = {lab: {k: [r[k] for r in runs if r["label"] == lab] for k in (
+        "peak_above_start", "slice_peak_above_start", "median_step_s",
+        "device_s_per_step", "idle_share", "flash_fwd_launches")}
+        for lab in ("remat", "unwrapped")}
+    emit(name, model=cfg.name, M=workers, fb_ratio=R, steps=REMAT_STEPS,
+         first_steps=len(first["step_s"]), order=["remat"] + list(order),
+         bit_identical=True, summary=summary, runs=runs)
+    return summary
 
 
 def device_events(torch, fn, cpu: bool = False):
@@ -2146,8 +2298,7 @@ def phase_train_int8(torch, train_res, profile: bool):
     want = {"quantize_plane": TRAIN_STEPS * n_groups,
             "dequant_mix": TRAIN_STEPS * n_groups, "gossip_mix": 0}
     check(launches == want, f"int8 launches {launches} != {want}")
-    per_pass = TRAIN_STEPS * M * cfg.num_layers
-    want = {"fwd": per_pass * R, "dq": per_pass, "dkv": per_pass}
+    want = flash_want(TRAIN_STEPS * M * cfg.num_layers)
     check(flash == want, f"int8 flash launches {flash} != {want}")
     check_history(hist, cfg, "train_int8")
     wire = out["wire_bytes_per_round"]
@@ -2308,10 +2459,9 @@ def phase_route(torch):
     route_launches = gm_kernel.launches - before
     check(route_launches == ROUTE_STEPS * len(part.group_sizes),
           f"route launches {route_launches}")
-    per_pass = ROUTE_STEPS * M * ROUTE_LAYERS
     flash = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
              "dkv": fa.dkv_launches}
-    want = {"fwd": per_pass * R, "dq": per_pass, "dkv": per_pass}
+    want = flash_want(ROUTE_STEPS * M * ROUTE_LAYERS)
     check(flash == want, f"route flash launches {flash} != {want}")
     emit("route", layers=ROUTE_LAYERS, M=M, steps=ROUTE_STEPS,
          losses=losses, plane_max_rel_diff=plane_rel,
@@ -2387,10 +2537,9 @@ def phase_route_int8(torch):
     check(launches == {"quantize_plane": ROUTE_STEPS * n_groups,
                        "dequant_mix": ROUTE_STEPS * n_groups},
           f"route_int8 launches {launches}")
-    per_pass = 2 * ROUTE_STEPS * M * ROUTE_LAYERS  # flash on both routes
     flash = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
              "dkv": fa.dkv_launches}
-    want = {"fwd": per_pass * R, "dq": per_pass, "dkv": per_pass}
+    want = flash_want(2 * ROUTE_STEPS * M * ROUTE_LAYERS)  # on both routes
     check(flash == want, f"route_int8 flash launches {flash} != {want}")
     emit("route_int8", layers=ROUTE_LAYERS, M=M, steps=ROUTE_STEPS,
          compensate=LAMBDA, losses=losses, bit_identical=True,
@@ -2619,8 +2768,7 @@ def prefill_hold(torch, model, params, prompts, max_len, name,
         gaps.append(g)
     flash = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
              "dkv": fa.dkv_launches}
-    want = {"fwd": attention_calls(model.cfg) * len(prompts), "dq": 0,
-            "dkv": 0}
+    want = flash_want(attention_calls(model.cfg) * len(prompts), 1, 0)
     check(flash == want, f"{name} prefill flash launches {flash} != {want}")
     return gaps, flash
 
@@ -3008,7 +3156,8 @@ def sim_run(torch, cfg, model, params, batches, hw, algo, R_, D_, kw):
     """One algorithm on the sim backend, 4 steps, and the event backend in
     lock-step. Held: finite loss near ln V, Σw (with the block queue's mass
     in flight) = 1 ± 1e-5, DDP's replicas identical, and the flash launches
-    of the prod step (R·M·L forward, M·L each backward, a step)."""
+    of the prod step (``flash_want``: (R + 1)·M·L forward, the recompute
+    included, M·L each backward, a step)."""
     from repro_torch.core.api import get_algorithm
     from repro_torch.core.backend import make_backend
     from repro_torch.optim import constant, momentum
@@ -3062,8 +3211,7 @@ def sim_run(torch, cfg, model, params, batches, hw, algo, R_, D_, kw):
     steps, L = len(batches), cfg.num_layers
     flash = {"fwd": counts["flash_fwd"], "dq": counts["flash_dq"],
              "dkv": counts["flash_dkv"]}
-    want = {"fwd": steps * R_ * M * L, "dq": steps * M * L,
-            "dkv": steps * M * L}
+    want = flash_want(steps * M * L, R_)
     check(flash == want, f"{what} flash launches {flash} != {want}")
     check(counts["gossip_mix"] == 0, f"{what} launched gossip_mix")
     if algo == "ddp":
@@ -3184,7 +3332,8 @@ def phase_sim_prod(torch):
 def tune_floors(cfg, groups: dict):
     """Per-stage floors of a candidate on the card, from its own rates:
     ``fwd`` the mean over the R forward slices of the products each does
-    (slice 0 forward and backward, 3x; the others forward) at the float32
+    (slice 0 forward, its blocks' recompute (``remat_block``) and
+    backward, 4x; the others forward) at the float32
     rate (TF32 is off); ``update`` the bytes of the update stage (momentum
     and gradient read, momentum and update written, the FIFO slot read
     when D > 0; each plane M x the f32 model) at the HBM rate; ``gossip``
@@ -3208,7 +3357,7 @@ def tune_floors(cfg, groups: dict):
 
     def floors(cand):
         slice_flops = fwd_flops / cand.R
-        mean_flops = (3 * slice_flops + (cand.R - 1) * slice_flops) / cand.R
+        mean_flops = (4 * slice_flops + (cand.R - 1) * slice_flops) / cand.R
         planes = 4 + (1 if cand.D > 0 else 0)
         return {"fwd": mean_flops / F32_FLOPS_PER_S,
                 "update": planes * M * n * 4 / HBM_BYTES_PER_S,
@@ -3774,9 +3923,10 @@ def phase_train_encdec(torch, profile=False):
     cfg = get_config(ENCDEC_NAME)
     batches = family_batches(torch, cfg, TRAIN_STEPS, seed=0,
                              workers=ENCDEC_M)
-    return phase_train_family(torch, "train_encdec", cfg, ENCDEC_M,
-                              batches, family_readings,
-                              "kernels" if profile else False)
+    return phase_train_family(
+        torch, "train_encdec", cfg, ENCDEC_M, batches,
+        lambda *a: {**family_readings(*a), **remat_readings(*a)},
+        "kernels" if profile else False)
 
 
 def phase_serve_encdec(torch):
@@ -3928,7 +4078,7 @@ def phase_train_model_path(torch, train, smi):
     decoupled step (R=2, D=1, ``use_pallas``) and its pipeline engine held
     bit-identical to ``ProdTrainerBackend`` on the same rows and shift
     draws; lockstep LayUp through the pure ``gossip_mix`` kernel (9
-    launches, flash 96/96/96 a step) within TOL of the plain mix, and with
+    launches, flash 192/96/96 a step) within TOL of the plain mix, and with
     ``accum_steps=2``; the plain decoupled step against the backend's plain
     route bit for bit; DDP's first loss against the lockstep workers' mean and
     ``init_loss``; prefill and decode at 8 x 512 bit-identical to
@@ -4010,10 +4160,9 @@ def phase_train_model_path(torch, train, smi):
             losses.append(float(loss))
         return p, losses, step_s
 
-    fwd_lock = {"flash_fwd": steps * M * L, "flash_dq": steps * M * L,
-                "flash_dkv": steps * M * L}
-    fwd_dec = {"flash_fwd": steps * M * R * L, "flash_dq": steps * M * L,
-               "flash_dkv": steps * M * L}
+    fwd_lock = {f"flash_{k}": v
+                for k, v in flash_want(steps * M * L, 1).items()}
+    fwd_dec = {f"flash_{k}": v for k, v in flash_want(steps * M * L).items()}
 
     # 1. the decoupled step, fused: the backend path is the reference
     be = make_backend("prod", "layup", M=M, loss_fn=model.loss_fn,
@@ -4691,10 +4840,11 @@ def hold_ring_options(torch, ranks: list, stacked: dict,
         what = f"{backend} rank {rank}"
         st = opts["streams"]
         hold_rows(st, stacked["int8_cut"], res, f"{backend} streams")
+        flash = flash_want(steps * L * layers)
         want = {"quantize_plane": steps * groups,
                 "dequant_mix": steps * groups, "gossip_mix": 0,
-                "flash_attention": steps * L * R * layers,
-                "flash_attention_bwd": 2 * steps * L * layers}
+                "flash_attention": flash["fwd"],
+                "flash_attention_bwd": flash["dq"] + flash["dkv"]}
         got = {k: st["kernel_launches"][k] for k in want}
         check(got == want, f"train_ring {what} streams: launches {got} != "
               f"{want}")
@@ -4868,7 +5018,7 @@ def main(argv) -> int:
               "runs on a CUDA card only", file=sys.stderr)
         return 2
     try:
-        import repro_torch  # noqa: F401
+        from repro_torch.configs import get_config
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e}); run "
               "it from the root of a checkout", file=sys.stderr)
@@ -4896,8 +5046,11 @@ def main(argv) -> int:
     quant = phase_quantize(torch)
     norm_ssd = phase_norm_ssd(torch)
     profile = "--profile" in argv
-    train, mono = phase_train(torch, profile=profile)
+    train, mono = phase_train(torch, profile=profile,
+                              readings=remat_readings)
     train["phase"] = "train"
+    phase_remat(torch, "train_remat", get_config("gpt2-medium"), M,
+                lm_batches(torch, train["vocab"], TRAIN_STEPS, seed=0), train)
     _, pipe = phase_train_engine(torch, "train_pipeline", train,
                                  overlap=True)
     train_streams, streams = phase_train_engine(
@@ -4970,7 +5123,6 @@ def main(argv) -> int:
     serve_moe = phase_serve_moe(torch)
     moe_s["serve_moe"] = time.perf_counter() - t1
     emit("moe_phases", seconds=moe_s, total_s=sum(moe_s.values()))
-    from repro_torch.configs import get_config
     fam, fam_s = {}, {}
     for name, fn in (
             ("train_hybrid", lambda t: phase_train_hybrid(t, profile)),
@@ -4980,6 +5132,11 @@ def main(argv) -> int:
             ("serve_vlm", lambda t: phase_serve_family(
                 t, "serve_vlm", get_config(VLM_NAME))),
             ("train_encdec", lambda t: phase_train_encdec(t, profile)),
+            ("train_encdec_remat", lambda t: phase_remat(
+                t, "train_encdec_remat", get_config(ENCDEC_NAME), ENCDEC_M,
+                family_batches(t, get_config(ENCDEC_NAME), TRAIN_STEPS,
+                               seed=0, workers=ENCDEC_M),
+                fam["train_encdec"], order=("unwrapped",))),
             ("serve_encdec", phase_serve_encdec)):
         t1 = time.perf_counter()
         fam[name] = fn(torch)

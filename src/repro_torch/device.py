@@ -1,5 +1,4 @@
-"""Device resolution, and the guard of options still to port, shared by the
-port's entry points."""
+"""Device resolution, shared by the port's entry points."""
 from __future__ import annotations
 
 import torch
@@ -15,9 +14,3 @@ def resolve_device(device=None) -> torch.device:
             "pass device='cpu' to run on the CPU explicitly")
     return dev
 
-
-def not_ported(what: str, item) -> NotImplementedError:
-    """The error an entry point raises for an option of a later slice; it
-    names the ROADMAP item that ports it (``15b``)."""
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1, item {item})")

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.pytree import tree_map
 from repro_torch.kernels import flash_attention as _flash_kernel
 from repro_torch.kernels import gossip_mix as _gossip_mix_kernel
 from repro_torch.kernels import quantize as _quant_kernel
@@ -30,6 +31,13 @@ def gossip_mix(x: torch.Tensor, x_recv: torch.Tensor, upd, alpha, beta,
         return _gossip_mix_kernel.gossip_mix(x, x_recv, upd, alpha, beta,
                                              out=out)
     raise ValueError(f"gossip_mix: no kernel for device {x.device}")
+
+
+def gossip_mix_tree(params, recv, updates, alpha, beta):
+    """:func:`gossip_mix` on each leaf of three trees of one structure (per
+    layer group, the paper's layer-wise granularity)."""
+    return tree_map(lambda x, r, u: gossip_mix(x, r, u, alpha, beta),
+                    params, recv, updates)
 
 
 def quantize_plane(x: torch.Tensor, resid=None, *, out_q=None, out_s=None,
@@ -136,6 +144,6 @@ def flash_attention_trainable(q, k, v, *, causal: bool = True,
     return FlashAttention.apply(q, k, v, causal, window)
 
 
-__all__ = ["gossip_mix", "quantize_plane", "dequant_mix", "rmsnorm",
-           "ssd_scan", "flash_attention", "flash_attention_bwd",
+__all__ = ["gossip_mix", "gossip_mix_tree", "quantize_plane", "dequant_mix",
+           "rmsnorm", "ssd_scan", "flash_attention", "flash_attention_bwd",
            "flash_attention_trainable"]

@@ -57,8 +57,10 @@ def stage_floors(report, *, R: int = 1) -> Dict[str, float]:
     """Per-stage roofline lower bounds for the decoupled stage schedule,
     consumed by the autotuner's scorer (``launch/tuner.py``).
 
-    A train step is priced at fwd + 2×bwd + the remat fwd, so one forward
-    pass is ~1/4 and the backward+update tail ~3/4 of the device term, the
+    A train step is priced at fwd + 2×bwd + the remat fwd (every block of
+    the backward slice is recomputed, ``transformer.remat_block``, as in
+    the reference), so one forward pass is ~1/4 and the backward+update
+    tail ~3/4 of the device term, the
     binding roof of compute vs memory. With R slices the forward work is
     split R ways, so the per-slice floor divides by R. The gossip floor is
     the collective term unchanged.
@@ -97,8 +99,10 @@ def analytic_costs(cfg, shape, *, n_model: int, n_workers: int,
 
     Conventions: dense/attention matmul flops = 2·m·n·k; causal attention
     counts the block-skipped (≈half) cost; MoE includes the capacity padding
-    factor; train = fwd + 2×bwd + 1×remat-fwd for the layers (3× for
-    embed/unembed, outside remat); bf16 = 2 bytes. ``n_model`` shards the
+    factor; train = fwd + 2×bwd + 1×remat-fwd for the layers (the port's
+    ``remat_block`` recomputes every block in the backward, as the
+    reference's does; 3× for embed/unembed, outside remat); bf16 = 2
+    bytes. ``n_model`` shards the
     heads, vocabulary and FFN dims; ``n_workers`` the batch (one device
     running all M stacked workers is ``n_workers=1``)."""
     B, S = shape.global_batch, shape.seq_len

@@ -14,10 +14,13 @@ reference sends them to its Pallas kernels under ``USE_PALLAS``. The
 decode step's cross-attention reads the cross cache through the plain
 ``layers.decode_attention``, as the reference's does. Layer parameters are
 stacked ``(enc_layers, ...)`` and ``(num_layers, ...)`` as the JAX
-package stacks them for its scans; the scans are loops over views.
+package stacks them for its scans; the scans are loops over views, each
+block a ``transformer.remat_block`` call as in the reference (looked up
+through the module at call time).
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Dict
 
 import numpy as np
@@ -70,17 +73,37 @@ def _cross_attn(p, h, enc_kv, cfg):
     return h + torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
+def encoder_block(cfg, h, bp, dc, ic):
+    """One encoder block (the ``f`` of ``remat_block``): bidirectional
+    self-attention, then the MLP."""
+    del dc
+    h, _ = T.attn_sublayer(bp["attn"], h, cfg, positions=ic["positions"],
+                           causal=False)
+    return T.mlp_sublayer(bp["mlp"], h, cfg, use_moe=False)[0]
+
+
+def decoder_block(cfg, h, bp, dc, ic):
+    """One decoder block (the ``f`` of ``remat_block``): causal
+    self-attention, cross-attention to ``dc["enc_h"]`` (its K/V projected
+    here, so the backward recomputes them), then the MLP."""
+    h, _ = T.attn_sublayer(bp["attn"], h, cfg, positions=ic["positions"],
+                           causal=True, window=cfg.sliding_window)
+    xk = torch.einsum("bsd,dhk->bshk", dc["enc_h"], bp["cross"]["wk"])
+    xv = torch.einsum("bsd,dhk->bshk", dc["enc_h"], bp["cross"]["wv"])
+    h = _cross_attn(bp["cross"], h, (xk, xv), cfg)
+    return T.mlp_sublayer(bp["mlp"], h, cfg, use_moe=False)[0]
+
+
 def encode(params, audio_embeds, cfg):
     """audio_embeds: (B, enc_seq, d) stub-frontend output -> the encoder
     states (B, enc_seq, d), after ``enc_norm``."""
     B, Se, d = audio_embeds.shape
     h = audio_embeds + L.sinusoidal_positions(
         Se, d, device=audio_embeds.device).to(audio_embeds.dtype)
-    positions = _arange(B, Se, h.device)
+    ic = {"positions": _arange(B, Se, h.device)}
+    block = T.remat_block(partial(encoder_block, cfg))
     for bp in T.stacked_layers(params["enc_blocks"]):
-        h, _ = T.attn_sublayer(bp["attn"], h, cfg, positions=positions,
-                               causal=False)
-        h, _ = T.mlp_sublayer(bp["mlp"], h, cfg, use_moe=False)
+        h = block(h, bp, {}, ic)
     return L.rmsnorm(h, params["enc_norm"], cfg.norm_eps)
 
 
@@ -90,14 +113,10 @@ def decode_train(params, enc_h, tokens, cfg):
     h = L.embed_apply(params["embed"], tokens)
     h = h + L.sinusoidal_positions(S, cfg.d_model,
                                    device=h.device).to(h.dtype)
-    positions = _arange(B, S, h.device)
+    ic = {"positions": _arange(B, S, h.device)}
+    block = T.remat_block(partial(decoder_block, cfg))
     for bp in T.stacked_layers(params["dec_blocks"]):
-        h, _ = T.attn_sublayer(bp["attn"], h, cfg, positions=positions,
-                               causal=True, window=cfg.sliding_window)
-        xk = torch.einsum("bsd,dhk->bshk", enc_h, bp["cross"]["wk"])
-        xv = torch.einsum("bsd,dhk->bshk", enc_h, bp["cross"]["wv"])
-        h = _cross_attn(bp["cross"], h, (xk, xv), cfg)
-        h, _ = T.mlp_sublayer(bp["mlp"], h, cfg, use_moe=False)
+        h = block(h, bp, {"enc_h": enc_h}, ic)
     h = L.rmsnorm(h, params["dec_norm"], cfg.norm_eps)
     return L.unembed_apply(params["embed"], h, cfg.tie_embeddings)
 

@@ -106,7 +106,8 @@ def _build_decoder_model(cfg: ModelConfig) -> Model:
     def decode_fn(params, cache, token, position):
         """One token a sequence: token (B, 1), position (B,) the cache
         position it is written at. Returns float32 logits (B, 1, V) and
-        ``cache``, updated in place."""
+        ``cache``, updated in place (a bf16 SSM state entry is replaced
+        by its float32 promotion on the first step)."""
         h = L.embed_apply(params["embed"], token)
         h, cache = T.decoder_decode_step(params, h, cfg, cache,
                                          position=position,

@@ -225,8 +225,8 @@ def ssm_block_decode(p, x, cfg, state, conv_tail):
     """Single-token decode: the recurrence instead of the chunked form.
     x: (B, 1, d); state (B, H, N, P); conv_tail (B, K-1, conv_dim).
     Returns (out, (new_state, new_tail)), the new state as the recurrence
-    leaves it (a float32 decay times the state promotes it to float32);
-    the caller stores it in its cache's dtype."""
+    leaves it (a float32 decay times the state promotes it to float32,
+    and the cache keeps it so, as the reference's step does)."""
     x_ssm, dt, A, Bm, Cm, z, new_tail = ssm_mixer_inputs(
         p, x, cfg, conv_tail=conv_tail)
     y, new_state = ssd_recurrent_step(state, x_ssm[:, 0], dt[:, 0], A,

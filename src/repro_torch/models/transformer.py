@@ -10,9 +10,11 @@ the flat partition sees the same three layer groups (``blocks``, ``embed``,
 ``attn_layer_period`` sub-layers: attention at ``sub{period // 2}``, SSM
 elsewhere, an MoE on every ``moe_layer_period``-th. The VLM backbone
 (``cfg.mrope``) rotates q and k by M-RoPE over (3, B, S) position ids. The scan becomes a Python loop over the stacked index;
-each iteration takes views of the stacked leaves. The decode step loops the
-same way and writes the cache in place (the reference's jitted serve step
-donates its cache).
+each iteration takes views of the stacked leaves. A training forward runs
+each super-block through ``remat_block``, as the reference's scan body
+does: the backward keeps only the block inputs and recomputes the rest.
+The decode step loops the same way and writes the cache in place (the
+reference's jitted serve step donates its cache).
 """
 from __future__ import annotations
 
@@ -20,12 +22,38 @@ from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.pytree import tree_flatten, tree_map, tree_unflatten
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MoE
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import ParamSpec
+
+
+def remat_block(f):
+    """Per-block activation checkpointing (the reference's
+    ``remat_block``): ``f(h, p, dc, ic)``, ``p`` the block's parameter
+    tree, ``dc`` differentiable consts (encoder states), ``ic`` integer
+    consts (positions, M-RoPE ids).
+
+    While a graph is recorded the block keeps only its inputs alive; the
+    backward runs ``f`` again and differentiates the recomputed forward
+    (non-reentrant ``torch.utils.checkpoint``, which takes
+    ``torch.autograd.grad``; the cotangents come back in the inputs'
+    dtypes, as the reference casts them). Outside a recorded graph
+    (``no_grad``, ``inference_mode``) it is ``f``. The models draw no
+    random numbers in a forward, so no RNG state is saved per block; the
+    recompute repeats the first forward bit for bit, and so do the
+    gradients."""
+
+    def wrapped(h, p, dc, ic):
+        if not torch.is_grad_enabled():
+            return f(h, p, dc, ic)
+        return checkpoint(f, h, p, dc, ic, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    return wrapped
 
 
 # ---------------------------------------------------------------------------
@@ -163,12 +191,19 @@ def ssm_sublayer(p, h, cfg, *, return_state=False):
 
 
 def ssm_sublayer_decode(p, h, cfg, cache):
-    """One-token SSM step; the new state and conv tail are written into
-    ``cache`` in place, in the cache's dtype. Returns (h', cache)."""
+    """One-token SSM step; the conv tail is written into ``cache`` in
+    place. The new state is too where the cache holds the recurrence's
+    dtype; a narrower state (a bf16 cache's first step: the float32 decay
+    promotes it) replaces the entry, as the reference's step hands back
+    its promoted state, so the recurrence carries float32 from the second
+    step on. Returns (h', cache)."""
     x = L.rmsnorm(h, p["norm"], cfg.norm_eps)
     y, (st, tail) = S.ssm_block_decode(p, x, cfg, cache["state"],
                                        cache["conv_tail"])
-    cache["state"].copy_(st)
+    if st.dtype == cache["state"].dtype:
+        cache["state"].copy_(st)
+    else:
+        cache["state"] = st
     cache["conv_tail"].copy_(tail)
     return h + y, cache
 
@@ -284,13 +319,32 @@ def decoder_forward(params, h, cfg, *, positions, mrope_pos=None,
     (h, aux_loss, cache|None); with ``collect_cache`` the cache holds each
     layer's K/V (attention) or final state and conv tail (SSM), stacked
     ``(n_super, ...)`` under ``sub{i}`` as the reference's are.
-    ``mrope_pos`` (3, B, S): the M-RoPE ids (``cfg.mrope``)."""
+    ``mrope_pos`` (3, B, S): the M-RoPE ids (``cfg.mrope``). Without a
+    cache each super-block (its ``period`` sub-layers) is one
+    ``remat_block`` call; the cache branch serves prefill, under
+    ``inference_mode``."""
     if not collect_cache:
+        kinds = layer_kinds(cfg)[:len(params["blocks"])]
+
+        def superblock(h, bp, dc, ic):
+            """One super-block's sub-layers: (h, the sum of their MoE aux
+            losses, None without an MoE)."""
+            del dc
+            aux_total = None
+            for i, (_, use_moe) in enumerate(kinds):
+                h, aux = decoder_layer(bp[f"sub{i}"], h, cfg,
+                                       positions=ic["positions"],
+                                       use_moe=use_moe,
+                                       mrope_pos=ic["mrope"])
+                if aux is not None:
+                    aux_total = aux if aux_total is None else aux_total + aux
+            return h, aux_total
+
+        block = remat_block(superblock)
+        ic = {"positions": positions, "mrope": mrope_pos}
         aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
-        for layer, sub in decoder_layers(params):
-            h, aux = decoder_layer(sub, h, cfg, positions=positions,
-                                   use_moe=cfg.is_moe_layer(layer),
-                                   mrope_pos=mrope_pos)
+        for bp in stacked_layers(params["blocks"]):
+            h, aux = block(h, bp, {}, ic)
             if aux is not None:
                 aux_total = aux_total + aux
         return h, aux_total, None
@@ -312,8 +366,11 @@ def decoder_forward(params, h, cfg, *, positions, mrope_pos=None,
 def decoder_decode_step(params, h, cfg, cache, *, position, window):
     """One-token step through the stack. h: (B, 1, d); cache stacked
     (n_super, ...) under ``sub{i}``, written in place (the reference's
-    jitted step donates it). Returns (h, cache)."""
+    jitted step donates it), but for a bf16 SSM state, which the first
+    step replaces by its float32 stack (:func:`ssm_sublayer_decode`).
+    Returns (h, cache)."""
     period = len(params["blocks"])
+    promoted = {}  # sub → the layers' widened SSM states (first step)
     for layer, sub in decoder_layers(params):
         j, i = divmod(layer, period)
         c = {k: v[j] for k, v in cache[f"sub{i}"].items()}
@@ -322,9 +379,14 @@ def decoder_decode_step(params, h, cfg, cache, *, position, window):
                                         position=position, window=window)
         else:
             h, _ = ssm_sublayer_decode(sub["ssm"], h, cfg, c)
+            if c["state"].dtype != cache[f"sub{i}"]["state"].dtype:
+                promoted.setdefault(f"sub{i}", []).append(c["state"])
         if "mlp" in sub:
             h, _ = mlp_sublayer(sub["mlp"], h, cfg,
                                 use_moe=cfg.is_moe_layer(layer))
+    with torch.inference_mode(False):  # a normal tensor, as allocated
+        for name, states in promoted.items():
+            cache[name]["state"] = torch.stack(states)
     return h, cache
 
 

@@ -22,6 +22,8 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.core.pytree import tree_leaves, tree_map
+
 
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
@@ -111,3 +113,19 @@ def adamw(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
 def get_optimizer(name: str, **kw) -> Optimizer:
     return {"sgd": sgd, "momentum": momentum, "adamw": adamw}[name](**kw)
+
+
+def global_norm(tree) -> torch.Tensor:
+    """The float32 L2 norm of every leaf of ``tree`` together (a 0-d
+    tensor)."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                          for x in tree_leaves(tree)))
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """``(clipped, n)``: every leaf scaled by ``min(1, max_norm / max(n,
+    1e-9))``, the scale cast to the leaf's dtype, ``n`` the global norm
+    before clipping."""
+    n = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0)
+    return tree_map(lambda g: g * scale.to(g.dtype), grads), n

@@ -70,7 +70,8 @@ def test_positive_and_finite(arch, shape):
 
 def test_train_flops_close_to_6nd():
     """Dense train analytic flops ≈ (4/3)·6·N·D/devices (the remat
-    forward), within the attention and vocabulary corrections."""
+    forward, which the port's ``remat_block`` runs as the reference's
+    does), within the attention and vocabulary corrections."""
     cfg = get_config("granite-8b")
     shape = INPUT_SHAPES["train_4k"]
     ac = AN.analytic_costs(cfg, shape, n_model=16, n_workers=16)

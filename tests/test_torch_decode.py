@@ -16,6 +16,13 @@ products differently):
 * the incremental decode against the port's own full forward: rtol 1e-4 /
   atol 1e-5 (the reference's own test allows 5e-3).
 """
+import json
+import os
+import subprocess
+import sys
+import zlib
+from unittest import mock
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -320,11 +327,47 @@ def test_incremental_decode_matches_full_forward(name):
 # ---------------------------------------------------------------------------
 
 
-def _bf16_mamba(layers=4):
+def _crc32_path_hash(path) -> int:
+    """The reference's ``_path_hash`` without the salt of Python's string
+    hash (Ref-3): the CRC32 of the key string, the port's rule."""
+    return zlib.crc32(jax.tree_util.keystr(path).encode()) % 2**31
+
+
+def _salted_path_hash(specs, seed: int):
+    """The reference's ``_path_hash`` as a process started with
+    ``PYTHONHASHSEED=seed`` computes it: Python's string hash of each key
+    path of ``specs``, taken in a child process with that salt."""
+    paths = [jax.tree_util.keystr(p) for p, _ in
+             jax.tree_util.tree_flatten_with_path(specs, is_leaf=JL.is_spec)[0]]
+    out = subprocess.run(
+        [sys.executable, "-c", "import json, sys; print(json.dumps("
+         "[abs(hash(s)) % 2**31 for s in json.load(sys.stdin)]))"],
+        input=json.dumps(paths), capture_output=True, text=True, check=True,
+        env={**os.environ, "PYTHONHASHSEED": str(seed)})
+    table = dict(zip(paths, json.loads(out.stdout)))
+    return lambda path: table[jax.tree_util.keystr(path)]
+
+
+# The weight draws the bf16 Mamba2 is held on: the CRC32 rule, and the
+# reference's salted hash under three hash seeds, 110 among them (the draw
+# on which a port that kept its decode state in bf16 failed, ROADMAP queue
+# 3).
+BF16_DRAWS = ["crc32", 100, 110, 127]
+
+
+def _bf16_mamba(layers=4, draw="crc32"):
+    """The reference's init of a bf16 Mamba2 and the port's copy. The init
+    folds a path hash into each leaf's key; the reference's hash is salted
+    per process, which made the weights (and both sides' bf16 drift) differ
+    from one test process to the next, so the draw is named: ``"crc32"``
+    or a hash seed."""
     jcfg = reduced(jax_get_config("mamba2-780m")).with_(
         num_layers=layers, dtype=jnp.bfloat16)
     jm = jax_build_model(jcfg)
-    jp = jm.init(jax.random.PRNGKey(9))
+    rule = (_crc32_path_hash if draw == "crc32"
+            else _salted_path_hash(jm.specs, draw))
+    with mock.patch.object(JL, "_path_hash", rule):
+        jp = jm.init(jax.random.PRNGKey(9))
     tm = build_model(torch_cfg(jcfg))
     return jm, jp, tm, to_torch(jax.tree.map(np.asarray, jp), "cpu")
 
@@ -356,12 +399,11 @@ def test_ssm_bf16_layer_local_prefill_matches_decode():
             assert _gap(c["conv_tail"], tail) <= BF16_REL
 
 
-def test_ssm_bf16_prefill_decode_drift_as_the_reference():
-    """End to end in bf16 the two forms' roundings compound over the
-    layers; the port's gaps (last logits, each layer's final state) stay
-    within twice the reference's own gaps plus 1e-2, on the same weights
-    and prompt."""
-    jm, jp, tm, tp = _bf16_mamba()
+def _bf16_drift(draw):
+    """Both sides' prefill/decode gaps on one weight draw: ``(got, ref)``,
+    each [last logits, each layer's final state], and the decode states'
+    dtypes (port, reference) after the 40-token prompt."""
+    jm, jp, tm, tp = _bf16_mamba(draw=draw)
     S = 40
     toks = _tokens(tm.cfg, 1, S, 11)
     jc, jl = jm.prefill_fn(jp, {"tokens": jnp.asarray(toks)})
@@ -382,5 +424,31 @@ def test_ssm_bf16_prefill_decode_drift_as_the_reference():
     got = [_gap(td, tl)] + [
         _gap(a, b) for a, b in zip(tcache["sub0"]["state"],
                                    tc["sub0"]["state"])]
+    return got, ref, (tcache["sub0"]["state"].dtype,
+                      jcache["sub0"]["state"].dtype)
+
+
+@pytest.mark.parametrize("draw", BF16_DRAWS)
+def test_ssm_bf16_prefill_decode_drift_as_the_reference(draw):
+    """End to end in bf16 the two forms' roundings compound over the
+    layers; the port's gaps (last logits, each layer's final state) stay
+    within twice the reference's own gaps plus 1e-2, on the same weights
+    and prompt. Both decode states widen to float32 after the first step
+    (the float32 decay promotes them; a bf16 state drifts past the bound
+    on the hash seed 110 draw)."""
+    got, ref, dtypes = _bf16_drift(draw)
+    assert dtypes == (torch.float32, jnp.float32)
     for g, r in zip(got, ref):
         assert g <= 2 * r + 1e-2, (got, ref)
+
+
+if __name__ == "__main__":
+    # The gaps over a range of hash seeds, each draw's largest share of
+    # its bound: python tests/test_torch_decode.py 100 148
+    import sys as _sys
+
+    for seed in range(int(_sys.argv[1]), int(_sys.argv[2])):
+        got, ref, _ = _bf16_drift(seed)
+        share = max(g / (2 * r + 1e-2) for g, r in zip(got, ref))
+        print(seed, f"{share:.3f}", " ".join(f"{g:.4f}" for g in got),
+              "|", " ".join(f"{r:.4f}" for r in ref), flush=True)

@@ -1059,13 +1059,15 @@ def test_sim_step_on_card_as_on_cpu(cuda_device, monkeypatch, algo):
     attention), the same draws: losses and metrics within 1e-3, planes
     within 1e-3 of their largest |value|, Σw = 1 (with the block modes'
     mass in flight); flash launched on the
-    card (a step: 2 slices x 4 workers x 2 layers forward, 4 x 2 backward)."""
+    card (a step: 2 slices x 4 workers x 2 layers forward, plus the
+    backward slice's recompute of its blocks, 4 x 2, and 4 x 2
+    backward)."""
     import numpy as np
 
     fa_kernel.reset_launches()
     gpu_hist, gpu_plane = _sim_run("cuda", algo, monkeypatch)
     torch.cuda.synchronize()
-    assert fa_kernel.fwd_launches == 3 * 2 * 4 * 2
+    assert fa_kernel.fwd_launches == 3 * (2 + 1) * 4 * 2
     assert fa_kernel.dq_launches == fa_kernel.dkv_launches == 3 * 4 * 2
     cpu_hist, cpu_plane = _sim_run("cpu", algo, monkeypatch)
     for g, c in zip(gpu_hist, cpu_hist):
@@ -1251,6 +1253,51 @@ def test_family_model_on_card_as_on_cpu(cuda_device, name):
     for a, b in zip(gg, cg):
         assert (_gap(a, b) <= 1e-4 if bool(b.abs().max() > 0)
                 else not bool(a.abs().max() > 0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["gpt2-medium", "qwen3-moe-30b-a3b"])
+def test_remat_bit_identical_and_lower_peak_on_card(cuda_device, name):
+    """Per-block activation checkpointing on the card: a small dense model
+    and a small MoE (reduced widths, 8 layers, 8 x 256 tokens), the loss
+    and every gradient of ``loss_fn`` with remat and with
+    ``transformer.remat_block`` patched to the identity: bit for bit (the
+    recompute repeats the flash forward and the MoE's stable routing), and
+    the peak over the start lower with remat."""
+    from unittest import mock
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.pytree import tree_flatten, tree_unflatten
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as T
+
+    cfg = reduced(get_config(name)).with_(num_layers=8)
+    model = build_model(cfg)
+    params = model.init(seed=0, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (8, 257), generator=gen,
+                         device=cuda_device)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def run():
+        leaves, treedef = tree_flatten(params)
+        leaves = [p.detach().requires_grad_(True) for p in leaves]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = model.loss_fn(tree_unflatten(treedef, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        torch.cuda.synchronize()
+        return [loss] + list(grads), torch.cuda.max_memory_allocated() - base
+
+    got, peak = run()
+    with mock.patch.object(T, "remat_block", lambda f: f):
+        want, peak_unwrapped = run()
+    assert all((a is None and b is None) or torch.equal(a, b)
+               for a, b in zip(got, want))
+    print(f"{name}: peak over start {peak} B with remat, "
+          f"{peak_unwrapped} B unwrapped")
+    assert peak < peak_unwrapped
 
 
 # ---------------------------------------------------------------------------

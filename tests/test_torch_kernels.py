@@ -17,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -104,6 +105,32 @@ class TestGossipMixParity:
         x = torch.zeros(4, 8)
         with pytest.raises(ValueError):
             gossip_mix_ref(x, x, None, torch.ones(3), torch.ones(3))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gossip_mix_tree_matches_jax(dtype):
+    """``ops.gossip_mix_tree`` against the JAX package's
+    ``gossip_mix_tree`` (Pallas in interpret mode) on one tree of leaves
+    of several shapes; the tolerances of the leaf-wise sweep."""
+    from repro.kernels.gossip_mix import gossip_mix_tree as jax_tree
+
+    leaves = [_inputs(shape, dtype, seed=i)
+              for i, shape in enumerate([(7, 33, 5), (128,), (3, 3)])]
+
+    def tree(side, n):  # side 0: the JAX arrays, 1: the tensors
+        a, c, d = (leaf[side][n] for leaf in leaves)
+        return {"a": a, "b": {"c": c, "d": d}}
+
+    jx, jr, ju = (tree(0, n) for n in range(3))
+    tx, tr, tu = (tree(1, n) for n in range(3))
+    want = jax_tree(jx, jr, ju, 0.6, 0.4, interpret=True)
+    gm_kernel.reset_launches()
+    got = ops.gossip_mix_tree(tx, tr, tu, 0.6, 0.4)
+    assert gm_kernel.launches == 0  # CPU tensors take the plain version
+    for g, w, x in zip(jax.tree.leaves(got), jax.tree.leaves(want),
+                       jax.tree.leaves(tx)):
+        assert g.shape == x.shape and g.dtype == x.dtype
+        np.testing.assert_allclose(_np(g), _np(w), **_tol(dtype))
 
 
 class TestDispatch:

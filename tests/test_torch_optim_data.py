@@ -58,6 +58,40 @@ def test_optimizers_match(name, kw):
                                        rtol=1e-6, atol=1e-7)
 
 
+@pytest.mark.parametrize("tree,max_norm", [
+    ({"a": [3.0], "b": [4.0]}, None),      # tests/test_optim.py's norm of 5
+    ({"a": [30.0], "b": [40.0]}, 5.0),     # its clip: 50 down to 5
+    ({"a": [0.3], "b": [0.4]}, 5.0),       # under the bound: unchanged
+    ("random", 2.0)])
+def test_global_norm_and_clip_match(tree, max_norm):
+    """``global_norm`` and ``clip_by_global_norm`` against the JAX
+    package's on the same trees (float32 sums of squares; the scale cast
+    to each leaf's dtype, here a bfloat16 leaf too): rtol 1e-6."""
+    if tree == "random":
+        rng = np.random.default_rng(1)
+        tree = {"a": rng.standard_normal((3, 17)).astype(np.float32),
+                "b": {"c": rng.standard_normal(40).astype(np.float32)}}
+    tree = jax.tree.map(lambda x: np.asarray(x, np.float32), tree)
+    jtree = jax.tree.map(jnp.asarray, tree)
+    ttree = to_torch(tree, "cpu")
+    np.testing.assert_allclose(
+        TO.optimizers.global_norm(ttree).item(),
+        float(JO.optimizers.global_norm(jtree)), rtol=1e-6)
+    if max_norm is None:
+        assert TO.optimizers.global_norm(ttree).item() == pytest.approx(5.0)
+        return
+    jclip, jn = JO.optimizers.clip_by_global_norm(jtree, max_norm)
+    tclip, tn = TO.optimizers.clip_by_global_norm(ttree, max_norm)
+    np.testing.assert_allclose(tn.item(), float(jn), rtol=1e-6)
+    for t, j in zip(jax.tree.leaves(tclip), jax.tree.leaves(jclip)):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-6)
+    assert TO.optimizers.global_norm(tclip).item() == pytest.approx(
+        min(max_norm, tn.item()), rel=1e-5)
+    bf = {"w": torch.tensor([30.0, 40.0], dtype=torch.bfloat16)}
+    clipped, _ = TO.optimizers.clip_by_global_norm(bf, max_norm)
+    assert clipped["w"].dtype == torch.bfloat16
+
+
 def test_schedules_match():
     pairs = [(TO.constant(0.1), JO.constant(0.1)),
              (TO.cosine(0.1, 20, 0.01), JO.cosine(0.1, 20, 0.01)),

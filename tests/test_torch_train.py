@@ -135,14 +135,11 @@ def test_default_device_needs_cuda():
         to_torch(np_tree(jparams))
 
 
-# ids as they were before the item-8 (int8 wire, compensation), item-9
-# (the engines), item-10 (faults), item-11 (publisher) and item-12
-# (tuning) cases left, before item 15a ported ``flat=False`` and before
-# item 15b ported ``mesh=``
 @pytest.mark.parametrize("kw,item", [
     pytest.param(dict(overlap=True, streams=2), "ring", id="kw8-item 15"),
     pytest.param(dict(flat=False), None, id="kw9-item 15")])
-def test_unported_options_name_their_roadmap_item(kw, item, tmp_path):
+def test_ranked_streams_and_flat_false_give_the_same_runs(kw, item,
+                                                         tmp_path):
     """``mesh=`` (the multi-GPU ring, item 15b) takes a ``WorkerMesh``
     (anything else is a ``TypeError``); over a process group (here one
     gloo rank) the stream engine (item 15c) gives the one-process run's
