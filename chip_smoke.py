@@ -21,26 +21,33 @@ not 0:
    bfloat16; max error against the stated tolerance; kernel and plain
    device times (CUDA events, median of 20, queued behind a spin kernel
    so that the host's dispatch is not timed) beside the bound from bytes.
-3. flash: the CUDA C++ flash attention kernels (3xTF32 ``mma.sync``
-   products, ``cp.async`` ring; the dq kernel also computes delta), the
-   forward (o, lse), the backward (dq, dk, dv; two launches) and the
-   autograd Function, are held against their plain PyTorch versions on the
-   same CUDA tensors, at the training step's attention shape (B=2, H=16,
-   S=256, D=64, float32, causal; (B,S,H,D) tensors passed as (B,H,S,D)
-   views), over a sweep (GQA, MQA, windows, bidirectional, bfloat16,
-   D=128, S not a multiple of the tile, the MoE step's 32 heads of 128 on
-   4 in bf16), at S=2048, 65 and 1, at the hybrid's, VLM's and
-   encoder-decoder's shapes and at query and key lengths that differ
-   (``FLASH_FAMILIES``: Whisper's cross-attention Sq=256 / Sk=1500 and
-   encoder S=1500, not causal, bf16; Sq > Sk and Sq < Sk in float32; each
-   also timed: kernel, plain and SDPA beside its bound), and on
-   misaligned views (storage offset 1, odd sequence stride: the kernels'
-   element-by-element copies); two calls on the same inputs must give
-   bit-identical o, lse, dq, dk and dv (float32 and bfloat16). Each
-   kernel's block and dynamic shared memory (``flash_config``); kernel,
-   plain and ``scaled_dot_product_attention`` times (the last as a
-   yardstick only: the port never calls it) beside each bound, at the
-   card's f32-accurate tensor-core rate for f32 (3xTF32, 165 TFLOP/s).
+3. flash: the CUDA C++ flash attention kernels (float32: 3xTF32
+   ``mma.sync`` products; bfloat16: bf16 ``mma.sync`` m16n8k16 fed by
+   ``ldmatrix``, P and dS in two bf16 terms, and a dk/dv grid split over
+   parts at few KV heads, added by ``flash_dkv_sum_kernel``; both a
+   ``cp.async`` ring, the dq kernel also computing delta), the forward (o,
+   lse), the backward (dq, dk, dv; two launches, three with the split)
+   and the autograd Function, are held against their plain PyTorch
+   versions on the same CUDA tensors, at the training step's attention
+   shape (B=2, H=16, S=256, D=64, float32, causal; (B,S,H,D) tensors
+   passed as (B,H,S,D) views), over a sweep (GQA, MQA, windows,
+   bidirectional, bfloat16, D=128, S not a multiple of the tile), at
+   S=2048, 65 and 1, at the hybrid's, VLM's, encoder-decoder's and MoE's
+   shapes and at query and key lengths that differ (``FLASH_FAMILIES``:
+   Whisper's cross-attention Sq=256 / Sk=1500 and encoder S=1500, not
+   causal, bf16; Sq > Sk and Sq < Sk in float32; each also timed: kernel,
+   plain and SDPA beside its bound), and on misaligned views (storage
+   offset 1, odd sequence stride: the kernels' element-by-element copies);
+   two calls on the same inputs must give bit-identical o, lse, dq, dk and
+   dv (float32, bfloat16, and every family shape, the split ones
+   included). The summing kernel alone at Qwen2-VL's shape, bit for bit
+   against ``flash_dkv_sum_ref``, timed beside its bound. Each kernel's
+   block and dynamic shared memory and the dk/dv split at each family
+   shape (``flash_config``); kernel, plain and
+   ``scaled_dot_product_attention`` times (the last as a yardstick only:
+   the port never calls it) beside each bound, at the card's f32-accurate
+   tensor-core rate for f32 (3xTF32, 165 TFLOP/s). The build phase prints
+   each flash kernel's SASS opcode counts (``sass``).
 3b. quantize: the CUDA C++ ``quantize_plane`` and both ``dequant_mix``
    variants against their plain PyTorch versions on the same CUDA tensors,
    required BIT-IDENTICAL (q, scales, residual, output): at the int8 step's
@@ -366,23 +373,23 @@ FLASH_SWEEP = [  # (B, Hq, Hkv, S, D, causal, window, dtype)
     (2, 8, 8, 256, 128, True, 0, "float32"),     # D=128
     (2, 8, 4, 200, 64, True, 0, "float32"),      # S not a multiple of 64
     (1, 4, 2, 77, 128, False, 20, "bfloat16"),
-    (2, 32, 4, 256, 128, True, 0, "bfloat16"),   # the MoE step's (qwen3)
 ]
 # more flash cases (B, Hq, Hkv, S, D, causal, window, dtype): 32 trips round
 # the K/V ring, one row, and a full tile plus a ragged one. At S=1 the
 # softmax has one key, so dq and dk are 0 in exact arithmetic and both sides
 # are rounding noise of dP − delta: they are held to tol × max |dP| instead
 # of max |plain| (~1e-6).
-# The hybrid, VLM and encoder-decoder steps' shapes (per worker and forward
-# slice B = BATCH_PER_WORKER / R), and query and key lengths that differ:
-# S is then (Sq, Sk). Each is also timed (kernel, plain, SDPA) beside its
-# bound.
+# The hybrid, VLM, encoder-decoder and MoE steps' shapes (per worker and
+# forward slice B = BATCH_PER_WORKER / R), and query and key lengths that
+# differ: S is then (Sq, Sk). Each is also timed (kernel, plain, SDPA)
+# beside its bound.
 FLASH_FAMILIES = [
     (2, 20, 20, (256, 1500), 64, False, 0, "bfloat16"),  # whisper cross
     (2, 20, 20, 1500, 64, False, 0, "bfloat16"),  # whisper encoder
     (2, 20, 20, 256, 64, True, 0, "bfloat16"),    # whisper decoder
     (2, 32, 8, 256, 128, True, 0, "bfloat16"),    # jamba
     (2, 12, 2, 256, 128, True, 0, "bfloat16"),    # qwen2-vl
+    (2, 32, 4, 256, 128, True, 0, "bfloat16"),    # the MoE step's (qwen3)
     (1, 4, 2, (333, 129), 64, True, 0, "float32"),   # Sq > Sk
     (1, 4, 2, (97, 301), 64, False, 0, "float32"),   # Sq < Sk
 ]
@@ -549,6 +556,11 @@ def phase_build():
         emit("ptxas", source=f"src/repro_torch/csrc/{name}.cu",
              kernels=[{**r, "function": kernel_name(r["function"])}
                       for r in _build.ptxas_report(name)])
+    # what the flash kernels compiled to: HMMA forms, shared loads
+    # (LDS scalar, LDSM ldmatrix), conversions, per kernel (static counts)
+    emit("sass", source="src/repro_torch/csrc/flash_attention.cu",
+         kernels={kernel_name(k): v for k, v in _build.sass_counts(
+             built["flash_attention"][0], "flash").items()})
 
 
 def kernel_name(mangled: str) -> str:
@@ -1272,8 +1284,13 @@ def phase_flash(torch):
         check(all(same.values()), f"flash not deterministic: {same}")
         return same
 
-    emit("flash_config", kernels={str(dt).split(".")[-1]: fa.launch_config(
-        dt, 64) for dt in (torch.float32, torch.bfloat16)})
+    emit("flash_config", kernels={
+        f"{str(dt).split('.')[-1]}, D={D}": fa.launch_config(dt, D)
+        for dt in (torch.float32, torch.bfloat16) for D in (64, 128)},
+        dkv_split=[{"shape": c[:5], "dtype": c[7], "nsplit": fa.dkv_split(
+            *c[:3], *seq_lens(c[3]), getattr(torch, c[7]),
+            fa.sm_count(dev))} for c in FLASH_FAMILIES],
+        sm_count=fa.sm_count(dev))
     cases = [check_case(*c) for c in [FLASH_MAIN] + FLASH_SWEEP
              + FLASH_EXTRA]
     cases.append(check_case(*FLASH_MISALIGNED, make=misaligned))
@@ -1340,10 +1357,49 @@ def phase_flash(torch):
             B, Hq, Hkv, S, D, causal, window, itemsize, kind)
     del q, k, v, do, o, lse, args, sdpa_out
     families = [flash_times(torch, c, operands) for c in FLASH_FAMILIES]
+    rows["flash_dkv_sum"] = dkv_sum_row(torch, gen)
     emit("flash", main_shape=list(FLASH_MAIN), cases=cases,
          bit_identical_reruns=same, rows=rows, families=families)
     torch.cuda.empty_cache()
     return rows, families
+
+
+DKV_SUM_SHAPE = (2, 12, 2, 256, 128)  # B, Hq, Hkv, S, D: Qwen2-VL's step
+
+
+def dkv_sum_row(torch, gen) -> dict:
+    """The bf16 backward's summing kernel (``flash_dkv_sum_kernel``) alone
+    at Qwen2-VL's step shape, on seeded partial sums in its ``dkv_split``
+    parts: held bit for bit to ``flash_dkv_sum_ref`` (the same f32 adds in
+    the same order, then one rounding), kernel and plain times, and its
+    bound: the parts read once and dk, dv written once over HBM, or an add
+    a part and element and the scale over the f32 rate."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_dkv_sum_ref
+
+    B, Hq, Hkv, S, D = DKV_SUM_SHAPE
+    n = fa.dkv_split(B, Hq, Hkv, S, S, torch.bfloat16, fa.sm_count("cuda"))
+    check(n > 1, f"no dk/dv split at Qwen2-VL's shape ({n})")
+    part = torch.randn((2, n, B, Hkv, S, D), generator=gen, device="cuda")
+    dk, dv = (torch.empty((B, Hkv, S, D), dtype=torch.bfloat16,
+                          device="cuda") for _ in range(2))
+    fa.dkv_sum(part, dk, dv)
+    want = flash_dkv_sum_ref(part, D ** -0.5)
+    torch.cuda.synchronize()
+    check(torch.equal(dk, want[0]) and torch.equal(dv, want[1]),
+          "flash_dkv_sum differs from flash_dkv_sum_ref")
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip((dk, dv), want))
+    nbytes = part.numel() * 4 + 2 * dk.numel() * 2
+    flops = part.numel() + dk.numel()
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return {"shape": [B, Hq, Hkv, S, D], "nsplit": n, "max_abs_err": err,
+            "ms": time_ms(torch, lambda: fa.dkv_sum(part, dk, dv)),
+            "plain_ms": time_ms(torch, lambda: flash_dkv_sum_ref(
+                part, D ** -0.5)),
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
 
 
 def flash_times(torch, case, operands) -> dict:
@@ -1551,6 +1607,7 @@ def step_launches() -> dict:
     return {"gossip_mix": gm_kernel.launches,
             "flash_fwd": fa.fwd_launches, "flash_dq": fa.dq_launches,
             "flash_dkv": fa.dkv_launches,
+            "flash_dkv_sum": fa.dkv_sum_launches,
             "quantize_plane": qk.quantize_launches,
             "dequant_mix": qk.dequant_mix_launches,
             "rmsnorm": rk.launches, "ssd_scan": sk.launches}
@@ -5197,6 +5254,24 @@ def main(argv) -> int:
                      "launches": ssm["step_launches"][name],
                      "probe_launches": ssm["probe"]["launches"][name],
                      **norm_ssd[name]})
+    # the bf16 backward's summing kernel, #3's third launch where the dk/dv
+    # grid is split (dkv_split > 1): its main path is the bf16 families'
+    # steps, once a backward on the few-KV-head ones (MoE 4, Jamba 8,
+    # Qwen2-VL 2 KV heads), never on Whisper's 20
+    fam_runs = {"moe": moe, **{n: fam[f"train_{n}"]
+                               for n in ("hybrid", "vlm", "encdec")}}
+    sum_launches = {n: r["all_launches"]["flash_dkv_sum"]
+                    for n, r in fam_runs.items()}
+    for n, r in fam_runs.items():
+        want = 0 if n == "encdec" else r["all_launches"]["flash_dkv"]
+        check(sum_launches[n] == want, f"train_{n}: flash_dkv_sum launches "
+              f"{sum_launches[n]} != {want}")
+    rows.append({"name": "flash_dkv_sum", "route": "cuda",
+                 "source": "src/repro_torch/csrc/flash_attention.cu",
+                 "replaces": "src/repro/kernels/flash_attention.py:232",
+                 "launches": sum(sum_launches.values()),
+                 "family_launches": sum_launches,
+                 **flash["flash_dkv_sum"]})
     # the sim phase's launches (#2-#4: the loss) and the tune phase's (the
     # cutouts and the tuned backend's step: #1-#4), on every row
     for row in rows:

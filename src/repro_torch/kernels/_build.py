@@ -109,6 +109,55 @@ def parse_ptxas(text: str) -> list:
     return out
 
 
+# the SASS opcodes ``sass_counts`` reports: tensor-core products, shared
+# loads (scalar and ldmatrix), asynchronous copies, and the conversions and
+# byte permutes that feed the products
+SASS_OPS = ("HMMA", "LDSM", "LDS", "STS", "LDGSTS", "LDG", "STG", "F2F",
+            "F2FP", "PRMT", "I2F", "F2I", "MUFU", "SHFL", "BAR")
+
+
+def cuobjdump() -> str:
+    """``cuobjdump`` beside :func:`nvcc`."""
+    return str(Path(nvcc()).with_name("cuobjdump"))
+
+
+def sass_counts(library, prefix: str = "") -> dict:
+    """``{mangled kernel: {opcode: count}}`` of the SASS in a built library
+    (``cuobjdump -sass``), static counts over each whole kernel, for the
+    kernels whose mangled name contains ``prefix``: each opcode of
+    :data:`SASS_OPS` by its base name (``LDS`` does not count ``LDSM``),
+    every ``HMMA`` form by its full name (``HMMA.16816.F32.BF16``), and
+    ``total``."""
+    res = subprocess.run([cuobjdump(), "-sass", str(library)],
+                         capture_output=True, text=True, check=True)
+    return parse_sass(res.stdout, prefix)
+
+
+def parse_sass(text: str, prefix: str = "") -> dict:
+    """:func:`sass_counts` of ``cuobjdump -sass`` output."""
+    import re
+
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), {}) if prefix in m.group(1) \
+                else None
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                     r"([A-Z][A-Z0-9_]*)((?:\.[A-Z0-9_]+)*)", line)
+        if cur is None or not m:
+            continue
+        op = m.group(1)
+        cur["total"] = cur.get("total", 0) + 1
+        if op in SASS_OPS:
+            cur[op] = cur.get(op, 0) + 1
+        if op == "HMMA":
+            full = op + m.group(2)
+            cur[full] = cur.get(full, 0) + 1
+    return out
+
+
 def build_all(names=SOURCES) -> dict:
     """Compile several sources (default: all of :data:`SOURCES`) at once,
     one ``nvcc`` process each, all started together; returns ``{name:

@@ -113,6 +113,17 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=0):
             dv.to(v.dtype))
 
 
+def flash_dkv_sum_ref(part, scale, dtype=torch.bfloat16):
+    """The bf16 dk/dv kernel's partial sums added, as its summing kernel
+    adds them: ``part`` (2, n, B, Hkv, Sk, D) float32, dk's parts first;
+    each sum taken in part order 0, 1, ... in float32, dk times ``scale``,
+    both rounded to ``dtype``. Returns (dk, dv)."""
+    acc = part[:, 0].clone()
+    for j in range(1, part.shape[1]):
+        acc += part[:, j]
+    return (acc[0] * scale).to(dtype), acc[1].to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # int8 error-feedback wire (counterparts of quantize_plane_ref and
 # dequant_mix_ref in the JAX package's ref.py)

@@ -247,14 +247,15 @@ def test_chip_smoke_attention_bounds():
 
 
 # ---------------------------------------------------------------------------
-# The kernels' precision scheme, emulated: every product of the CUDA kernels
-# is an mma.sync on TF32 operands with f32 accumulation, in 3xTF32 for f32
-# operands (x = hi + lo, a·b ≈ lo_a·hi_b + hi_a·lo_b + hi_a·hi_b) and with
-# the products of a low part that is 0 (bf16 operands, exact in TF32) left
-# out. Here the same splits go into the plain formulas on the CPU, at the
-# training step's shape, and must meet chip_smoke.py's gates
-# (FLASH_TOL: 1e-5 of max |plain| forward, 1e-4 backward; bf16 adds one
-# bf16 ulp of each element).
+# The kernels' precision scheme, emulated. float32: every product is an
+# mma.sync on TF32 operands with f32 accumulation, in 3xTF32 (x = hi + lo,
+# a·b ≈ lo_a·hi_b + hi_a·lo_b + hi_a·hi_b). bfloat16: every product is an
+# mma.sync m16n8k16 on bf16 operands with f32 accumulation; Q·Kᵀ and dO·Vᵀ
+# take one (both operands bf16, the products exact), and a product with P
+# or dS (f32) takes two, P = hi + lo with hi = bf16(P), lo = bf16(P − hi)
+# (lo·X first). Here the same splits go into the plain formulas on the CPU
+# and must meet chip_smoke.py's gates (FLASH_TOL: 1e-5 of max |plain|
+# forward, 1e-4 backward; bf16 adds one bf16 ulp of each element).
 # ---------------------------------------------------------------------------
 
 SCHEME_SHAPE = (2, 16, 16, 256, 64)  # B, Hq, Hkv, S, D: the step's call
@@ -274,9 +275,22 @@ def _parts(x, exact):
     return hi, _tf32(x - hi)
 
 
-def _mm(eq, a, b, a_exact=False, b_exact=False, passes=3):
+def _bf16_terms(x, terms):
+    """x (f32) as ``terms`` bf16 terms, the small one first: [lo, hi] with
+    hi = bf16(x) and lo = bf16(x − hi), or [hi]."""
+    hi = x.to(torch.bfloat16).float()
+    return [hi] if terms == 1 else [(x - hi).to(torch.bfloat16).float(), hi]
+
+
+def _mm(eq, a, b, a_exact=False, b_exact=False, passes=3, bf16=None):
     """einsum as the kernels' mma.sync products compute it: passes=3 is
-    3xTF32 (small terms first), passes=1 one TF32 product."""
+    3xTF32 (small terms first), passes=1 one TF32 product; ``bf16`` (the
+    bf16 kernels) the number of bf16 terms of a (b is bf16), lo·b first."""
+    if bf16 is not None:
+        out = torch.zeros(())
+        for part in _bf16_terms(a, 1 if a_exact else bf16):
+            out = out + torch.einsum(eq, part, b)
+        return out
     (ah, al), (bh, bl) = _parts(a, a_exact), _parts(b, b_exact)
     if passes == 1:
         ah, bh = _tf32(a), _tf32(b)
@@ -289,33 +303,35 @@ def _mm(eq, a, b, a_exact=False, b_exact=False, passes=3):
     return out + torch.einsum(eq, ah, bh)
 
 
-def _scheme_fwd(q, k, v, exact, passes=3):
-    """o, lse with the kernels' products; q (B,Hkv,G,S,D), k, v (B,Hkv,S,D)
-    in f32 (values of the working dtype)."""
-    S, D = q.shape[-2], q.shape[-1]
-    s = _mm("bhgqd,bhkd->bhgqk", q, k, exact, exact, passes) * D ** -0.5
-    s = torch.where(ref._mask(S, S, True, 0, q.device), s,
+def _scheme_fwd(q, k, v, exact, passes=3, causal=True, bf16=None):
+    """o, lse with the kernels' products; q (B,Hkv,G,Sq,D), k, v
+    (B,Hkv,Sk,D) in f32 (values of the working dtype); ``bf16``: the bf16
+    kernels' products with P in that many bf16 terms."""
+    Sq, Sk, D = q.shape[-2], k.shape[-2], q.shape[-1]
+    s = _mm("bhgqd,bhkd->bhgqk", q, k, exact, exact, passes,
+            bf16) * D ** -0.5
+    s = torch.where(ref._mask(Sq, Sk, causal, 0, q.device), s,
                     torch.full((), ref.NEG_INF))
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
-    o = _mm("bhgqk,bhkd->bhgqd", p, v, False, exact, passes) / l
+    o = _mm("bhgqk,bhkd->bhgqd", p, v, False, exact, passes, bf16) / l
     return o, (m + torch.log(l))[..., 0]
 
 
-def _scheme_bwd(q, k, v, o, lse, do, exact):
+def _scheme_bwd(q, k, v, o, lse, do, exact, causal=True, bf16=None):
     """dq, dk, dv with the kernels' products and delta = rowsum(do·o)."""
-    S, D = q.shape[-2], q.shape[-1]
+    Sq, Sk, D = q.shape[-2], k.shape[-2], q.shape[-1]
     scale = D ** -0.5
-    s = _mm("bhgqd,bhkd->bhgqk", q, k, exact, exact) * scale
-    p = torch.where(ref._mask(S, S, True, 0, q.device),
+    s = _mm("bhgqd,bhkd->bhgqk", q, k, exact, exact, bf16=bf16) * scale
+    p = torch.where(ref._mask(Sq, Sk, causal, 0, q.device),
                     torch.exp(s - lse[..., None]), torch.zeros(()))
     delta = (do * o).sum(-1, keepdim=True)
-    dp = _mm("bhgqd,bhkd->bhgqk", do, v, exact, exact)
+    dp = _mm("bhgqd,bhkd->bhgqk", do, v, exact, exact, bf16=bf16)
     ds = p * (dp - delta)
-    dq = _mm("bhgqk,bhkd->bhgqd", ds, k, False, exact) * scale
-    dk = _mm("bhgqk,bhgqd->bhkd", ds, q, False, exact) * scale
-    dv = _mm("bhgqk,bhgqd->bhkd", p, do, False, exact)
+    dq = _mm("bhgqk,bhkd->bhgqd", ds, k, False, exact, bf16=bf16) * scale
+    dk = _mm("bhgqk,bhgqd->bhkd", ds, q, False, exact, bf16=bf16) * scale
+    dv = _mm("bhgqk,bhgqd->bhkd", p, do, False, exact, bf16=bf16)
     return dq, dk, dv
 
 
@@ -328,9 +344,9 @@ def _gate(got, want, tol, ulp=0.0):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_precision_scheme_meets_chip_gates(dtype):
-    """3xTF32 (f32) or one and two TF32 products (bf16, P and dS kept in
-    f32) at the main shape: o, lse, dq, dk and dv within the gates with a
-    margin; for f32 a single TF32 product would not be."""
+    """3xTF32 (f32) or the bf16 kernels' products (one bf16 product, two
+    for P and dS) at the main shape: o, lse, dq, dk and dv within the
+    gates with a margin; for f32 a single TF32 product would not be."""
     B, Hq, Hkv, S, D = SCHEME_SHAPE
     dt = getattr(torch, dtype)
     exact = dtype == "bfloat16"
@@ -344,9 +360,10 @@ def test_kernel_precision_scheme_meets_chip_gates(dtype):
 
     qg, og, dog = grouped(q), grouped(o_r), grouped(do)
     kf, vf = k.float(), v.float()
-    o, lse = _scheme_fwd(qg, kf, vf, exact)
+    bf16 = 2 if exact else None
+    o, lse = _scheme_fwd(qg, kf, vf, exact, bf16=bf16)
     dq, dk, dv = _scheme_bwd(qg, kf, vf, og, grouped(lse_r[..., None])[..., 0],
-                             dog, exact)
+                             dog, exact, bf16=bf16)
     shares = {
         "o": _gate(o.reshape(q.shape).to(dt), o_r, 1e-5, ulp),
         "lse": _gate(lse.reshape(lse_r.shape), lse_r, 1e-5),
@@ -358,6 +375,121 @@ def test_kernel_precision_scheme_meets_chip_gates(dtype):
     if not exact:
         o1, _ = _scheme_fwd(qg, kf, vf, exact, passes=1)
         assert _gate(o1.reshape(q.shape), o_r, 1e-5) > 1.0
+
+
+# The bf16 families' step shapes (chip_smoke.py FLASH_FAMILIES and the MoE
+# step's) cut to B=1 and two kv groups, each keeping its query heads a
+# group, D, causal flag and Sq, Sk: (Hq, Hkv, Sq, Sk, D, causal)
+BF16_FAMILY_CUTS = {
+    "whisper-cross": (2, 2, 256, 1500, 64, False),
+    "whisper-encoder": (2, 2, 1500, 1500, 64, False),
+    "whisper-decoder": (2, 2, 256, 256, 64, True),
+    "jamba": (8, 2, 256, 256, 128, True),
+    "qwen2-vl": (12, 2, 256, 256, 128, True),
+    "qwen3-moe": (16, 2, 256, 256, 128, True),
+}
+
+
+def _bf16_family_shares(name, terms=2, seed=21):
+    """Each output's largest error as a share of its bf16 gate, the bf16
+    kernels' products (P and dS in ``terms`` bf16 terms) against the plain
+    versions, at a family's cut shape."""
+    Hq, Hkv, Sq, Sk, D, causal = BF16_FAMILY_CUTS[name]
+    rng = np.random.default_rng(seed)
+    q, do = (torch.from_numpy(rng.standard_normal(
+        (1, Hq, Sq, D), dtype=np.float32)).bfloat16() for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal(
+        (1, Hkv, Sk, D), dtype=np.float32)).bfloat16() for _ in range(2))
+    o_r, lse_r = ref.flash_attention_ref(q, k, v, causal=causal)
+    want = ref.flash_attention_bwd_ref(q, k, v, o_r, lse_r, do,
+                                       causal=causal)
+
+    def grouped(x):
+        return x.float().reshape(1, Hkv, Hq // Hkv, Sq, -1)
+
+    o, lse = _scheme_fwd(grouped(q), k.float(), v.float(), True,
+                         causal=causal, bf16=terms)
+    dq, dk, dv = _scheme_bwd(grouped(q), k.float(), v.float(), grouped(o_r),
+                             grouped(lse_r[..., None])[..., 0], grouped(do),
+                             True, causal=causal, bf16=terms)
+    ulp = 2.0 ** -7
+    return {
+        "o": _gate(o.reshape(q.shape).bfloat16(), o_r, 1e-5, ulp),
+        "lse": _gate(lse.reshape(lse_r.shape), lse_r, 1e-5),
+        "dq": _gate(dq.reshape(q.shape).bfloat16(), want[0], 1e-4, ulp),
+        "dk": _gate(dk.bfloat16(), want[1], 1e-4, ulp),
+        "dv": _gate(dv.bfloat16(), want[2], 1e-4, ulp),
+    }
+
+
+@pytest.mark.parametrize("name", list(BF16_FAMILY_CUTS))
+def test_bf16_scheme_meets_chip_gates_at_family_shapes(name):
+    """The bf16 kernels' products (Q·Kᵀ and dO·Vᵀ one bf16 product; P and
+    dS two bf16 terms) meet the unchanged bf16 gates at every family's
+    cut shape."""
+    shares = _bf16_family_shares(name)
+    assert max(shares.values()) <= 1.0, shares
+
+
+def test_bf16_single_term_p_fails_the_o_gate():
+    """The control: P (and dS) rounded to one bf16 term, as FlashAttention
+    does, exceeds the o gate at Whisper's cross-attention shape, where the
+    second term keeps it."""
+    assert _bf16_family_shares("whisper-cross", terms=1)["o"] > 1.0
+
+
+def test_bf16_scheme_matches_pallas():
+    """The bf16 scheme against the JAX Pallas kernels in interpret mode on
+    the same bf16 inputs (GQA, causal): o and lse to the forward gates,
+    dq, dk, dv (from the Pallas forward's o and lse) to the backward's."""
+    B, Hq, Hkv, S, D = 1, 4, 2, 128, 64
+    q, k, v, do = (x.astype(jnp.bfloat16) for x in map(
+        jnp.asarray, _inputs(B, Hq, Hkv, S, D, seed=31)))
+    jo, jlse = jax_flash_fwd(q, k, v, causal=True, block_q=64, block_k=64,
+                             interpret=True, return_lse=True)
+    jd = jax_flash_bwd(q, k, v, jo, jlse, do, causal=True, block_q=64,
+                       block_k=64, interpret=True)
+
+    def t(x):
+        return torch.from_numpy(np.asarray(x.astype(jnp.float32)))
+
+    def grouped(x):
+        return x.reshape(B, Hkv, Hq // Hkv, S, -1)
+
+    qf, kf, vf, dof, jof = map(t, (q, k, v, do, jo))
+    o, lse = _scheme_fwd(grouped(qf), kf, vf, True, bf16=2)
+    dq, dk, dv = _scheme_bwd(grouped(qf), kf, vf, grouped(jof),
+                             grouped(t(jlse)[..., None])[..., 0],
+                             grouped(dof), True, bf16=2)
+    ulp = 2.0 ** -7
+    shares = {
+        "o": _gate(o.reshape(qf.shape).bfloat16(), t(jo), 1e-5, ulp),
+        "lse": _gate(lse.reshape(B, Hq, S), t(jlse), 1e-5),
+        "dq": _gate(dq.reshape(qf.shape).bfloat16(), t(jd[0]), 1e-4, ulp),
+        "dk": _gate(dk.bfloat16(), t(jd[1]), 1e-4, ulp),
+        "dv": _gate(dv.bfloat16(), t(jd[2]), 1e-4, ulp),
+    }
+    assert max(shares.values()) <= 1.0, shares
+
+
+def test_dkv_split_fills_the_card_under_gqa():
+    """The bf16 dk/dv grid's split, a pure function of the shape and the
+    SM count (132 on an H100): 1 where B·Hkv·ceil(Sk/64) blocks already
+    fill the card (Whisper's 20 KV heads) and for float32; past 1 at the
+    few-KV-head families, as many parts as keep the grid within one block
+    an SM and at most one part for every two (head, query tile)
+    iterations."""
+    split, bf = fa_kernel.dkv_split, torch.bfloat16
+    assert split(2, 20, 20, 256, 1500, bf, 132) == 1   # whisper cross
+    assert split(2, 20, 20, 1500, 1500, bf, 132) == 1  # whisper encoder
+    assert split(2, 20, 20, 256, 256, bf, 132) == 1    # whisper decoder
+    assert split(2, 12, 2, 256, 256, bf, 132) == 8     # qwen2-vl: 16 blocks
+    assert split(2, 32, 4, 256, 256, bf, 132) == 4     # qwen3-moe: 32
+    assert split(2, 32, 8, 256, 256, bf, 132) == 2     # jamba: 64
+    assert split(2, 12, 2, 256, 256, torch.float32, 132) == 1
+    assert split(1, 2, 1, 64, 64, bf, 132) == 1        # 2 iterations
+    assert split(1, 4, 1, 128, 64, bf, 132) == 4       # 8 iterations
+    assert [split(2, 12, 2, 256, 256, bf, 132) for _ in range(3)] == [8] * 3
 
 
 # ---------------------------------------------------------------------------
@@ -461,11 +593,45 @@ def test_wrapper_argument_lists_match_signatures(fake_lib):
     fa_kernel.reset_launches()
 
 
+def test_bf16_split_backward_adds_the_parts(fake_lib, monkeypatch):
+    """bf16 at a few KV heads: dq, dk/dv with ``nsplit`` = ``dkv_split``
+    and a float32 (2, nsplit, B, Hkv, Sk, D) buffer of partial sums, then
+    the summing kernel on that buffer, dk and dv; each counted once, the
+    sum on a counter of its own."""
+    monkeypatch.setattr(fa_kernel, "sm_count", lambda device: 132)
+    B, Hq, Hkv, S, D = 2, 12, 2, 256, 128
+    q, k, v, do = (t.bfloat16() for t in _t(*_inputs(B, Hq, Hkv, S, D,
+                                                      seed=2)))
+    o, lse = q.clone(), torch.zeros(B, Hq, S)
+    fa_kernel.reset_launches()
+    dq, dk, dv = fa_kernel.flash_attention_bwd(q, k, v, o, lse, do)
+    assert [n for n, _ in fake_lib.calls] == [
+        "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+        "flash_attention_dkv_sum"]
+    (_, a_dq), (_, a_dkv), (_, a_sum) = fake_lib.calls
+    for n, a in fake_lib.calls:
+        _check_signature(n, a)
+    nsplit = fa_kernel.dkv_split(B, Hq, Hkv, S, S, torch.bfloat16, 132)
+    assert nsplit == 8 and a_dkv[36] == nsplit and a_dkv[37] != 0
+    assert list(a_sum[:7]) == [1, D, B, Hkv, S, nsplit, a_dkv[37]]
+    assert a_sum[7] == dk.data_ptr() and a_sum[11] == dv.data_ptr()
+    assert (fa_kernel.fwd_launches, fa_kernel.dq_launches,
+            fa_kernel.dkv_launches, fa_kernel.dkv_sum_launches) == (
+                0, 1, 1, 1)
+    fake_lib.calls.clear()
+    fa_kernel.flash_attention_bwd(q.float(), k.float(), v.float(), o.float(),
+                                  lse, do.float())
+    assert [a[36] for n, a in fake_lib.calls
+            if n == "flash_attention_bwd_dkv"] == [1]
+    assert fa_kernel.dkv_sum_launches == 1
+    fa_kernel.reset_launches()
+
+
 def test_launch_config_reads_the_library(fake_lib):
     """``launch_config`` asks the library for each kernel's block and
     shared memory: kind 0 fwd, 1 dq, 2 dk/dv, with the dtype code and D."""
     cfg = fa_kernel.launch_config(torch.bfloat16, 64)
-    assert list(cfg) == list(fa_kernel.KERNELS)
+    assert list(cfg) == list(fa_kernel.KERNELS[torch.bfloat16])
     assert [list(a[:3]) for _, a in fake_lib.calls] == [[0, 1, 64], [1, 1, 64],
                                                   [2, 1, 64]]
     assert all(n == "flash_attention_config" for n, _ in fake_lib.calls)
@@ -503,3 +669,34 @@ def test_ptxas_report_parses_registers_and_spills(monkeypatch, tmp_path):
         {"function": "_Z3barv", "registers": 40, "static_smem_bytes": 0,
          "spill_stores": 0, "spill_loads": 0}]
     assert (tmp_path / "runs").read_text().count("run") == 1  # one compile
+
+
+def test_sass_counts_parse_cuobjdump_output():
+    """``_build.parse_sass`` counts each kernel's opcodes from ``cuobjdump
+    -sass`` text: the base names of ``SASS_OPS`` (``LDS`` apart from
+    ``LDSM``), every HMMA form by its full name, predicated instructions
+    included, and only the kernels whose mangled name has the prefix."""
+    text = (
+        "\tcode for sm_90a\n"
+        "\t\tFunction : _ZN12_GLOBAL__N_121flash_fwd_bf16_kernelILi64ELi2ELi2E"
+        "EEvNS_6ParamsE\n"
+        "\t.headerflags\t@\"EF_CUDA_TEXMODE_UNIFIED\"\n"
+        "        /*0000*/                   LDC R1, c[0x0][0x28] ;\n"
+        "        /*0010*/                   LDSM.16.M88.4 R8, [R3] ;\n"
+        "        /*0020*/              @!P0 LDSM.16.MT88.4 R12, [R3+0x80] ;\n"
+        "        /*0030*/                   LDS.U16 R4, [R2] ;\n"
+        "        /*0040*/                   HMMA.16816.F32.BF16 R20, R8, R12,"
+        " R20 ;\n"
+        "        /*0050*/                   HMMA.1688.F32.TF32 R24, R8, R12, "
+        "R24 ;\n"
+        "        /*0060*/                   F2FP.BF16.F32.PACK_AB R5, R6, R7 ;\n"
+        "\t\tFunction : _Z3foov\n"
+        "        /*0000*/                   HMMA.16816.F32.BF16 R0, R0, R0, "
+        "R0 ;\n")
+    assert _build.parse_sass(text, "flash") == {
+        "_ZN12_GLOBAL__N_121flash_fwd_bf16_kernelILi64ELi2ELi2EEEvNS_6ParamsE":
+            {"total": 7, "LDSM": 2, "LDS": 1, "HMMA": 2,
+             "HMMA.16816.F32.BF16": 1, "HMMA.1688.F32.TF32": 1, "F2FP": 1}}
+    assert set(_build.parse_sass(text)) == {
+        "_ZN12_GLOBAL__N_121flash_fwd_bf16_kernelILi64ELi2ELi2EEEvNS_6ParamsE",
+        "_Z3foov"}
