@@ -41,8 +41,8 @@ from repro_torch.core.api import (DistAlgorithm, get_algorithm,
                                   make_sim_trainer)
 from repro_torch.core.simulator import EventSimulator, HardwareModel, SimResult
 from repro_torch.device import resolve_device
-from repro_torch.launch.pipeline import (StageTimeline,
-                                         make_pipeline_backend_trainer)
+from repro_torch.launch.pipeline import make_pipeline_backend_trainer
+from repro_torch.launch.timeline import StageTimeline
 from repro_torch.launch.train import make_decoupled_backend_trainer
 
 # event-time model for algorithms whose numeric semantics differ from their

@@ -65,9 +65,6 @@ stepped with the global batch.
 """
 from __future__ import annotations
 
-import json
-import threading
-import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -80,6 +77,8 @@ from repro_torch.core.layerview import FlatPartition, send_fractions
 from repro_torch.core.pytree import tree_map
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import WorkerMesh
+from repro_torch.launch.timeline import (StageTimeline, _block, _is_ready,
+                                         in_span, span)
 from repro_torch.launch.train import (_check_wire, _decoupled_metrics,
                                       _gossip_lanes, _local_fn,
                                       _mesh_workers, _ring_exchange,
@@ -107,239 +106,6 @@ def record_fence(device: torch.device):
     ev = torch.cuda.Event()
     ev.record()
     return ev
-
-
-def _is_ready(fence) -> bool:
-    """Non-blocking probe: ``Event.query()``, or ``is_ready()`` of another
-    fence object; ``None`` is ready."""
-    if fence is None:
-        return True
-    query = getattr(fence, "query", None)
-    return bool(query() if query is not None else fence.is_ready())
-
-
-def _block(fence) -> None:
-    """Wait on the host until the fence's work is done."""
-    sync = getattr(fence, "synchronize", None)
-    if sync is not None:
-        sync()
-
-
-# ---------------------------------------------------------------------------
-# stage timeline: measured dispatch/complete timestamps + overlap accounting
-# ---------------------------------------------------------------------------
-
-
-class StageTimeline:
-    """Host-side record of every stage dispatch and stage execution.
-
-    Two kinds of events share the list:
-
-    * **dispatch events** (:class:`PipelineEngine`, via ``begin``/
-      ``commit``): ``{stage, step, slice, dispatch, complete,
-      concurrent}``. ``dispatch`` is stamped when the host starts the
-      stage, ``concurrent`` lists the ``(stage, step, slice)`` triples whose
-      fences were NOT ready at that moment (the host ran ahead of the
-      card), and ``complete`` is the first time the fence was seen ready
-      (polled at later dispatches and at ``finalize()``): an upper bound on
-      the true completion.
-    * **execution events** (:class:`~repro_torch.launch.streams.
-      StreamEngine`, via ``record_exec``): the same shape plus ``{stream,
-      enqueue, exec_start, wait_s[, group]}``. ``[exec_start, complete]``
-      is the stage's execution span on its stream (on the card: a pair of
-      CUDA events around it, placed on the host clock), so spans of
-      different streams interleave exactly when the card ran two stages at
-      once. ``dispatch`` is set to ``exec_start`` and ``concurrent`` to
-      ``[]``; ``wait_s`` is the host time the task spent waiting for its
-      inputs' producers before it launched."""
-
-    def __init__(self, clock: Callable[[], float] = time.perf_counter):
-        self._clock = clock
-        self._lock = threading.Lock()
-        self.events: List[Dict[str, Any]] = []
-        self._pending: List[Tuple[Dict[str, Any], Any]] = []
-
-    @property
-    def clock(self) -> Callable[[], float]:
-        return self._clock
-
-    def begin(self, stage: str, step: int, slice_idx=None) -> Dict[str, Any]:
-        """Open an event as the stage starts: timestamp + snapshot of the
-        stages still in flight. Pair with :meth:`commit`."""
-        now = self._clock()
-        self.poll(now)
-        concurrent = [(e["stage"], e["step"], e["slice"])
-                      for e, _ in self._pending]
-        ev = {"stage": stage, "step": int(step), "slice": slice_idx,
-              "dispatch": now, "complete": None, "concurrent": concurrent}
-        self.events.append(ev)
-        return ev
-
-    def commit(self, ev: Dict[str, Any], fence) -> None:
-        """Attach the dispatched stage's fence to its event."""
-        self._pending.append((ev, fence))
-        self.poll()
-
-    def record_exec(self, stage: str, step: int, *, stream: str,
-                    enqueue: Optional[float], exec_start: float,
-                    complete: float, wait_s: float = 0.0,
-                    slice_idx=None, group: Optional[str] = None) -> None:
-        """Record one finished stage execution (a closed span). Thread-safe:
-        stream threads record while the host reads ``summary``."""
-        ev = {"stage": stage, "step": int(step), "slice": slice_idx,
-              "dispatch": exec_start, "complete": complete,
-              "concurrent": [], "stream": stream, "enqueue": enqueue,
-              "exec_start": exec_start, "wait_s": float(wait_s)}
-        if group is not None:
-            ev["group"] = group
-        with self._lock:
-            self.events.append(ev)
-
-    def poll(self, now: Optional[float] = None) -> None:
-        if not self._pending:
-            return
-        now = self._clock() if now is None else now
-        still = []
-        for ev, fence in self._pending:
-            if _is_ready(fence):
-                ev["complete"] = now
-            else:
-                still.append((ev, fence))
-        self._pending = still
-
-    def finalize(self) -> None:
-        """Block on every outstanding fence and close its event."""
-        for ev, fence in self._pending:
-            _block(fence)
-            ev["complete"] = self._clock()
-        self._pending = []
-
-    def reset(self) -> None:
-        """Drop all recorded events (finalizing outstanding ones first), for
-        backends that re-init and measure a fresh run."""
-        self.finalize()
-        with self._lock:
-            self.events = []
-
-    def summary(self) -> Dict[str, Any]:
-        """Aggregate the recorded events. Returned fields:
-
-        * ``events``: events recorded (pending ones too); ``steps``:
-          ``max(step) + 1`` over closed events; ``wall_s``: first dispatch to
-          last completion.
-        * ``stage_s``: summed ``complete − dispatch`` per stage name (stages
-          overlap, so the values can sum past ``wall_s``).
-        * ``overlap_events`` / ``overlap_s``: dispatch-level run-ahead,
-          events whose start found any stage still in flight and the summed
-          window each overlapped (how far the host ran ahead, not proof of
-          concurrent execution).
-        * ``fwd_gossip_overlap_s``: step ``t``'s forwards dispatched while
-          step ``t−1``'s gossip was in flight, once per adjacent step pair.
-        * ``streams``: distinct execution streams that recorded events (1 for
-          the single-stream engine).
-        * ``exec_overlap_s``: measured execution concurrency: each stream's
-          ``[exec_start, complete]`` spans merged into busy intervals, the
-          integral of ``(busy_streams − 1)`` over time; zero unless two
-          streams executed at the same instant.
-        * ``stream_busy_s``: per-stream merged busy time.
-        * ``signal_wait_s``: summed time stream tasks waited for their
-          inputs' producers before launching."""
-        with self._lock:
-            events = list(self.events)
-        evs = [e for e in events if e["complete"] is not None]
-        out: Dict[str, Any] = {
-            "events": len(events), "steps": 0, "wall_s": 0.0,
-            "overlap_events": 0, "overlap_s": 0.0,
-            "fwd_gossip_overlap_s": 0.0, "stage_s": {},
-            "streams": 1, "exec_overlap_s": 0.0, "stream_busy_s": {},
-            "signal_wait_s": 0.0,
-        }
-        if not evs:
-            return out
-        t0 = min(e["dispatch"] for e in evs)
-        out["steps"] = max(e["step"] for e in evs) + 1
-        out["wall_s"] = max(e["complete"] for e in evs) - t0
-        stage_s: Dict[str, float] = {}
-        for e in evs:
-            stage_s[e["stage"]] = (stage_s.get(e["stage"], 0.0)
-                                   + e["complete"] - e["dispatch"])
-        out["stage_s"] = stage_s
-        index = {(e["stage"], e["step"], e["slice"]): e for e in evs}
-        overlap = 0.0
-        overlap_events = 0
-        # the paper's overlap: step t's forward slices dispatched while step
-        # t−1's gossip is still in flight, each gossip counted once, from the
-        # EARLIEST forward that found it unretired
-        first_fwd: Dict[int, Dict[str, Any]] = {}
-        for e in evs:
-            window = 0.0
-            for key in e["concurrent"]:
-                g = index.get(tuple(key))
-                if g is None or g["complete"] is None:
-                    continue
-                window = max(window, min(g["complete"], e["complete"])
-                             - e["dispatch"])
-                if (e["stage"] == "fwd" and key[0] == "gossip"
-                        and key[1] == e["step"] - 1
-                        and e["step"] not in first_fwd):
-                    first_fwd[e["step"]] = e
-            if e["concurrent"]:
-                overlap_events += 1
-                overlap += max(0.0, window)
-        fwd_gossip = 0.0
-        for t_step, e in first_fwd.items():
-            g = index[("gossip", t_step - 1, None)]
-            fwd_gossip += max(0.0, min(g["complete"], e["complete"])
-                              - e["dispatch"])
-        out["overlap_events"] = overlap_events
-        out["overlap_s"] = overlap
-        out["fwd_gossip_overlap_s"] = fwd_gossip
-
-        # per-stream execution accounting: merge each stream's spans into
-        # busy intervals, then sweep the endpoints counting the DISTINCT
-        # busy streams; same-stream pipelining contributes nothing
-        sevs = [e for e in evs if e.get("stream")]
-        if sevs:
-            busy: Dict[str, List[List[float]]] = {}
-            for e in sorted(sevs, key=lambda e: e["exec_start"]):
-                iv = busy.setdefault(e["stream"], [])
-                if iv and e["exec_start"] <= iv[-1][1]:
-                    iv[-1][1] = max(iv[-1][1], e["complete"])
-                else:
-                    iv.append([e["exec_start"], e["complete"]])
-            out["streams"] = len(busy)
-            out["stream_busy_s"] = {
-                n: sum(c - s for s, c in iv) for n, iv in busy.items()}
-            out["signal_wait_s"] = sum(e.get("wait_s", 0.0) for e in sevs)
-            edges = sorted((t, d) for iv in busy.values()
-                           for s, c in iv for t, d in ((s, 1), (c, -1)))
-            k, last, exec_overlap = 0, 0.0, 0.0
-            for t, d in edges:
-                if k > 1:
-                    exec_overlap += (t - last) * (k - 1)
-                k, last = k + d, t
-            out["exec_overlap_s"] = exec_overlap
-        return out
-
-    def dump(self, path: str) -> str:
-        """Write the events (times relative to the first dispatch) and the
-        summary as JSON."""
-        s = self.summary()
-        with self._lock:
-            snap = list(self.events)
-        t0 = min((e["dispatch"] for e in snap), default=0.0)
-        rel = lambda v: None if v is None else v - t0  # noqa: E731
-        events = [{**e,
-                   "dispatch": e["dispatch"] - t0,
-                   "complete": rel(e["complete"]),
-                   "concurrent": [list(c) for c in e["concurrent"]],
-                   **({"enqueue": rel(e.get("enqueue")),
-                       "exec_start": e["exec_start"] - t0}
-                      if "stream" in e else {})}
-                  for e in snap]
-        with open(path, "w") as f:
-            json.dump({"summary": s, "events": events}, f, indent=1)
-        return path
 
 
 # ---------------------------------------------------------------------------
@@ -397,6 +163,7 @@ def _stage_bodies(part: FlatPartition, R: int, M: int, device,
     update_mesh = mesh if update_mesh is None else update_mesh
     phi = torch.from_numpy(send_fractions(part.num_groups)).to(device)
     loc = _local_fn(mesh)
+    row_elements = sum(part.group_sizes.values())
 
     def make_fwd_body(r):
         lane = fwd_slices[r]
@@ -407,9 +174,10 @@ def _stage_bodies(part: FlatPartition, R: int, M: int, device,
             losses = []
             for m in range(next(iter(read.values())).shape[0]):
                 loss_m, g_m = lane(part.unpack(_rows(read, m)),
-                                   _rows(batch, m))
+                                   _rows(batch, m), worker=m)
                 if grads is not None:
-                    part.pack(g_m, out=_rows(grads, m))
+                    with span("pack", worker=m, work=row_elements):
+                        part.pack(g_m, out=_rows(grads, m))
                 del g_m
                 losses.append(loss_m)
             return losses, grads
@@ -418,16 +186,18 @@ def _stage_bodies(part: FlatPartition, R: int, M: int, device,
 
     def update_body(write, opt_state, fifo, grads, theta, step_idx,
                     alive=None):
-        active = loc(active_fn(step_idx)) if active_fn is not None else None
-        out = upd(write, opt_state, grads, fifo, step_idx, active=active,
-                  theta=theta)
-        if update_mesh is not None:
-            out = out[:4] + (update_mesh.all_reduce_sum_(out[4]),) \
-                + tuple(out[5:])
-        if alive is None:
-            return out
-        return (gate_update(out[0], None if fused else write, loc(alive)),) \
-            + tuple(out[1:])
+        with span("update", step=step_idx, work=write):
+            active = (loc(active_fn(step_idx)) if active_fn is not None
+                      else None)
+            out = upd(write, opt_state, grads, fifo, step_idx, active=active,
+                      theta=theta)
+            if update_mesh is not None:
+                out = out[:4] + (update_mesh.all_reduce_sum_(out[4]),) \
+                    + tuple(out[5:])
+            if alive is None:
+                return out
+            return (gate_update(out[0], None if fused else write,
+                                loc(alive)),) + tuple(out[1:])
 
     def stamp(versions, step_idx, alive):
         if M == 1:  # one worker receives nothing
@@ -491,9 +261,10 @@ def _make_stages(bodies) -> Dict[str, Any]:
 
     def gossip_stage(write, lane_out, resid, w, versions, losses, upd_stale,
                      skips, step_idx, shift_idx, alive=None, mask=None):
-        mixed, resid, w, versions = gossip(write, lane_out, resid, w,
-                                           versions, step_idx, shift_idx,
-                                           alive=alive)
+        with span("gossip", step=step_idx, work=write):
+            mixed, resid, w, versions = gossip(write, lane_out, resid, w,
+                                               versions, step_idx, shift_idx,
+                                               alive=alive)
         metrics = metrics_fn(losses, w, versions, upd_stale, step_idx, skips,
                              alive, mask)
         return mixed, resid, w, versions, metrics
@@ -680,9 +451,10 @@ class PipelineStep:
     chaos: Any = None
 
     def fn(self, state, batch, step_idx, shift_idx):
-        if self.split_batch is not None:
-            batch = self.split_batch(batch)
-        return self.engine.step(state, batch, step_idx, shift_idx)
+        with span("step", step=int(step_idx)):
+            if self.split_batch is not None:
+                batch = self.split_batch(batch)
+            return self.engine.step(state, batch, step_idx, shift_idx)
 
     @property
     def timeline(self) -> StageTimeline:
@@ -968,6 +740,8 @@ def make_pipeline_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
                            params_single)
         if "engine" not in box:
             box["engine"], box["part"] = build(params_single)
+            # the plane's elements, the drift span's work
+            box["elements"] = L * sum(box["part"].group_sizes.values())
         return make_decoupled_state(stacked, optimizer, update_delay=D,
                                     part=box["part"], wire=wire,
                                     compensate=compensate,
@@ -976,7 +750,11 @@ def make_pipeline_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
     def step_fn(state, batch, step_idx, shift_idx):
         if "engine" not in box:
             raise RuntimeError("call init_fn before step_fn")
-        eng = box["engine"]
+        with span("step", step=int(step_idx)):
+            return engine_step(box["engine"], state, batch, int(step_idx),
+                               shift_idx)
+
+    def engine_step(eng, state, batch, step_idx, shift_idx):
         batch = rank_rows(to_torch(batch, device), ring)
         if "batch_abs" not in box:
             # the forward batch signature, learnt from the first batch
@@ -987,18 +765,18 @@ def make_pipeline_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
         state, metrics = eng.step(state, batch, step_idx, shift_idx)
         if measure_drift:
             from repro_torch.core.api import disagreement
-            drift = torch.no_grad()(lambda read, w: disagreement(
-                read, w, mesh=eng.aux_mesh))
+            drift = in_span(torch.no_grad()(lambda read, w: disagreement(
+                read, w, mesh=eng.aux_mesh)), "drift", step=step_idx,
+                work=box["elements"])
             if streams > 1:
                 # on the gossip stream after the step's clock
                 metrics["disagreement"] = eng.submit_aux(
-                    "drift", drift, (state["read"], state["w"]),
-                    int(step_idx))
+                    "drift", drift, (state["read"], state["w"]), step_idx)
             else:
                 metrics["disagreement"] = drift(state["read"], state["w"])
         if publisher is not None:
             publisher.publish(state["read"], state["versions"], state["w"],
-                              int(step_idx),
+                              step_idx,
                               drift=metrics.get("disagreement"),
                               stable=False, rows=published_rows(ring))
         return state, metrics

@@ -62,10 +62,16 @@ n >= 4     ``fwd0..fwd{n-3}`` (slices round-robin) | ``update`` |
 **Timing.** Each task is bracketed by two timing events on its stream;
 once they complete, their times are placed on the host clock through one
 reference event and recorded in the
-:class:`~repro_torch.launch.pipeline.StageTimeline` as the task's
+:class:`~repro_torch.launch.timeline.StageTimeline` as the task's
 execution span, so spans of different streams overlap exactly when the
 card ran two stages at once (``exec_overlap_s``). ``wait_s`` is the host
 time the thread waited for its inputs' producers.
+
+Lane spans (:func:`repro_torch.launch.timeline.span`, on under a profiler)
+nest per thread: a forward task's ``fwd``, ``bwd`` and ``pack`` spans
+have no parent and no step, the update task's ``update`` span and each
+group's mix and the clock task (``gossip`` spans) carry their step, and
+the host's ``step`` span holds the step's submission only.
 
 On the CPU the same threads run the same coordination code; a stage's
 work is done when it returns, so a span is host time around the stage.
@@ -84,8 +90,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.launch.pipeline import (StageTimeline, cutout_args,
-                                         record_fence)
+from repro_torch.launch.pipeline import cutout_args, record_fence
+from repro_torch.launch.timeline import StageTimeline, _DeviceClock, in_span
 from repro_torch.launch.train import alive_on_device
 
 __all__ = [
@@ -315,30 +321,6 @@ def resolve_refs(tree: Any) -> Any:
     if isinstance(tree, (tuple, list)):
         return type(tree)(resolve_refs(v) for v in tree)
     return tree
-
-
-class _DeviceClock:
-    """Places CUDA event times on the host clock: one reference event, whose
-    completion the host observes right away, anchors the others."""
-
-    def __init__(self, clock: Callable[[], float]):
-        self._clock = clock
-        self._ref = None
-        self._t_ref = 0.0
-
-    def start(self) -> None:
-        if self._ref is None:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            ev.synchronize()
-            self._t_ref = self._clock()
-            self._ref = ev
-
-    def at(self, ev) -> float:
-        return self._t_ref + self._ref.elapsed_time(ev) / 1e3
-
-    def reset(self) -> None:
-        self._ref = None
 
 
 class Stream:
@@ -706,7 +688,8 @@ class StreamEngine:
                 return out
 
             task = self._task("gossip", t, group=g, wait_fn=mix_wait,
-                              run_fn=self._group_stages["mix"][g],
+                              run_fn=in_span(self._group_stages["mix"][g],
+                                             "gossip", step=t),
                               signals_fn=mix_signals)
             self._gossip.submit(task)
             mix_tasks[g] = task
@@ -721,7 +704,8 @@ class StreamEngine:
                     skips.result(), t, sh, here(alive), mask)
 
         clock_task = self._task("clock", t, wait_fn=clock_wait,
-                                run_fn=self._group_stages["clock"])
+                                run_fn=in_span(self._group_stages["clock"],
+                                               "gossip", step=t))
         self._gossip.submit(clock_task)
         metric_keys = ["loss", "update_staleness", "weight_sum",
                        "nonfinite_skips", "layer_staleness",

@@ -81,6 +81,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (dequant_mix_ref, gossip_mix_ref,
                                      quantize_plane_ref)
 from repro_torch.launch.mesh import WorkerMesh
+from repro_torch.launch.timeline import span
 from repro_torch.optim.optimizers import Optimizer, apply_updates
 
 
@@ -119,29 +120,34 @@ def forward_slice_lane(loss_fn: Callable, *, fb_ratio: int = 1,
     """ONE forward slice of the forward lane, the unit the pipeline engine
     (``repro_torch.launch.pipeline``) runs as a stage of its own.
 
-    Returns ``fwd(params, batch)``: slice 0, the backward slice, gives
-    ``(loss, grads)`` (autograd under ``enable_grad``); slices ``1..R-1``
-    give ``(loss, None)``, forward only under ``no_grad``. The slice is cut
-    by :func:`_split_fwd_slices`, as in :func:`forward_lane`, which is built
-    from these lanes."""
+    Returns ``fwd(params, batch, worker=None)``: slice 0, the backward
+    slice, gives ``(loss, grads)`` (autograd under ``enable_grad``); slices
+    ``1..R-1`` give ``(loss, None)``, forward only under ``no_grad``. The
+    slice is cut by :func:`_split_fwd_slices`, as in :func:`forward_lane`,
+    which is built from these lanes. The forward runs in a ``fwd`` lane
+    span and the backward in a ``bwd`` one (``repro_torch.launch.
+    timeline``), both tagged with ``worker``."""
     R, r = int(fb_ratio), int(slice_idx)
     if R < 1:
         raise ValueError("fb_ratio must be >= 1")
     if not 0 <= r < R:
         raise ValueError(f"slice_idx={r} out of range for fb_ratio={R}")
 
-    def fwd(params, batch):
+    def fwd(params, batch, worker=None):
         s = _split_fwd_slices(batch, R)[r] if R > 1 else batch
         if r > 0:
-            with torch.no_grad():
+            with torch.no_grad(), span("fwd", worker=worker, slice=r,
+                                       work=s):
                 return loss_fn(params, s)[0], None
         leaves, treedef = tree_flatten(params)
         leaves = [p.detach().requires_grad_(True) for p in leaves]
         with torch.enable_grad():
-            loss, _ = loss_fn(tree_unflatten(treedef, leaves), s)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(grads, leaves)]
+            with span("fwd", worker=worker, slice=0, work=s):
+                loss, _ = loss_fn(tree_unflatten(treedef, leaves), s)
+            with span("bwd", worker=worker, slice=0, work=s):
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g
+                         for g, p in zip(grads, leaves)]
         return loss.detach(), tree_unflatten(treedef, grads)
 
     return fwd
@@ -157,8 +163,9 @@ def forward_lane(loss_fn: Callable, *, fb_ratio: int = 1,
                  accum_steps: int = 1) -> Callable:
     """Forward (+ autograd backward) on one worker's read parameters.
 
-    Returns ``fwd(params, batch) -> (loss, grads)`` with ``loss`` a 0-d
-    tensor and ``grads`` a tree like ``params``. With ``fb_ratio=R > 1``
+    Returns ``fwd(params, batch, worker=None) -> (loss, grads)`` with
+    ``loss`` a 0-d tensor and ``grads`` a tree like ``params`` (``worker``
+    tags the lane spans). With ``fb_ratio=R > 1``
     only slice 0 gets a backward; the other R-1 slices run forward-only
     under ``no_grad`` and the loss averages all R.
 
@@ -178,10 +185,10 @@ def forward_lane(loss_fn: Callable, *, fb_ratio: int = 1,
              for r in range(R)]
 
     if A > 1:
-        def fwd_accum(params, batch):
+        def fwd_accum(params, batch, worker=None):
             loss, acc = None, None
             for mb in _split_fwd_slices(batch, A, "accum_steps"):
-                l_mb, g_mb = lanes[0](params, mb)
+                l_mb, g_mb = lanes[0](params, mb, worker=worker)
                 g_mb, treedef = tree_flatten(g_mb)
                 if acc is None:  # 0 + x is x: the first terms start the sums
                     loss = l_mb.to(torch.float32)
@@ -197,9 +204,9 @@ def forward_lane(loss_fn: Callable, *, fb_ratio: int = 1,
 
         return fwd_accum
 
-    def fwd(params, batch):
-        loss, grads = lanes[0](params, batch)
-        rest = [lane(params, batch)[0] for lane in lanes[1:]]
+    def fwd(params, batch, worker=None):
+        loss, grads = lanes[0](params, batch, worker=worker)
+        rest = [lane(params, batch, worker=worker)[0] for lane in lanes[1:]]
         return combine_slice_losses(loss, rest, R), grads
 
     return fwd
@@ -671,7 +678,8 @@ def _decoupled_worker_fn(part: FlatPartition, fwd: Callable, upd: Callable,
                          mix: Optional[Callable], M: int, D: int, *,
                          active_fn: Optional[Callable] = None,
                          fused_mix: Optional[Callable] = None,
-                         mesh: Optional[WorkerMesh] = None):
+                         mesh: Optional[WorkerMesh] = None,
+                         drift: bool = False):
     """The decoupled step over the stacked workers (all M, or with a
     ``mesh`` of a process group this rank's L rows):
     ``step(state, batch, step_idx, shift_idx) -> (state, metrics)``.
@@ -695,13 +703,28 @@ def _decoupled_worker_fn(part: FlatPartition, fwd: Callable, upd: Callable,
     the chaos controller) adds ``peers_live`` to the metrics; while a peer
     is dead the step is alive-gated: a dead peer applies no updates, its
     clocks freeze, the gossip hop is gated, and the loss is averaged over
-    the live peers."""
+    the live peers.
+
+    ``drift`` adds the disagreement diagnostic of the new read plane
+    (``repro_torch.core.api.disagreement``) to the metrics as
+    ``"disagreement"``.
+
+    The step runs in a ``step`` lane span, and its lanes in ``fwd`` and
+    ``bwd`` (the forward lane's), ``pack``, ``update``, ``gossip`` and
+    ``drift`` spans inside it (``repro_torch.launch.timeline``)."""
     phi = send_fractions(part.num_groups)
     phi_on: Dict[torch.device, torch.Tensor] = {}  # φ copied once per device
     masks: Dict[tuple, torch.Tensor] = {}  # device copies of host masks
     loc = _local_fn(mesh)
+    row_elements = sum(part.group_sizes.values())
+    if drift:
+        from repro_torch.core.api import disagreement
 
     def step(state, batch, step_idx, shift_idx):
+        with span("step", step=step_idx):
+            return lanes(state, batch, step_idx, shift_idx)
+
+    def lanes(state, batch, step_idx, shift_idx):
         read, write = state["read"], state["write"]
         opt_state, w, versions = state["opt"], state["w"], state["versions"]
         fifo = state.get("fifo", ())
@@ -711,47 +734,52 @@ def _decoupled_worker_fn(part: FlatPartition, fwd: Callable, upd: Callable,
         losses = []
         for m in range(next(iter(read.values())).shape[0]):
             loss_m, g_m = fwd(part.unpack({k: v[m] for k, v in read.items()}),
-                              {k: v[m] for k, v in batch.items()})
-            part.pack(g_m, out={k: v[m] for k, v in grads.items()})
+                              {k: v[m] for k, v in batch.items()}, worker=m)
+            with span("pack", worker=m, work=row_elements):
+                part.pack(g_m, out={k: v[m] for k, v in grads.items()})
             del g_m
             losses.append(loss_m)
-        active = loc(active_fn(step_idx)) if active_fn is not None else None
         resid, theta = state.get("resid"), state.get("theta")
-        upd_out = upd(write, opt_state, grads, fifo, step_idx, active=active,
-                      theta=theta)
-        del grads
-        # lane_out: the update deltas on the fused route, else the updated
-        # write plane
-        lane_out, opt_state, fifo, upd_stale, skips = upd_out[:5]
-        if theta is not None:
-            theta = upd_out[5]
-        del upd_out
-        if mesh is not None:
-            skips = mesh.all_reduce_sum_(skips)
-        if alive is not None:
-            lane_out = gate_update(
-                lane_out, None if fused_mix is not None else write,
-                loc(alive))
+        with span("update", work=write):
+            active = (loc(active_fn(step_idx)) if active_fn is not None
+                      else None)
+            upd_out = upd(write, opt_state, grads, fifo, step_idx,
+                          active=active, theta=theta)
+            del grads
+            # lane_out: the update deltas on the fused route, else the
+            # updated write plane
+            lane_out, opt_state, fifo, upd_stale, skips = upd_out[:5]
+            if theta is not None:
+                theta = upd_out[5]
+            del upd_out
+            if mesh is not None:
+                skips = mesh.all_reduce_sum_(skips)
+            if alive is not None:
+                lane_out = gate_update(
+                    lane_out, None if fused_mix is not None else write,
+                    loc(alive))
         int8 = resid is not None
-        if fused_mix is not None:
-            if int8:
-                write, resid, w = fused_mix(write, resid, lane_out, w,
-                                            shift_idx, alive=alive)
+        with span("gossip", work=write):
+            if fused_mix is not None:
+                if int8:
+                    write, resid, w = fused_mix(write, resid, lane_out, w,
+                                                shift_idx, alive=alive)
+                else:
+                    write, w = fused_mix(write, lane_out, w, shift_idx,
+                                         alive=alive)
+            elif int8:
+                write, resid, w = mix(lane_out, resid, w, shift_idx,
+                                      alive=alive)
             else:
-                write, w = fused_mix(write, lane_out, w, shift_idx,
-                                     alive=alive)
-        elif int8:
-            write, resid, w = mix(lane_out, resid, w, shift_idx, alive=alive)
-        else:
-            write, w = mix(lane_out, w, shift_idx, alive=alive)
-        del lane_out
-        read = write
-        if M > 1:
-            if versions.device not in phi_on:
-                phi_on[versions.device] = torch.from_numpy(phi).to(
-                    versions.device)
-            stamp = phi_on[versions.device] + float(np.float32(step_idx))
-            versions = stamp_live(versions, stamp, alive)
+                write, w = mix(lane_out, w, shift_idx, alive=alive)
+            del lane_out
+            read = write
+            if M > 1:
+                if versions.device not in phi_on:
+                    phi_on[versions.device] = torch.from_numpy(phi).to(
+                        versions.device)
+                stamp = phi_on[versions.device] + float(np.float32(step_idx))
+                versions = stamp_live(versions, stamp, alive)
         loss = live_loss(losses, alive, mesh)
         new_state = {"read": read, "write": write, "opt": opt_state, "w": w,
                      "versions": versions}
@@ -763,8 +791,12 @@ def _decoupled_worker_fn(part: FlatPartition, fwd: Callable, upd: Callable,
             new_state["theta"] = theta
         if alive_host is not None:
             new_state["alive"] = alive_host
-        return new_state, _decoupled_metrics(w, versions, loss, upd_stale,
-                                             step_idx, skips, alive_host)
+        metrics = _decoupled_metrics(w, versions, loss, upd_stale, step_idx,
+                                     skips, alive_host)
+        if drift:
+            with span("drift", work=read):
+                metrics["disagreement"] = disagreement(read, w, mesh=mesh)
+        return new_state, metrics
 
     return step
 
@@ -952,18 +984,9 @@ def make_decoupled_backend_trainer(loss_fn: Callable, optimizer: Optimizer,
                                    compensate=compensate)
         mix, fused = _gossip_lanes(part, M, shifts, use_pallas=use_pallas,
                                    wire=wire, mesh=ring)
-        base_step = _decoupled_worker_fn(part, fwd, upd, mix, M, D,
-                                         active_fn=active_fn,
-                                         fused_mix=fused, mesh=ring)
-
-        def step(state, batch, step_idx, shift_idx):
-            new_state, metrics = base_step(state, batch, step_idx, shift_idx)
-            if measure_drift:
-                from repro_torch.core.api import disagreement
-                metrics["disagreement"] = disagreement(
-                    new_state["read"], new_state["w"], mesh=ring)
-            return new_state, metrics
-
+        step = _decoupled_worker_fn(part, fwd, upd, mix, M, D,
+                                    active_fn=active_fn, fused_mix=fused,
+                                    mesh=ring, drift=measure_drift)
         return step, part
 
     def init_fn(rng, params_single):

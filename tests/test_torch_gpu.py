@@ -1587,3 +1587,72 @@ def test_gloo_point_to_point_does_not_take_cuda_tensors(cuda_device,
     print("gloo p2p of CUDA tensors:", outcomes)
     assert "delivered" not in outcomes, outcomes
 
+
+
+# ---------------------------------------------------------------------------
+# lane spans on the profiler's clock
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_lane_spans_share_the_profilers_clock(cuda_device):
+    """One GPT-2-shaped step (2 layers at GPT-2 Medium's width, M=2, R=2,
+    D=1, fused) under the CUDA-only profiler: at least 99% of the trace's
+    kernel launch calls lie inside the ``step`` span on the shared clock,
+    and the lanes' device times (``fwd``, ``bwd``, ``pack``, ``update``,
+    ``gossip``, ``drift``) sum to between 98% of the device's busy time
+    and the profiled window."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.backend import make_backend
+    from repro_torch.launch.timeline import lane_spans
+    from repro_torch.models import build_model
+    from repro_torch.optim import constant, momentum
+
+    cfg = get_config("gpt2-medium").with_(num_layers=2)
+    model = build_model(cfg)
+    be = make_backend("prod", "layup", M=2, loss_fn=model.loss_fn,
+                      optimizer=momentum(0.9), schedule=constant(3e-3),
+                      fb_ratio=2, update_delay=1, use_pallas=True,
+                      device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 8, 513), generator=gen,
+                         device="cuda")
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    st = be.init(None, model.init(seed=0, device="cuda"))
+    for _ in range(2):  # every shape warm
+        st, _ = be.step(st, batch)
+    torch.cuda.synchronize()
+    lane_spans()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, _ = be.step(st, batch)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    spans = lane_spans()
+    kernels, launches = [], []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            kernels.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+        elif "LaunchKernel" in e.name():
+            launches.append(e.start_ns())
+    (step,) = [s for s in spans if s["name"] == "step"]
+    inside = sum(step["start_ns"] <= t <= step["end_ns"] for t in launches)
+    assert launches and inside >= 0.99 * len(launches), (inside,
+                                                         len(launches))
+    busy, end = 0, None
+    for a, b in sorted(kernels):
+        if end is None or a > end:
+            busy, end = busy + (b - a), b
+        elif b > end:
+            busy, end = busy + (b - end), b
+    lanes = sum(s["device_ms"] for s in spans if s["name"] != "step")
+    print(f"lanes {lanes:.3f} ms, busy {busy / 1e6:.3f} ms, window "
+          f"{window_ms:.3f} ms, launches in the step {inside}/"
+          f"{len(launches)}")
+    assert 0.98 * busy / 1e6 <= lanes <= window_ms
